@@ -1,0 +1,89 @@
+"""Command-line renderer (port of akari_render_tpu/cli.py).
+
+Usage:
+    python -m akari_render_tpu_torch.cli -s scenes/matbox/scene.json \\
+        -m scenes/matbox/pt.json --device cuda
+
+`pt` is the only ported method; mcmc, gpt and aov method files exit with
+"not yet ported".
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+
+def main(argv=None):
+    """Render every task of the method file; returns the last task's stats."""
+    ap = argparse.ArgumentParser(prog="akari-torch")
+    ap.add_argument("-s", "--scene", required=True, help="scene.json path")
+    ap.add_argument("-m", "--method", required=True, help="method json path")
+    ap.add_argument("-o", "--output", default=None, help="override output image path")
+    ap.add_argument("--spp", type=int, default=None, help="override spp")
+    ap.add_argument("--res", type=int, default=None, help="override square resolution")
+    ap.add_argument("--save-stats", action="store_true")
+    ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from .config import RenderTask
+    from .scene import load_scene
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: CUDA is not available")
+    tasks = RenderTask.list_from_file(args.method)
+    for task in tasks:
+        if task.method_type != "pt":
+            raise SystemExit(f"method {task.method_type!r} is not yet ported (only pt is)")
+        if args.spp is not None:
+            task.method.spp = args.spp
+
+    t0 = time.time()
+    scene = load_scene(args.scene, width=args.res, height=args.res, device=device)
+    print(
+        f"loaded scene: {scene.num_tris} tris, {len(scene.kinds)} shader kinds, "
+        f"{scene.arrays.lights.num_lights} lights, "
+        f"{scene.camera.width}x{scene.camera.height} on {device} ({time.time() - t0:.2f}s)",
+        file=sys.stderr,
+    )
+
+    def progress(p, total, stats):
+        print(f"  {p}/{total}  t={stats['time'][-1]:.2f}s", file=sys.stderr)
+
+    stats = None
+    for task_idx, task in enumerate(tasks):
+        stats = _render_one(task, task_idx, len(tasks), scene, args,
+                            progress if args.verbose else None)
+    return stats
+
+
+def _render_one(task, task_idx, n_tasks, scene, args, progress_cb):
+    from .core.image_io import write_image
+    from .integrators.pt import render_pt
+    from .stats import RenderSession
+
+    out_p = Path(args.output or task.out_path)
+    if n_tasks > 1 and args.output:
+        out_p = out_p.with_name(f"{out_p.stem}_{task_idx}{out_p.suffix}")
+    session = RenderSession(
+        name=out_p.stem, save_stats=args.save_stats, out_dir=str(out_p.parent)
+    )
+    img, stats = render_pt(scene, task.method, task, progress_cb=progress_cb, session=session)
+    write_image(str(out_p), img)
+    print(f"wrote {out_p}  ({stats.get('total_time', 0.0):.2f}s render)", file=sys.stderr)
+    if args.save_stats:
+        stats_path = out_p.with_suffix(".stats.json")
+        scalars = {k: v for k, v in stats.items() if not hasattr(v, "shape") or v.ndim <= 1}
+        stats_path.write_text(json.dumps(scalars, default=float))
+        print(f"wrote {stats_path}", file=sys.stderr)
+    return stats
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,232 @@
+"""Shared path-tracing core (port of akari_render_tpu/integrators/common.py:
+trace_paths in RGB, unfused and unsplit, with nee_light_sample,
+_emission_at and dispatch_shade).
+
+A batch of N lanes steps through the bounce loop together; an eager
+Python loop takes the place of lax.while_loop and stops once every lane
+has died. Per-bounce sample consumption is the JAX package's (camera 2D;
+per bounce: 3D light, 3D BSDF, 1D RR), so with the bit-exact sampler each
+lane makes the same path decisions.
+
+Shading groups lanes by shader kind (torch.nonzero per kind, gather,
+evaluate, scatter back) in place of the sorted-chunk lax.switch: each lane
+still evaluates exactly its own kind's closure. Only live lanes are
+shaded; the JAX package shades dead lanes too and discards the results.
+
+Not ported: the fused shadow/next-bounce traversal (AKR_FUSE_RAYS), the
+split-compacted resume (depth_end/resume_state), per-depth taps (GPT) and
+spectral transport.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..core.math import RAY_TMAX, dot, face_forward, offset_ray_origin
+from ..core.sampling import INV_PI, mis_weight
+from ..lights import finish_light_sample, light_point_attrs, pdf_direct, sample_light_point_ex
+from ..scene import Scene
+from ..svm.surface import DiffuseBsdf, SurfaceClosure
+
+
+@dataclass
+class PTSettings:
+    max_depth: int = 7
+    rr_depth: int = 5
+    use_nee: bool = True
+    indirect_only: bool = False
+    force_diffuse: bool = False
+    clamp_indirect: float = 1000.0
+
+
+def dispatch_shade(scene: Scene, si, extra: dict, fn, lanes, force_diffuse: bool = False):
+    """fn(closure, extra_rows) -> dict of per-lane tensors, evaluated for the
+    lanes where `lanes` is True, grouped by shader kind. Other lanes get
+    zeros."""
+    n = lanes.shape[0]
+    out: dict = {}
+
+    def scatter(rows, res):
+        for key, v in res.items():
+            if key not in out:
+                out[key] = torch.zeros((n,) + v.shape[1:], dtype=v.dtype, device=v.device)
+            out[key][rows] = v
+
+    if force_diffuse:  # every material becomes Lambert 0.8 (pt.rs:268-280)
+        rows = torch.nonzero(lanes).squeeze(1)
+        refl = torch.full((rows.shape[0], 3), 0.8 * INV_PI, device=lanes.device)
+        frame = tuple(f[rows] for f in si["frame"])
+        closure = SurfaceClosure(DiffuseBsdf(refl), frame, si["ng"][rows])
+        scatter(rows, fn(closure, {k: v[rows] for k, v in extra.items()}))
+        return out
+    for k in range(len(scene.kinds)):
+        rows = torch.nonzero(lanes & (si["kind"] == k)).squeeze(1)
+        if rows.numel() == 0:
+            continue
+        closure = scene.kind_closure(si, k, rows)
+        scatter(rows, fn(closure, {key: v[rows] for key, v in extra.items()}))
+    return out
+
+
+def _emission_at(scene: Scene, si, wo, lanes):
+    """Emission of the interaction toward wo: a gather of the constant
+    per-material table when every emission is constant, else each kind's
+    closure (lanes outside `lanes` get zeros)."""
+    ce = scene.arrays.const_emission
+    if ce is not None:
+        return ce[si["mat"].long()]
+    le = torch.zeros_like(wo)
+    for k in range(len(scene.kinds)):
+        rows = torch.nonzero(lanes & (si["kind"] == k)).squeeze(1)
+        if rows.numel():
+            le[rows] = scene.kind_closure(si, k, rows).emission(wo[rows])
+    return le
+
+
+def nee_light_sample(scene: Scene, si, u_light, lanes):
+    """NEE front half: sample a light point and its radiance toward si."""
+    a = scene.arrays
+    _light, lc_pdf, ltri, lprim_pdf, lbary, lslot = sample_light_point_ex(
+        a.lights, u_light[..., 0], u_light[..., 1:]
+    )
+    if a.lights.attr is not None and a.const_emission is not None:
+        # compact fetch: p/ng/area/mat from the [S, 14] light table
+        lp, lng, larea, lmat = light_point_attrs(a.lights, lslot, lbary)
+        ls = finish_light_sample(lc_pdf, lprim_pdf, ltri, lp, lng, larea, si["p"], si["ng"])
+        l_emission = a.const_emission[lmat.long()]
+    else:
+        lsi = scene.surface_interaction(ltri, lbary)
+        lng = lsi["ng"]
+        ls = finish_light_sample(lc_pdf, lprim_pdf, ltri, lsi["p"], lng, lsi["area"], si["p"], si["ng"])
+        l_emission = _emission_at(scene, lsi, -ls.wi, lanes)
+    front_l = dot(ls.wi, lng) < 0.0
+    return ls._replace(li=torch.where(front_l[..., None], l_emission, 0.0))
+
+
+def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler):
+    """Trace one path per lane: returns the radiance [N, 3]. (The JAX
+    version also returns first-hit AOVs and the sampler, for integrators
+    not ported yet.)"""
+    a = scene.arrays
+    n = ray_o.shape[0]
+    dev = ray_o.device
+    zeros_n = torch.zeros((n,), device=dev)
+    st = {
+        "ray_o": ray_o,
+        "ray_d": ray_d,
+        "exclude": torch.full((n,), -1, dtype=torch.int32, device=dev),
+        "radiance": torch.zeros((n, 3), device=dev),
+        "beta": torch.ones((n, 3), device=dev),
+        "active": torch.ones((n,), dtype=torch.bool, device=dev),
+        "prev_bsdf_pdf": torch.zeros((n,), device=dev),
+        "base_replay": torch.zeros((n, 3), device=dev),
+    }
+    nee = settings.use_nee and a.lights.num_lights > 0
+
+    def intersect_live():
+        return scene.intersect(
+            st["ray_o"], st["ray_d"], zeros_n,
+            torch.where(st["active"], RAY_TMAX, -1.0), exclude0=st["exclude"],
+        )
+
+    def add_emission(depth: int, si, lane_hit, wo):
+        """Surface-light hit with MIS weighting (pt.rs:230-258)."""
+        front = dot(si["ng"], st["ray_d"]) < 0.0
+        ok = lane_hit & (si["light_id"] >= 0) & front
+        le = _emission_at(scene, si, wo, ok)
+        if settings.use_nee:
+            lpdf = pdf_direct(
+                a.lights, si["light_id"], si["prim_pdf"], si["area"], si["ng"], si["p"], st["ray_o"]
+            )
+            w = torch.ones((n,), device=dev) if depth == 0 else mis_weight(st["prev_bsdf_pdf"], lpdf)
+        else:
+            w = torch.ones((n,), device=dev)
+        if settings.indirect_only and depth <= 1:
+            w = torch.zeros_like(w)
+        contrib = st["beta"] * le * w[..., None]
+        st["radiance"] = st["radiance"] + torch.where(ok[..., None], contrib, 0.0)
+
+    def shade(closure, ex):
+        out = {}
+        if "ls_wi" in ex:
+            f_l, pdf_l = closure.evaluate(ex["wo"], ex["ls_wi"])
+            w = mis_weight(ex["ls_pdf"], pdf_l)
+            wp = (w / torch.clamp(ex["ls_pdf"], min=1e-20))[..., None]
+            out["direct"] = ex["ls_li"] * f_l * wp
+        out.update(closure.sample(ex["wo"], ex["u_bsdf"][..., 0], ex["u_bsdf"][..., 1:]))
+        return out
+
+    depth = 0
+    while depth < settings.max_depth and bool(torch.any(st["active"])):
+        hit = intersect_live()
+        lane_hit = st["active"] & hit.valid
+        st["active"] = lane_hit
+        si = scene.surface_interaction(hit.tri_id, hit.bary)
+        wo = -st["ray_d"]
+        add_emission(depth, si, lane_hit, wo)
+        if depth == 0:
+            st["base_replay"] = st["radiance"]
+        cur_depth = depth + 1
+
+        sampler, u_light = sampler.next_3d()
+        ls = None
+        light_valid = torch.zeros((n,), dtype=torch.bool, device=dev)
+        if nee:
+            ls = nee_light_sample(scene, si, u_light, st["active"])
+            light_valid = ls.valid & st["active"]
+            if settings.indirect_only and cur_depth <= 1:
+                light_valid = torch.zeros_like(light_valid)
+
+        sampler, u_bsdf = sampler.next_3d()
+        extra = {"wo": wo, "u_bsdf": u_bsdf}
+        if ls is not None:
+            extra.update(ls_wi=ls.wi, ls_li=ls.li, ls_pdf=ls.pdf)
+        sh = dispatch_shade(scene, si, extra, shade, st["active"], settings.force_diffuse)
+        if not sh:  # no live lane: every output is zero
+            sh = {k: torch.zeros((n,) + s, dtype=dt, device=dev) for k, s, dt in (
+                ("wi", (3,), torch.float32), ("f", (3,), torch.float32),
+                ("pdf", (), torch.float32), ("valid", (), torch.bool),
+                ("direct", (3,), torch.float32))}
+
+        if ls is not None:
+            occluded = scene.occlude(
+                ls.shadow_ro, ls.wi, zeros_n, torch.where(light_valid, ls.shadow_dist, -1.0),
+                exclude0=si["tri_id"].to(torch.int32), exclude1=ls.dest_tri,
+            )
+            direct_ok = light_valid & ~occluded
+            st["radiance"] = st["radiance"] + torch.where(
+                direct_ok[..., None], st["beta"] * sh["direct"], 0.0
+            )
+
+        # continue the path (pt.rs:778-866)
+        sample_ok = sh["valid"] & (sh["pdf"] > 0.0) & (torch.min(sh["f"], -1).values >= 0.0)
+        st["active"] = st["active"] & sample_ok
+        st["beta"] = st["beta"] * torch.where(
+            st["active"][..., None], sh["f"] / torch.clamp(sh["pdf"], min=1e-20)[..., None], 1.0
+        )
+        # russian roulette (pt.rs:210-224, 843-850)
+        sampler, u_rr = sampler.next_1d()
+        if cur_depth > settings.rr_depth:
+            cont_prob = torch.clamp(torch.max(st["beta"], -1).values, 0.0, 1.0) * 0.95
+        else:
+            cont_prob = torch.ones((n,), device=dev)
+        st["active"] = st["active"] & (u_rr < cont_prob)
+        st["beta"] = st["beta"] / torch.clamp(cont_prob, min=1e-20)[..., None]
+        st["prev_bsdf_pdf"] = sh["pdf"]
+        st["ray_o"] = offset_ray_origin(si["p"], face_forward(si["ng"], sh["wi"]))
+        st["ray_d"] = sh["wi"]
+        st["exclude"] = si["tri_id"].to(torch.int32)
+        depth += 1
+
+    # last iteration: intersect plus surface emission only (depth == max_depth)
+    hit = intersect_live()
+    lane_hit = st["active"] & hit.valid
+    si = scene.surface_interaction(hit.tri_id, hit.bary)
+    add_emission(settings.max_depth, si, lane_hit, -st["ray_d"])
+
+    radiance = st["radiance"]
+    if settings.clamp_indirect > 0.0:
+        indirect = torch.clamp(radiance - st["base_replay"], max=settings.clamp_indirect)
+        radiance = st["base_replay"] + indirect
+    return radiance

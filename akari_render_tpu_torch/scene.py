@@ -1,0 +1,451 @@
+"""Scene assembly: scenegraph JSON -> device-resident tensors (port of
+akari_render_tpu/scene.py, flat tier only).
+
+load_scene flattens the geometry, compiles the shader graphs into kinds
+plus per-kind constant matrices, finds the emissive triangles and their
+power, builds the light tables and the camera, all on the host in numpy,
+then moves every array to `device` once.
+
+The flat tier is the only one ported: scenes that would take the cluster
+BVH tier (>= BVH_MIN_TRIS triangles), the two-level instanced accel, or
+alpha-tested traversal raise NotImplementedError here. Where the JAX
+package fetches attributes or shader constants with one-hot MXU matmuls,
+the port gathers rows; the values are the same.
+"""
+from __future__ import annotations
+
+import io
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .accel.flatten import TriangleSoup, flatten_scene, local_mesh_arrays
+from .accel.intersect import intersect_tris
+from .accel.trace import Hit
+from .camera import PerspectiveCamera, camera_from_scenegraph
+from .core.math import RAY_TMAX, Frame, normalize, orthonormal_basis
+from .lights import LightArrays
+from .scenegraph.model import SceneGraph, load_scene_json
+from .svm.compiler import CompiledKind, CompilerDriver, _image_key
+from .svm.eval import EvalContext, check_kind, dispatch_closure
+from .svm.precompute import get_table
+from .svm.surface import frame_from_n_t
+from .svm.texture import TextureAtlas
+
+# the JAX package's cluster-tier threshold (Scene.BVH_MIN_TRIS)
+BVH_MIN_TRIS = 32768
+
+
+class SceneArrays(NamedTuple):
+    """Device tensors the integrator touches per ray."""
+
+    v0: torch.Tensor  # [T, 3]
+    e1: torch.Tensor  # [T, 3]
+    e2: torch.Tensor  # [T, 3]
+    ng: torch.Tensor  # [T, 3]
+    area: torch.Tensor  # [T]
+    ns: torch.Tensor  # [T, 3, 3]
+    uv: torch.Tensor  # [T, 3, 2]
+    tangent: torch.Tensor  # [T, 3, 3]
+    inst_id: torch.Tensor  # [T] int32
+    shader_kind: torch.Tensor  # [T] int32
+    tri_mat: torch.Tensor  # [T] int32
+    param_mats: tuple  # per-kind [num_materials, kind_width] f32
+    # [T, 41] = v0 e1 e2 ng area ns(9) uv(6) tangent(9) kind mat light_id prim_pdf
+    attr: torch.Tensor
+    const_emission: torch.Tensor | None  # [M, 3], None if any emission varies
+    lights: LightArrays
+
+
+@dataclass
+class Scene:
+    arrays: SceneArrays
+    kinds: list[CompiledKind]
+    camera: PerspectiveCamera
+    atlas: TextureAtlas | None
+    material_names: list[str]
+    num_tris: int
+    ggx_table: torch.Tensor  # [16, 16, 16] GGX dielectric albedo table
+    ggx_table_np: np.ndarray
+    # per-kind [kind_width, 2] host min/max of every constant column
+    kind_const_ranges: list | None = None
+
+    @property
+    def device(self):
+        return self.arrays.v0.device
+
+    def intersect(self, o, d, tmin, tmax, exclude0=None, exclude1=None, exclude2=None) -> Hit:
+        """Closest hit through K1 (accel/intersect.py)."""
+        a = self.arrays
+        if self.num_tris == 0:
+            n = o.shape[0]
+            return Hit(
+                t=torch.full((n,), RAY_TMAX, device=o.device),
+                tri_id=torch.full((n,), -1, dtype=torch.int32, device=o.device),
+                bary=torch.zeros((n, 2), device=o.device),
+                valid=torch.zeros((n,), dtype=torch.bool, device=o.device),
+            )
+        return intersect_tris(o, d, tmin, tmax, a.v0, a.e1, a.e2, exclude0, exclude1, exclude2)
+
+    def occlude(self, o, d, tmin, tmax, exclude0=None, exclude1=None, exclude2=None):
+        """Any hit through K1: bool [N]."""
+        a = self.arrays
+        if self.num_tris == 0:
+            return torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
+        return intersect_tris(o, d, tmin, tmax, a.v0, a.e1, a.e2, exclude0, exclude1, exclude2,
+                              any_hit=True)
+
+    def surface_interaction(self, tri_id, bary):
+        """Fetch and interpolate hit attributes: one packed [N, 41] row
+        gather. Returns dict(p, ng, ns, uv, frame, area, kind, mat,
+        light_id, prim_pdf, tri_id)."""
+        t = torch.clamp(tri_id, min=0)
+        attr = self.arrays.attr[t.long()]
+        b0 = bary[..., 0:1]
+        b1 = bary[..., 1:2]
+        v0, e1, e2 = attr[..., 0:3], attr[..., 3:6], attr[..., 6:9]
+        ng = attr[..., 9:12]
+        ns_c = attr[..., 13:22].reshape(attr.shape[:-1] + (3, 3))
+        uv_c = attr[..., 22:28].reshape(attr.shape[:-1] + (3, 2))
+        tan_c = attr[..., 28:37].reshape(attr.shape[:-1] + (3, 3))
+        p = v0 + e1 * b0 + e2 * b1
+        w0 = 1.0 - b0 - b1
+        ns = normalize(w0 * ns_c[..., 0, :] + b0 * ns_c[..., 1, :] + b1 * ns_c[..., 2, :])
+        uv = w0[..., :1] * uv_c[..., 0, :] + b0[..., :1] * uv_c[..., 1, :] + b1[..., :1] * uv_c[..., 2, :]
+        # dpdu tangent (mesh.rs:552-592)
+        duv02 = uv_c[..., 0, :] - uv_c[..., 2, :]
+        duv12 = uv_c[..., 1, :] - uv_c[..., 2, :]
+        dp02 = -e2
+        dp12 = e1 - e2
+        det = duv02[..., 0] * duv12[..., 1] - duv02[..., 1] * duv12[..., 0]
+        degenerate = torch.abs(det) < 1e-8
+        inv_det = torch.where(degenerate, 0.0, 1.0 / torch.where(degenerate, 1.0, det))
+        tangent = (duv12[..., 1:2] * dp02 - duv02[..., 1:2] * dp12) * inv_det[..., None]
+        tlen2 = torch.sum(tangent * tangent, -1)
+        fallback_t, _ = orthonormal_basis(ng)
+        tangent = torch.where((degenerate | (tlen2 == 0.0))[..., None], fallback_t, tangent)
+        # stored per-corner tangents take precedence over the dpdu fallback
+        tan_stored = w0 * tan_c[..., 0, :] + b0 * tan_c[..., 1, :] + b1 * tan_c[..., 2, :]
+        stored_ok = torch.sum(tan_stored * tan_stored, -1) > 1e-12
+        tangent = torch.where(stored_ok[..., None], tan_stored, tangent)
+        return {
+            "p": p,
+            "ng": ng,
+            "ns": ns,
+            "uv": uv,
+            "frame": frame_from_n_t(ns, tangent),
+            "area": attr[..., 12],
+            "kind": attr[..., 37].to(torch.int32),
+            "mat": attr[..., 38].to(torch.int32),
+            "light_id": attr[..., 39].to(torch.int32),
+            "prim_pdf": attr[..., 40],
+            "tri_id": t,
+        }
+
+    def eval_context(self, si, kind_idx: int) -> EvalContext:
+        """Per-lane shader constants of one kind: a row gather of its
+        [num_materials, kind_width] matrix by material id."""
+        return EvalContext(
+            params=self.arrays.param_mats[kind_idx][si["mat"].long()],
+            uv=si["uv"],
+            p=si["p"],
+            ng=si["ng"],
+            frame=si["frame"],
+            table=self.ggx_table,
+            table_np=self.ggx_table_np,
+            textures=self.atlas,
+            const_ranges=(
+                self.kind_const_ranges[kind_idx] if self.kind_const_ranges is not None else None
+            ),
+        )
+
+    def kind_closure(self, si, kind_idx: int, rows):
+        """The world-space closure of one kind over the lanes `rows`."""
+        sub = {
+            "mat": si["mat"][rows], "uv": si["uv"][rows], "p": si["p"][rows],
+            "ng": si["ng"][rows], "frame": tuple(f[rows] for f in si["frame"]),
+        }
+        return dispatch_closure(self.kinds[kind_idx], self.eval_context(sub, kind_idx))
+
+
+def _const_emission_table(sg: SceneGraph, mat_names: list[str]):
+    """Per-material constant emission [M, 3] (numpy), or None if any
+    material's emission is texture-driven or has a nonzero clearcoat."""
+    rows = []
+    for name in mat_names:
+        graph = sg.materials[name]["shader"]
+        nodes = graph["nodes"]
+        node = nodes[nodes[graph["output"]["id"]]["node"]["id"]]
+
+        def const_rgb(ref):
+            n = nodes[ref["id"]]
+            t = n["type"]
+            if t == "spectral_uplift":
+                return const_rgb(n["rgb"])
+            if t == "float":
+                v = float(n["value"])
+                return [v, v, v]
+            if t in ("float3", "rgb"):
+                return [float(x) for x in n["value"]]
+            return None
+
+        if node["type"] == "principled":
+            e = const_rgb(node["emission_color"])
+            st = const_rgb(node["emission_strength"])
+            cw = const_rgb(node["coat_weight"]) if "coat_weight" in node else [0, 0, 0]
+            if e is None or st is None or cw is None or max(cw) != 0.0:
+                return None
+            rows.append([e[i] * st[0] for i in range(3)])
+        elif node["type"] == "emission":
+            e = const_rgb(node["color"])
+            st = const_rgb(node["strength"])
+            if e is None or st is None:
+                return None
+            rows.append([e[i] * st[0] for i in range(3)])
+        else:
+            rows.append([0.0, 0.0, 0.0])
+    return np.asarray(rows, np.float32)
+
+
+def _estimate_emission_const(graph: dict) -> float | None:
+    """Fast emission scan: max emission * strength if statically known,
+    None if texture-driven (conservatively emissive)."""
+    nodes = graph["nodes"]
+    node = nodes[nodes[graph["output"]["id"]]["node"]["id"]]
+
+    def const_max(ref):
+        n = nodes[ref["id"]]
+        t = n["type"]
+        if t == "spectral_uplift":
+            return const_max(n["rgb"])
+        if t == "float":
+            return float(n["value"])
+        if t in ("float3", "rgb"):
+            return float(max(n["value"]))
+        return None
+
+    if node["type"] == "principled":
+        e, s = const_max(node["emission_color"]), const_max(node["emission_strength"])
+        cw = const_max(node["coat_weight"]) if "coat_weight" in node else 0.0
+        if cw is None or cw != 0.0:
+            return None
+    elif node["type"] == "emission":
+        e, s = const_max(node["color"]), const_max(node["strength"])
+    else:
+        return 0.0
+    if e is None or s is None:
+        return None
+    return e * s
+
+
+def _instanced_instances(sg: SceneGraph) -> list[str]:
+    """Instances the JAX package would route to its two-level instanced
+    accel with its default settings: geometry referenced at least twice by
+    non-emissive instances, with at least 128 triangles."""
+    refcount: dict[str, int] = {}
+    for inst in sg.instances.values():
+        g = inst["geometry"]["id"]
+        refcount[g] = refcount.get(g, 0) + 1
+    names, big = [], {}
+    for name, inst in sg.instances.items():
+        g = inst["geometry"]["id"]
+        if refcount[g] < 2:
+            continue
+        if any(
+            (e := _estimate_emission_const(sg.materials[m["id"]]["shader"])) is None or e > 0.0
+            for m in inst["materials"]
+        ):
+            continue
+        if g not in big:
+            big[g] = len(local_mesh_arrays(sg, g)["v0"]) >= 128
+        if big[g]:
+            names.append(name)
+    return names
+
+
+def _build_attr(soup: TriangleSoup, tri_kind: np.ndarray, tri_light_id, tri_prim_pdf) -> np.ndarray:
+    """All per-triangle attributes packed into one [T, 41] float32 matrix."""
+    t = len(soup.v0)
+    cols = [
+        soup.v0, soup.e1, soup.e2, soup.ng, soup.area[:, None],
+        soup.ns.reshape(t, 9), soup.uv.reshape(t, 6), soup.tangent.reshape(t, 9),
+        tri_kind[:, None].astype(np.float32),
+        soup.mat_id[:, None].astype(np.float32),
+        np.asarray(tri_light_id)[:, None].astype(np.float32),
+        np.asarray(tri_prim_pdf)[:, None],
+    ]
+    return np.concatenate([np.asarray(c, np.float32) for c in cols], axis=1)
+
+
+def _collect_images(sg: SceneGraph):
+    """Decode every image-texture buffer the shader graphs reference."""
+    keys: dict = {}
+    images: list[np.ndarray] = []
+    for mat in sg.materials.values():
+        for node in mat["shader"]["nodes"].values():
+            if node.get("type") != "image":
+                continue
+            key = _image_key(node["image"])
+            if key in keys:
+                continue
+            keys[key] = len(images)
+            images.append(_decode_image(sg, node["image"]))
+    return images, keys
+
+
+def _decode_image(sg: SceneGraph, img: dict) -> np.ndarray:
+    """One image node's buffer -> [h, w, 4] float32 raw values, v-flipped."""
+    data = sg.buffer_view(img["data"], np.uint8)
+    fmt = img.get("format", "png")
+    if fmt == "float":
+        w, h, c = int(img["width"]), int(img["height"]), int(img.get("channels", 4))
+        arr = np.frombuffer(data.tobytes(), np.float32).reshape(h, w, c)
+        if c < 4:
+            pad = np.concatenate(
+                [np.zeros((h, w, 3 - c), np.float32), np.ones((h, w, 1), np.float32)], -1
+            ) if c < 3 else np.ones((h, w, 1), np.float32)
+            arr = np.concatenate([arr, pad[..., : 4 - c]], -1)
+    elif fmt == "exr":
+        from .core.image_io import read_exr_bytes
+
+        rgb = read_exr_bytes(data.tobytes()).astype(np.float32)
+        if rgb.shape[-1] >= 4:
+            arr = rgb[..., :4]
+        else:
+            h, w = rgb.shape[:2]
+            arr = np.concatenate([rgb, np.ones((h, w, 4 - rgb.shape[-1]), np.float32)], -1)
+    else:  # png / jpeg / tiff / tga / dds
+        from PIL import Image
+
+        arr = np.asarray(Image.open(io.BytesIO(data.tobytes())).convert("RGBA"), np.float32) / 255.0
+    return arr[::-1].copy()
+
+
+def _mc_emission_power(scene: Scene, tri_ids: np.ndarray, n_samples: int = 16) -> np.ndarray:
+    """Per-triangle emission power: mean over sampled points of
+    max_rgb(closure.emission(wo)) * area (load.rs:312-343). Draws with the
+    bit-exact PCG sampler, so it matches the JAX package."""
+    from .core.samplers import IndependentSampler
+    from .core.sampling import cos_sample_hemisphere, uniform_sample_triangle
+
+    dev = scene.device
+    m = len(tri_ids)
+    tri = torch.as_tensor(np.repeat(tri_ids, n_samples), device=dev)
+    smp = IndependentSampler.new(torch.arange(m * n_samples, device=dev), seed=1)
+    smp, u_tri = smp.next_2d()
+    smp, u_dir = smp.next_2d()
+    si = scene.surface_interaction(tri, uniform_sample_triangle(u_tri))
+    t, b, n = si["frame"]
+    wo = Frame.to_world(t, b, n, cos_sample_hemisphere(u_dir))
+    acc = torch.zeros(m * n_samples, device=dev)
+    for k in range(len(scene.kinds)):
+        rows = torch.nonzero(si["kind"] == k).squeeze(1)
+        if rows.numel():
+            e = scene.kind_closure(si, k, rows).emission(wo[rows])
+            acc[rows] = torch.max(e, dim=-1).values
+    power = acc * si["area"]
+    return power.reshape(m, n_samples).mean(dim=1).cpu().numpy().astype(np.float64)
+
+
+def load_scene(path: str, width: int | None = None, height: int | None = None,
+               device="cpu", ggx_table: np.ndarray | None = None) -> Scene:
+    """Load a scene.json onto `device`. ggx_table injects a [16, 16, 16]
+    GGX albedo table (for example the JAX package's); by default the port
+    computes its own (svm/precompute.py)."""
+    device = torch.device(device)
+    sg = load_scene_json(path)
+    if _instanced_instances(sg):
+        raise NotImplementedError("two-level instanced scenes are not yet ported")
+    soup, mat_names, instance_info = flatten_scene(sg)
+    num_tris = len(soup.v0)
+    if num_tris >= BVH_MIN_TRIS:
+        raise NotImplementedError(
+            f"{num_tris} triangles need the cluster BVH tier, which is not yet ported"
+        )
+    driver = CompilerDriver()
+    images, image_keys = _collect_images(sg)
+    refs = {name: driver.compile(sg.materials[name]["shader"], image_keys) for name in mat_names}
+    kinds = driver.kind_list
+    for kind in kinds:
+        check_kind(kind)
+    tri_kind = np.array([refs[mat_names[m]].kind for m in soup.mat_id], np.int32)
+    param_np = driver.param_matrices()
+
+    atlas = None
+    if images:
+        atlas_data, atlas_sizes = TextureAtlas.build_numpy(images)
+        # alpha comes only from an image base color: refuse if any texel has it
+        if any(node[0] == "image" for k in kinds for node in k.nodes) and float(
+            atlas_data[..., 3].min()
+        ) < 1.0:
+            raise NotImplementedError("alpha-tested scenes are not yet ported")
+        atlas = TextureAtlas.from_numpy(atlas_data, atlas_sizes, device)
+
+    table_np = np.asarray(ggx_table if ggx_table is not None else get_table(device), np.float32)
+
+    def dev(a, dtype=None):
+        return torch.as_tensor(np.array(a, dtype), device=device)
+
+    no_lights = LightArrays.build_numpy([], [], num_tris)
+    arrays = SceneArrays(
+        v0=dev(soup.v0, np.float32), e1=dev(soup.e1, np.float32), e2=dev(soup.e2, np.float32),
+        ng=dev(soup.ng, np.float32), area=dev(soup.area, np.float32), ns=dev(soup.ns, np.float32),
+        uv=dev(soup.uv, np.float32), tangent=dev(soup.tangent, np.float32),
+        inst_id=dev(soup.inst_id, np.int32), shader_kind=dev(tri_kind, np.int32),
+        tri_mat=dev(soup.mat_id, np.int32),
+        param_mats=tuple(dev(m, np.float32) for m in param_np),
+        attr=dev(_build_attr(soup, tri_kind, no_lights["tri_light_id"], no_lights["tri_prim_pdf"])),
+        const_emission=None,
+        lights=LightArrays.from_numpy(no_lights, device),
+    )
+    ce = _const_emission_table(sg, mat_names)
+    scene = Scene(
+        arrays=arrays._replace(const_emission=dev(ce) if ce is not None else None),
+        kinds=kinds,
+        camera=camera_from_scenegraph(sg.camera, width, height, device),
+        atlas=atlas,
+        material_names=mat_names,
+        num_tris=num_tris,
+        ggx_table=dev(table_np),
+        ggx_table_np=table_np,
+        kind_const_ranges=[np.stack([m.min(axis=0), m.max(axis=0)], axis=-1) for m in param_np],
+    )
+
+    # emissive detection and per-triangle power (load.rs:312-414)
+    light_powers, light_tris = [], []
+    for info in instance_info:
+        emissive, needs_mc = False, False
+        for mname in info["materials"]:
+            e = _estimate_emission_const(sg.materials[mname]["shader"])
+            if e is None:
+                needs_mc = emissive = True
+            elif e > 0:
+                emissive = True
+        if not emissive:
+            continue
+        s, c = info["tri_start"], info["tri_count"]
+        tri_ids = np.arange(s, s + c, dtype=np.int32)
+        if needs_mc:
+            powers = _mc_emission_power(scene, tri_ids, n_samples=16)
+        else:
+            per_mat = np.array([
+                _estimate_emission_const(sg.materials[mat_names[m]]["shader"]) or 0.0
+                for m in soup.mat_id[s: s + c]
+            ])
+            powers = (per_mat * soup.area[s: s + c]).astype(np.float64)
+        if float(powers.sum()) > 1e-4:
+            light_powers.append(powers)
+            light_tris.append(tri_ids)
+    lights_np = LightArrays.build_numpy(light_powers, light_tris, num_tris)
+    attr = _build_attr(soup, tri_kind, lights_np["tri_light_id"], lights_np["tri_prim_pdf"])
+    if light_powers:
+        rows = attr[lights_np["tri_ids"]]
+        if rows[:, 38].max(initial=0.0) >= float(1 << 24):
+            raise ValueError("compact light table: material id exceeds float32 exactness")
+        lights_np["attr"] = np.concatenate([rows[:, :13], rows[:, 38:39]], axis=1)
+    scene.arrays = scene.arrays._replace(
+        lights=LightArrays.from_numpy(lights_np, device), attr=dev(attr)
+    )
+    return scene

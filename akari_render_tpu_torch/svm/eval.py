@@ -1,0 +1,359 @@
+"""SVM evaluator: interpret shader bytecode into batched torch ops (port of
+akari_render_tpu/svm/eval.py).
+
+Each bytecode node of a kind is evaluated once per call, in SSA order,
+over the lanes of that kind; BSDF nodes become Surface combinator trees
+(surface.py). Tagged Python values carry the dynamic types.
+
+Ported ops: float, float3, float4, rgb, uplift, math, image, checker,
+mapping, texcoords, separate_color, extract, normal_map, output, diffuse,
+emission, glass, mix_bsdf and principled (the fused form, which is the JAX
+package's default). Not yet ported: noise, plastic and metal; load_scene
+refuses kinds that use them (check_kind).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core.color import convert_colorspace, srgb_to_linear
+from ..core.math import Frame
+from ..core.sampling import INV_PI
+from .compiler import CompiledKind
+from .microfacet import TrowbridgeReitz, f0_from_ior, fr_dielectric, ior_from_f0
+from .precompute import albedo_curve, albedo_curve_np, curve_eval
+from .surface import (
+    BsdfMixture,
+    DiffuseBsdf,
+    EmissiveSurface,
+    MicrofacetReflection,
+    MicrofacetTransmission,
+    Surface,
+    SurfaceClosure,
+    normal_map,
+)
+
+PORTED_OPS = frozenset({
+    "float", "float3", "float4", "rgb", "uplift", "math", "image", "checker",
+    "mapping", "texcoords", "separate_color", "extract", "normal_map", "output",
+    "diffuse", "emission", "glass", "mix_bsdf", "principled",
+})
+
+
+def check_kind(kind: CompiledKind) -> None:
+    """Raise for a kind that uses a shader op the port does not have yet."""
+    for node in kind.nodes:
+        if node[0] not in PORTED_OPS:
+            raise NotImplementedError(f"svm op {node[0]!r} is not yet ported")
+
+
+class EvalContext(NamedTuple):
+    """Per-batch inputs to shader evaluation."""
+
+    params: torch.Tensor  # [N, kind_width] per-lane constants
+    uv: torch.Tensor  # [N, 2]
+    p: torch.Tensor  # [N, 3] world hit position
+    ng: torch.Tensor  # [N, 3] world geometric normal
+    frame: tuple  # (t, b, n) world shading frame
+    table: torch.Tensor  # [16, 16, 16] GGX dielectric albedo table
+    table_np: np.ndarray  # the same table on the host (static-constant path)
+    textures: object | None = None  # TextureAtlas or None
+    # host [kind_width, 2] min/max of each constant column over the kind's
+    # parameter matrix: statically-constant lobes are eliminated
+    const_ranges: object = None
+
+
+class _Evaluator:
+    def __init__(self, kind: CompiledKind, ctx: EvalContext):
+        self.kind = kind
+        self.ctx = ctx
+        self.values: list = [None] * len(kind.nodes)
+
+    def static_const(self, i: int):
+        """The value of node i if it is a float constant equal over the
+        kind's whole parameter matrix, else None."""
+        r = self.ctx.const_ranges
+        if r is None:
+            return None
+        node = self.kind.nodes[i]
+        if node[0] == "float":
+            lo, hi = float(r[node[1], 0]), float(r[node[1], 1])
+            if lo == hi:
+                return lo
+        return None
+
+    def _get(self, i: int):
+        if self.values[i] is None:
+            self.values[i] = self._eval(i)
+        return self.values[i]
+
+    def f(self, i: int):
+        tag, v = self._get(i)
+        if tag == "f":
+            return v
+        if tag in ("f2", "f3", "f4"):
+            return v[..., 0]
+        if tag == "color":
+            return v[0][..., 0]
+        raise TypeError(f"cannot convert {tag} to float")
+
+    def f2(self, i: int):
+        tag, v = self._get(i)
+        if tag == "f2":
+            return v
+        if tag in ("f3", "f4"):
+            return v[..., :2]
+        if tag == "f":
+            return torch.stack([v, torch.zeros_like(v)], -1)
+        raise TypeError(f"cannot convert {tag} to float2")
+
+    def f3(self, i: int):
+        tag, v = self._get(i)
+        if tag == "f3":
+            return v
+        if tag == "f4":
+            return v[..., :3]
+        if tag == "f2":
+            return torch.cat([v, torch.zeros_like(v[..., :1])], -1)
+        if tag == "f":
+            z = torch.zeros_like(v)
+            return torch.stack([v, z, z], -1)
+        if tag == "color":
+            return v[0]
+        raise TypeError(f"cannot convert {tag} to float3")
+
+    def f4(self, i: int):
+        tag, v = self._get(i)
+        if tag == "f4":
+            return v
+        if tag == "f3":
+            return torch.cat([v, torch.ones_like(v[..., :1])], -1)
+        raise TypeError(f"cannot convert {tag} to float4")
+
+    def color_alpha(self, i: int):
+        tag, v = self._get(i)
+        if tag == "color":
+            return v
+        if tag == "f4":
+            return v[..., :3], v[..., 3]
+        f3 = self.f3(i)
+        return f3, torch.ones(f3.shape[:-1], device=f3.device)
+
+    def color(self, i: int):
+        return self.color_alpha(i)[0]
+
+    def surface(self, i: int) -> Surface:
+        tag, v = self._get(i)
+        if tag != "surface":
+            raise TypeError(f"node {i} is {tag}, expected surface")
+        return v
+
+    def _eval(self, i: int):
+        ctx = self.ctx
+        node = self.kind.nodes[i]
+        op = node[0]
+        if op == "float":
+            return "f", ctx.params[..., node[1]]
+        if op == "float3":
+            return "f3", ctx.params[..., node[1]: node[1] + 3]
+        if op == "float4":
+            return "f4", ctx.params[..., node[1]: node[1] + 4]
+        if op == "rgb":
+            rgb = convert_colorspace(self.f3(node[1]), _cs(node[2]), "srgb")
+            return "f4", torch.cat([rgb, torch.ones_like(rgb[..., :1])], -1)
+        if op == "uplift":
+            rgba = self.f4(node[1])
+            return "color", (rgba[..., :3], rgba[..., 3])
+        if op == "math":
+            a, b = self.f(node[2]), self.f(node[3])
+            fn = {
+                "add": lambda: a + b,
+                "sub": lambda: a - b,
+                "mul": lambda: a * b,
+                "div": lambda: a / torch.where(b == 0, 1.0, b),
+                "pow": lambda: torch.pow(torch.clamp(a, min=0.0), b),
+            }[node[1]]
+            return "f", fn()
+        if op == "image":
+            from .texture import sample_texture
+
+            tex_idx = ctx.params[..., node[1]].to(torch.int32)
+            uv = self.f2(node[3]) if node[3] is not None else ctx.uv
+            rgba = sample_texture(ctx.textures, tex_idx, uv, node[4], node[5])
+            rgb = rgba[..., :3]
+            if node[2] != "none" and _cs(node[2]) == "srgb":
+                rgb = srgb_to_linear(rgb)
+            return "f4", torch.cat([rgb, rgba[..., 3:4]], -1)
+        if op == "checker":
+            uv = self.f2(node[1]) if node[1] is not None else ctx.uv
+            scale = self.f(node[2])
+            c1, a1 = self.color_alpha(node[3])
+            c2, a2 = self.color_alpha(node[4])
+            pos = torch.floor(uv * scale[..., None] * 2.0).to(torch.int32)
+            first = (pos[..., 0] + pos[..., 1]) % 2 == 0
+            return "color", (torch.where(first[..., None], c1, c2), torch.where(first, a1, a2))
+        if op == "mapping":
+            v = self.f3(node[2])
+            loc = self.f3(node[3])
+            scale = self.f3(node[5])
+            if node[1] == "point":
+                return "f3", v * scale + loc
+            return "f3", (v - loc) / torch.where(scale == 0, 1.0, scale)
+        if op == "texcoords":
+            return "f2", ctx.uv
+        if op == "separate_color":
+            c = self.f3(node[2])
+            return "fields", {"Red": c[..., 0], "Green": c[..., 1], "Blue": c[..., 2]}
+        if op == "extract":
+            tag, v = self._get(node[1])
+            if tag != "fields":
+                raise TypeError(f"extract from {tag}")
+            return "f", v[node[2]]
+        if op == "normal_map":
+            n = 2.0 * self.f3(node[1]) - 1.0
+            strength = self.f(node[2])
+            return "f3", n * torch.stack([strength, strength, torch.ones_like(strength)], -1)
+        if op == "output":
+            return self._get(node[1])
+        if op == "diffuse":
+            refl, _ = self.color_alpha(node[1])
+            return "surface", DiffuseBsdf(refl * INV_PI)
+        if op == "emission":
+            return "surface", EmissiveSurface(None, self.color(node[1]) * self.f(node[2])[..., None])
+        if op == "glass":
+            return "surface", self._glass(node)
+        if op == "mix_bsdf":
+            a, b, fac = self.surface(node[1]), self.surface(node[2]), self.f(node[3])
+            return "surface", BsdfMixture(lambda wo: fac, a, b, "mix")
+        if op == "principled":
+            return "surface", self._principled(dict(node[1]))
+        raise NotImplementedError(f"svm op {op!r} is not yet ported")
+
+    def _glass(self, node) -> Surface:
+        """Fresnel-weighted reflection plus transmission. The dispersion
+        term acts in spectral mode only, which is not ported."""
+        kr = self.color(node[1])
+        kt = torch.sqrt(torch.clamp(self.color(node[2]), min=0.0))
+        eta = self.f(node[3])
+        dist = TrowbridgeReitz.from_roughness(self.f(node[4]))
+
+        def fresnel(c):
+            return fr_dielectric(c, eta)[..., None] * torch.ones(3, device=c.device)
+
+        refl = MicrofacetReflection(kr, fresnel, dist)
+        trans = MicrofacetTransmission(kt, eta, fresnel, dist)
+        return BsdfMixture(lambda wo: fr_dielectric(Frame.cos_theta(wo), eta), trans, refl, "add")
+
+    def _principled(self, inp: dict) -> Surface:
+        """Blender 4.0 Principled BSDF, fused form."""
+        ctx = self.ctx
+        color, _alpha = self.color_alpha(inp["base_color"])
+        emission = self.color(inp["emission_color"]) * self.f(inp["emission_strength"])[..., None]
+        static_zero = frozenset(
+            name
+            for name, key in (("metallic", "metallic"), ("transmission", "transmission_weight"),
+                              ("coat", "coat_weight"))
+            if self.static_const(inp[key]) == 0.0
+        )
+        static_consts = {
+            key: self.static_const(inp[key])
+            for key in ("roughness", "ior", "specular_ior_level", "coat_roughness", "coat_ior")
+        }
+        bsdf = build_principled_surface(
+            ctx,
+            static_zero=static_zero,
+            static_consts=static_consts,
+            color=color,
+            emission=emission,
+            metallic=self.f(inp["metallic"]),
+            roughness=self.f(inp["roughness"]),
+            eta=self.f(inp["ior"]),
+            transmission=self.f(inp["transmission_weight"]),
+            specular_ior_level=self.f(inp["specular_ior_level"]),
+            specular_tint=self.color(inp["specular_tint"]),
+            coat_weight=self.f(inp["coat_weight"]),
+            coat_roughness=self.f(inp["coat_roughness"]),
+            coat_ior=self.f(inp["coat_ior"]),
+            coat_tint=self.color(inp["coat_tint"]),
+        )
+        # tangent-space normal input: x/y negated (principled.rs:200-215)
+        sign = torch.tensor([-1.0, -1.0, 1.0], device=color.device)
+        return normal_map(bsdf, self.f3(inp["normal"]) * sign, ctx.ng, ctx.frame)
+
+
+def _albedo_fn(ctx: EvalContext, roughness, eta, roughness_c=None, eta_c=None):
+    """Directional-albedo function (cos -> [N]) of a GGX dielectric layer,
+    with the view-independent table axes hoisted out of the query."""
+
+    def cmap(cos):
+        return torch.abs(torch.clamp(cos, -0.999, 0.999))
+
+    if roughness_c is not None and eta_c is not None:
+        zc = math.sqrt(abs((eta_c - 1.0) / (eta_c + 1.0)))
+        curve = torch.as_tensor(albedo_curve_np(ctx.table_np, roughness_c, zc), device=roughness.device)
+        return lambda cos: curve_eval(curve, cmap(cos))
+    z = torch.sqrt(torch.abs((eta - 1.0) / (eta + 1.0)))
+    cell = {}
+
+    def fn(cos):
+        if "curve" not in cell:
+            cell["curve"] = albedo_curve(ctx.table, roughness, z)
+        return curve_eval(cell["curve"], cmap(cos))
+
+    return fn
+
+
+def build_principled_surface(ctx: EvalContext, *, color, emission, metallic, roughness, eta,
+                             transmission, specular_ior_level, specular_tint, coat_weight,
+                             coat_roughness, coat_ior, coat_tint, static_zero=frozenset(),
+                             static_consts=None) -> Surface:
+    """Principled BSDF lobes (principled.rs:11-199), before normal mapping."""
+    from .principled_fused import FusedPrincipled
+
+    sc = static_consts or {}
+    f0 = f0_from_ior(eta)
+    f0 = torch.where(specular_ior_level != 0.5, f0 * 2.0 * specular_ior_level, f0)
+    spec_eta = torch.where(specular_ior_level != 0.5, ior_from_f0(f0), eta)
+    spec_eta_c = None
+    ior_c, siol_c = sc.get("ior"), sc.get("specular_ior_level")
+    if ior_c is not None and siol_c is not None:
+        if siol_c == 0.5:
+            spec_eta_c = ior_c
+        else:
+            t = (ior_c - 1.0) / (ior_c + 1.0)
+            s = math.sqrt(min(max(t * t * 2.0 * siol_c, 0.0), 0.99))
+            spec_eta_c = (1.0 + s) / (1.0 - s)
+    return FusedPrincipled(
+        static_zero=static_zero,
+        base_color=color,
+        metallic=metallic,
+        roughness=roughness,
+        eta=eta,
+        transmission=transmission,
+        spec_eta=spec_eta,
+        specular_weight=f0,
+        specular_tint=specular_tint,
+        coat_weight=coat_weight,
+        coat_roughness=coat_roughness,
+        coat_ior=coat_ior,
+        coat_tint=coat_tint,
+        emission=emission,
+        spec_albedo_fn=_albedo_fn(ctx, roughness, spec_eta, sc.get("roughness"), spec_eta_c),
+        coat_albedo_fn=_albedo_fn(ctx, coat_roughness, coat_ior, sc.get("coat_roughness"),
+                                  sc.get("coat_ior")),
+    )
+
+
+def dispatch_closure(kind: CompiledKind, ctx: EvalContext) -> SurfaceClosure:
+    """Evaluate a kind over its lanes and wrap it in the world-space closure."""
+    tag, surf = _Evaluator(kind, ctx)._get(kind.output)
+    if tag != "surface":
+        raise TypeError(f"shader output is {tag}, expected surface")
+    return SurfaceClosure(surf, ctx.frame, ctx.ng)
+
+
+def _cs(name: str) -> str:
+    return {"srgb": "srgb", "aces": "aces", "none": "srgb"}.get(name, "srgb")

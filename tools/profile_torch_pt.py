@@ -1,0 +1,95 @@
+"""Profile the PyTorch port's path tracer on the card: where one matbox
+sample's time goes.
+
+Renders a warm-up sample, then `--spp` samples of matbox at `--res`^2 under
+torch.profiler (CPU and CUDA activities), and reports the wall time per
+sample, the device's busy and idle share, the K1 kernel's share, the kernel
+launch count, and the top device kernels and host ops. The full tables go
+to `--out`.
+
+Usage:
+    python tools/profile_torch_pt.py [--res 512] [--spp 2] [--out build/profile_torch_pt.txt]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--res", type=int, default=512)
+    ap.add_argument("--spp", type=int, default=2)
+    ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch_pt.txt"))
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from akari_render_tpu_torch.config import RenderTask
+    from akari_render_tpu_torch.core.filters import filter_from_config
+    from akari_render_tpu_torch.core.math import disable_tf32
+    from akari_render_tpu_torch.integrators.common import PTSettings
+    from akari_render_tpu_torch.integrators.pt import render_sample
+    from akari_render_tpu_torch.scene import load_scene
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    disable_tf32()
+    task = RenderTask.from_file(ROOT / "scenes/matbox/pt.json")
+    m = task.method
+    settings = PTSettings(max_depth=m.max_depth, rr_depth=m.rr_depth, use_nee=m.use_nee,
+                          clamp_indirect=m.clamp_indirect)
+    filt = filter_from_config(task.filter_config)
+    scene = load_scene(str(ROOT / "scenes/matbox/scene.json"), args.res, args.res, device="cuda")
+
+    def sample(i):
+        return render_sample(scene, settings, filt, i, task.seed, task.sampler)
+
+    sample(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(args.spp):
+            sample(1 + i)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    k1_us = sum(e.time_range.elapsed_us() for e in kernels if "mt_kernel" in e.name)
+    avg = prof.key_averages()
+    summary = {
+        "device": torch.cuda.get_device_name(0),
+        "res": args.res,
+        "spp": args.spp,
+        "wall_s_per_sample": wall / args.spp,
+        "device_busy_s_per_sample": busy_us / 1e6 / args.spp,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "k1_share_of_busy": k1_us / busy_us if busy_us else 0.0,
+        "kernel_launches_per_sample": len(kernels) / args.spp,
+        "mpaths_per_s": args.res * args.res * args.spp / wall / 1e6,
+    }
+    dev_key = "self_device_time_total" if hasattr(avg[0], "self_device_time_total") else "self_cuda_time_total"
+    by_dev = avg.table(sort_by=dev_key, row_limit=40)
+    by_cpu = avg.table(sort_by="self_cpu_time_total", row_limit=40)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(f"{json.dumps(summary)}\n\n# by device time\n{by_dev}\n\n# by host time\n{by_cpu}\n")
+    top = sorted(avg, key=dev_us, reverse=True)[:12]
+    for e in top:
+        print(f"  {dev_us(e) / 1e3 / args.spp:9.3f} ms/sample  x{e.count // args.spp:<6} {e.key[:90]}")
+    print(json.dumps(summary))
+
+
+if __name__ == "__main__":
+    main()
