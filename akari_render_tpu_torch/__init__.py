@@ -7,11 +7,12 @@ method config, shader compiler, scene flattening, EXR IO) are carried over
 as numpy code, because importing anything from `akari_render_tpu` imports
 jax (its `__init__` sets up the XLA compile cache).
 
-Ported so far (the first slice): `cli -s scene.json -m pt.json` with the
-path tracer on flat-tier scenes (no BVH, instancing, alpha or spectral
-transport), with the brute-force Möller-Trumbore intersector as a
-hand-written CUDA kernel (`csrc/intersect.cu`, wrapper
-`accel/intersect.py`). Nothing here imports jax.
+Ported so far: `cli -s scene.json -m pt.json` with the path tracer on
+flat-tier and cluster-tier scenes with instancing (no alpha or spectral
+transport). The hand-written CUDA kernels are the brute-force
+Möller-Trumbore intersector (`csrc/intersect.cu`, wrapper
+`accel/intersect.py`) and the pair sweep's cull, refine and candidate walk
+(`csrc/pairs.cu`, wrappers in `accel/pairs.py`). Nothing here imports jax.
 """
 
 __version__ = "0.1.0"

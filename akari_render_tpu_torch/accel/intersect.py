@@ -11,7 +11,8 @@ torch version (`intersect_tris_torch`), a CUDA tensor launches the kernel
 or raises. There is no fallback from a failed build or launch.
 
 The kernel is compiled with nvcc on first use into build/torch_kernels/
-(keyed by a hash of the source and flags) and loaded with ctypes.
+(keyed by a hash of the source and flags, accel/nvcc.py) and loaded with
+ctypes.
 
 On CUDA every flat-tier scene takes the kernel: the JAX package's 16384
 triangle limit (Scene.PALLAS_MAX_TRIS) is a TPU compile-time limit.
@@ -19,26 +20,15 @@ triangle limit (Scene.PALLAS_MAX_TRIS) is a TPU compile-time limit.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
-import time
-from pathlib import Path
 
 import torch
 
 from ..core.math import RAY_TMAX
+from .nvcc import CSRC, compile_library
 from .trace import Hit, intersect_brute_force, occlude_brute_force
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "intersect.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-]
+SOURCE = CSRC / "intersect.cu"
 # rays per plain-version call: bounds its [512, RAY_CHUNK] f32 temporaries
 RAY_CHUNK = 1 << 16
 
@@ -52,42 +42,15 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the K1 kernel cannot be built")
-
-
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib, build_seconds
     with _lib_lock:
         if _lib is not None:
             return _lib
-        src = SOURCE.read_bytes()
-        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"intersect_{key}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            t0 = time.perf_counter()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                    capture_output=True, text=True,
-                )
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-                os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-            build_seconds = time.perf_counter() - t0
+        so, secs = compile_library(SOURCE, "intersect")
+        if secs:
+            build_seconds = secs
         lib = ctypes.CDLL(str(so))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.akr_intersect.argtypes = [vp] * 10 + [ci, ci, ci] + [vp] * 6

@@ -1,33 +1,48 @@
 """Scene assembly: scenegraph JSON -> device-resident tensors (port of
-akari_render_tpu/scene.py, flat tier only).
+akari_render_tpu/scene.py; no alpha-tested traversal).
 
 load_scene flattens the geometry, compiles the shader graphs into kinds
 plus per-kind constant matrices, finds the emissive triangles and their
 power, builds the light tables and the camera, all on the host in numpy,
 then moves every array to `device` once.
 
-The flat tier is the only one ported: scenes that would take the cluster
-BVH tier (>= BVH_MIN_TRIS triangles), the two-level instanced accel, or
-alpha-tested traversal raise NotImplementedError here. Where the JAX
-package fetches attributes or shader constants with one-hot MXU matmuls,
-the port gathers rows; the values are the same.
+Geometry takes one of the JAX package's tiers:
+- flat (fewer than BVH_MIN_TRIS triangles, nothing instanced): every ray
+  against every triangle through K1 (accel/intersect.py);
+- cluster (BVH_MIN_TRIS or more, or AKR_FORCE_BVH): BVH-ordered clusters
+  traversed by the pair sweep (accel/pairs.py, K2-K4);
+- instanced: geometry referenced by several non-emissive instances stays
+  in local space (accel/instanced.py); the flat clusters (if any) and
+  every instance's clusters form one unified candidate list for the pair
+  sweep. A flat part below the cluster tier goes through K1 and its hit is
+  min-combined with the sweep's, as on the TPU.
+Alpha-tested traversal raises NotImplementedError. Where the JAX package
+fetches attributes or shader constants with one-hot MXU matmuls, the port
+gathers rows; the values are the same.
 """
 from __future__ import annotations
 
 import io
+import os
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .accel.cluster import build_clusters
 from .accel.flatten import TriangleSoup, flatten_scene, local_mesh_arrays
+from .accel.instanced import (
+    apply_3x3, apply_affine, apply_linear, build_instanced, build_unified_clusters,
+)
 from .accel.intersect import intersect_tris
+from .accel.pairs import intersect_pairs
 from .accel.trace import Hit
 from .camera import PerspectiveCamera, camera_from_scenegraph
 from .core.math import RAY_TMAX, Frame, normalize, orthonormal_basis
 from .lights import LightArrays
-from .scenegraph.model import SceneGraph, load_scene_json
+from .native import build_bvh_order
+from .scenegraph.model import SceneGraph, load_scene_json, load_transform
 from .svm.compiler import CompiledKind, CompilerDriver, _image_key
 from .svm.eval import EvalContext, check_kind, dispatch_closure
 from .svm.precompute import get_table
@@ -57,6 +72,12 @@ class SceneArrays(NamedTuple):
     attr: torch.Tensor
     const_emission: torch.Tensor | None  # [M, 3], None if any emission varies
     lights: LightArrays
+    # cluster tier: {"clusters": ClusterArrays} over the flat soup, or None
+    bvh: dict | None = None
+    # instanced geometry (accel/instanced.py InstancedArrays), or None
+    instanced: object = None
+    # unified flat + instanced candidate list for the pair sweep, or None
+    unified: object = None
 
 
 @dataclass
@@ -76,40 +97,135 @@ class Scene:
     def device(self):
         return self.arrays.v0.device
 
-    def intersect(self, o, d, tmin, tmax, exclude0=None, exclude1=None, exclude2=None) -> Hit:
-        """Closest hit through K1 (accel/intersect.py)."""
+    def intersect(self, o, d, tmin, tmax, exclude0=None, exclude1=None, exclude2=None,
+                  any_hit_mask=None) -> Hit:
+        """Closest hit through the scene's tier. With instances, the unified
+        pair sweep covers them (and the flat clusters, on the cluster tier);
+        a flat part below the cluster tier goes through K1 up to the sweep's
+        hit. any_hit_mask: per-lane any hit for the pair sweep; K1 runs
+        closest hit for those lanes (callers read only `valid`)."""
         a = self.arrays
+        if a.unified is None:
+            return self._trace_flat(o, d, tmin, tmax, exclude0, exclude1, exclude2,
+                                    any_hit_mask=any_hit_mask)
+        hit_u = intersect_pairs(a.unified, o, d, tmin, tmax, exclude0, exclude1, exclude2,
+                                any_hit_mask=any_hit_mask)
+        if a.bvh is not None or self.num_tris == 0:
+            return hit_u
+        hit = self._trace_flat(o, d, tmin, torch.minimum(tmax, hit_u.t), exclude0, exclude1,
+                               exclude2)
+        better = hit_u.valid & (hit_u.t < hit.t)
+        return Hit(*(torch.where(better.reshape(better.shape + (1,) * (x.ndim - 1)), xu, x)
+                     for x, xu in zip(hit, hit_u)))
+
+    def occlude(self, o, d, tmin, tmax, exclude0=None, exclude1=None, exclude2=None):
+        """Any hit: bool [N]."""
+        a = self.arrays
+        if a.unified is None:
+            return self._trace_flat(o, d, tmin, tmax, exclude0, exclude1, exclude2, any_hit=True)
+        occ = intersect_pairs(a.unified, o, d, tmin, tmax, exclude0, exclude1, exclude2,
+                              any_hit=True)
+        if a.bvh is not None or self.num_tris == 0:
+            return occ
+        return occ | self._trace_flat(o, d, tmin, tmax, exclude0, exclude1, exclude2,
+                                      any_hit=True)
+
+    def _trace_flat(self, o, d, tmin, tmax, exclude0=None, exclude1=None, exclude2=None,
+                    any_hit=False, any_hit_mask=None):
+        """The flat soup alone: the pair sweep over its clusters on the
+        cluster tier, else K1. A Hit, or bool [N] for any hit."""
+        a = self.arrays
+        n = o.shape[0]
         if self.num_tris == 0:
-            n = o.shape[0]
+            if any_hit:
+                return torch.zeros((n,), dtype=torch.bool, device=o.device)
             return Hit(
                 t=torch.full((n,), RAY_TMAX, device=o.device),
                 tri_id=torch.full((n,), -1, dtype=torch.int32, device=o.device),
                 bary=torch.zeros((n, 2), device=o.device),
                 valid=torch.zeros((n,), dtype=torch.bool, device=o.device),
             )
-        return intersect_tris(o, d, tmin, tmax, a.v0, a.e1, a.e2, exclude0, exclude1, exclude2)
-
-    def occlude(self, o, d, tmin, tmax, exclude0=None, exclude1=None, exclude2=None):
-        """Any hit through K1: bool [N]."""
-        a = self.arrays
-        if self.num_tris == 0:
-            return torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
+        if a.bvh is not None:
+            return intersect_pairs(a.bvh["clusters"], o, d, tmin, tmax, exclude0, exclude1,
+                                   exclude2, any_hit=any_hit, any_hit_mask=any_hit_mask)
         return intersect_tris(o, d, tmin, tmax, a.v0, a.e1, a.e2, exclude0, exclude1, exclude2,
-                              any_hit=True)
+                              any_hit=any_hit)
 
     def surface_interaction(self, tri_id, bary):
-        """Fetch and interpolate hit attributes: one packed [N, 41] row
-        gather. Returns dict(p, ng, ns, uv, frame, area, kind, mat,
-        light_id, prim_pdf, tri_id)."""
+        """Fetch and interpolate hit attributes. Returns dict(p, ng, ns, uv,
+        frame, area, kind, mat, light_id, prim_pdf, tri_id). Global virtual
+        ids at or above num_tris are instanced triangles."""
         t = torch.clamp(tri_id, min=0)
-        attr = self.arrays.attr[t.long()]
         b0 = bary[..., 0:1]
         b1 = bary[..., 1:2]
-        v0, e1, e2 = attr[..., 0:3], attr[..., 3:6], attr[..., 6:9]
-        ng = attr[..., 9:12]
-        ns_c = attr[..., 13:22].reshape(attr.shape[:-1] + (3, 3))
-        uv_c = attr[..., 22:28].reshape(attr.shape[:-1] + (3, 2))
-        tan_c = attr[..., 28:37].reshape(attr.shape[:-1] + (3, 3))
+        if self.arrays.instanced is None:
+            return self._si_flat(t, b0, b1)
+        si_i = self._si_instanced(t, b0, b1)
+        if self.num_tris == 0:  # fully instanced scene
+            return si_i
+        is_inst = t >= self.num_tris
+        si_f = self._si_flat(torch.clamp(t, max=self.num_tris - 1), b0, b1)
+        si = {}
+        for k, x in si_f.items():
+            y = si_i[k]
+            if k == "frame":
+                si[k] = tuple(torch.where(is_inst[..., None], yi, xi) for xi, yi in zip(x, y))
+            else:
+                si[k] = torch.where(is_inst.reshape(is_inst.shape + (1,) * (x.ndim - 1)), y, x)
+        si["tri_id"] = t
+        return si
+
+    def _si_flat(self, t, b0, b1):
+        """One packed [N, 41] row gather."""
+        attr = self.arrays.attr[t.long()]
+        return self._finish_si(
+            t, b0, b1, attr[..., 0:3], attr[..., 3:6], attr[..., 6:9], attr[..., 9:12],
+            attr[..., 12], attr[..., 13:22].reshape(attr.shape[:-1] + (3, 3)),
+            attr[..., 22:28].reshape(attr.shape[:-1] + (3, 2)),
+            attr[..., 28:37].reshape(attr.shape[:-1] + (3, 3)),
+            attr[..., 37].to(torch.int32), attr[..., 38].to(torch.int32),
+            attr[..., 39].to(torch.int32), attr[..., 40],
+        )
+
+    def _si_instanced(self, t, b0, b1):
+        """Attributes of global virtual ids >= num_tris: find the instance
+        by tri_base, gather the LOCAL attribute row and transform it with
+        the instance's matrices."""
+        ia = self.arrays.instanced
+        num_i = ia.tri_base.shape[0]
+        tb = ia.tri_base.to(torch.int64)
+        i = torch.clamp(torch.searchsorted(tb, t.to(torch.int64), right=True) - 1, 0, num_i - 1)
+        tl_max = max(int(ia.v0.shape[0]) - 1, 0)
+        lt = torch.clamp(t.to(torch.int64) - tb[i] + ia.mesh_tri_start.to(torch.int64)[i],
+                         0, tl_max)
+        m = ia.m[i]
+        mt = ia.minv_t[i]
+        al = ia.attr_local[lt]
+        l_v0, l_e1, l_e2 = al[..., 0:3], al[..., 3:6], al[..., 6:9]
+        nsl = al[..., 9:18].reshape(al.shape[:-1] + (3, 3))
+        uv_c = al[..., 18:24].reshape(al.shape[:-1] + (3, 2))
+        tanl = al[..., 24:33].reshape(al.shape[:-1] + (3, 3))
+        v0 = apply_affine(m, l_v0)
+        e1 = apply_linear(m, l_e1)
+        e2 = apply_linear(m, l_e2)
+        ng = apply_3x3(mt, torch.linalg.cross(l_e1, l_e2))
+        ng = ng / torch.clamp(torch.sqrt(torch.sum(ng * ng, -1, keepdim=True)), min=1e-30)
+        area = 0.5 * torch.sqrt(torch.sum(torch.linalg.cross(e1, e2) ** 2, -1))
+        ns_c = torch.stack([apply_3x3(mt, nsl[:, c, :]) for c in range(3)], dim=-2)
+        ns_c = ns_c / torch.clamp(torch.sqrt(torch.sum(ns_c * ns_c, -1, keepdim=True)), min=1e-30)
+        tan_c = torch.stack([apply_linear(m, tanl[:, c, :]) for c in range(3)], dim=-2)
+        tlen = torch.sqrt(torch.sum(tan_c * tan_c, -1, keepdim=True))
+        tan_c = torch.where(tlen > 1e-12, tan_c / torch.clamp(tlen, min=1e-30), 0.0)
+        slot = torch.clamp(al[..., 33].to(torch.int64), 0, ia.slot_mat.shape[1] - 1)
+        mat = ia.slot_mat[i, slot]
+        kind = ia.slot_kind[i, slot]
+        light_id = torch.full(t.shape, -1, dtype=torch.int32, device=t.device)  # non-emissive
+        prim_pdf = torch.zeros(t.shape, device=t.device)
+        return self._finish_si(t, b0, b1, v0, e1, e2, ng, area, ns_c, uv_c, tan_c,
+                               kind, mat, light_id, prim_pdf)
+
+    def _finish_si(self, t, b0, b1, v0, e1, e2, ng, area, ns_c, uv_c, tan_c,
+                   kind, mat, light_id, prim_pdf):
         p = v0 + e1 * b0 + e2 * b1
         w0 = 1.0 - b0 - b1
         ns = normalize(w0 * ns_c[..., 0, :] + b0 * ns_c[..., 1, :] + b1 * ns_c[..., 2, :])
@@ -136,11 +252,11 @@ class Scene:
             "ns": ns,
             "uv": uv,
             "frame": frame_from_n_t(ns, tangent),
-            "area": attr[..., 12],
-            "kind": attr[..., 37].to(torch.int32),
-            "mat": attr[..., 38].to(torch.int32),
-            "light_id": attr[..., 39].to(torch.int32),
-            "prim_pdf": attr[..., 40],
+            "area": area,
+            "kind": kind,
+            "mat": mat,
+            "light_id": light_id,
+            "prim_pdf": prim_pdf,
             "tri_id": t,
         }
 
@@ -240,29 +356,53 @@ def _estimate_emission_const(graph: dict) -> float | None:
     return e * s
 
 
-def _instanced_instances(sg: SceneGraph) -> list[str]:
-    """Instances the JAX package would route to its two-level instanced
-    accel with its default settings: geometry referenced at least twice by
-    non-emissive instances, with at least 128 triangles."""
+def _partition_instances(sg: SceneGraph):
+    """Pick the instances that stay in local space (the instanced tier)
+    instead of being flattened: geometry referenced at least
+    AKR_INSTANCE_MIN (default 2) times, by non-emissive instances, with at
+    least AKR_INSTANCE_MIN_TRIS (default 128) triangles; all instances of a
+    smaller mesh flatten. Emissive instances always flatten (the light
+    tables are per world triangle). AKR_INSTANCING=0 disables the tier.
+    Returns (skipped instance names, instance specs, local meshes)."""
+    if os.environ.get("AKR_INSTANCING", "1") == "0":
+        return set(), [], []
+    min_refs = int(os.environ.get("AKR_INSTANCE_MIN", "2"))
+    min_tris = int(os.environ.get("AKR_INSTANCE_MIN_TRIS", "128"))
+
     refcount: dict[str, int] = {}
     for inst in sg.instances.values():
         g = inst["geometry"]["id"]
         refcount[g] = refcount.get(g, 0) + 1
-    names, big = [], {}
-    for name, inst in sg.instances.items():
+
+    skip: set[str] = set()
+    specs: list[dict] = []
+    meshes: list[dict] = []
+    geom_slot: dict[str, int] = {}
+    for idx, (name, inst) in enumerate(sg.instances.items()):
         g = inst["geometry"]["id"]
-        if refcount[g] < 2:
+        if refcount[g] < min_refs:
             continue
         if any(
             (e := _estimate_emission_const(sg.materials[m["id"]]["shader"])) is None or e > 0.0
             for m in inst["materials"]
         ):
             continue
-        if g not in big:
-            big[g] = len(local_mesh_arrays(sg, g)["v0"]) >= 128
-        if big[g]:
-            names.append(name)
-    return names
+        if g not in geom_slot:
+            me = local_mesh_arrays(sg, g)
+            if len(me["v0"]) < min_tris:
+                refcount[g] = 0  # too small: flatten all its instances
+                continue
+            geom_slot[g] = len(meshes)
+            meshes.append(me)
+        skip.add(name)
+        specs.append({
+            "name": name,
+            "mesh": geom_slot[g],
+            "matrix": load_transform(inst["transform"], is_camera=False),
+            "materials": [m["id"] for m in inst["materials"]],
+            "inst_index": idx,
+        })
+    return skip, specs, meshes
 
 
 def _build_attr(soup: TriangleSoup, tri_kind: np.ndarray, tri_light_id, tri_prim_pdf) -> np.ndarray:
@@ -356,14 +496,9 @@ def load_scene(path: str, width: int | None = None, height: int | None = None,
     computes its own (svm/precompute.py)."""
     device = torch.device(device)
     sg = load_scene_json(path)
-    if _instanced_instances(sg):
-        raise NotImplementedError("two-level instanced scenes are not yet ported")
-    soup, mat_names, instance_info = flatten_scene(sg)
+    skip, inst_specs, meshes = _partition_instances(sg)
+    soup, mat_names, instance_info = flatten_scene(sg, skip=skip or None)
     num_tris = len(soup.v0)
-    if num_tris >= BVH_MIN_TRIS:
-        raise NotImplementedError(
-            f"{num_tris} triangles need the cluster BVH tier, which is not yet ported"
-        )
     driver = CompilerDriver()
     images, image_keys = _collect_images(sg)
     refs = {name: driver.compile(sg.materials[name]["shader"], image_keys) for name in mat_names}
@@ -388,6 +523,23 @@ def load_scene(path: str, width: int | None = None, height: int | None = None,
     def dev(a, dtype=None):
         return torch.as_tensor(np.array(a, dtype), device=device)
 
+    # cluster tier over the flat soup
+    flat_cl = None
+    if num_tris >= BVH_MIN_TRIS or os.environ.get("AKR_FORCE_BVH"):
+        order = build_bvh_order(soup.v0, soup.e1, soup.e2)
+        flat_cl = build_clusters(soup.v0, soup.e1, soup.e2, order)
+    # instanced tier, and the unified candidate list over both
+    instanced = unified = None
+    if inst_specs:
+        name_to_idx = {name: i for i, name in enumerate(mat_names)}
+        for spec in inst_specs:
+            spec["slot_mat"] = [name_to_idx[m] for m in spec["materials"]] or [0]
+            spec["slot_kind"] = [refs[m].kind for m in spec["materials"]] or [0]
+        ia, _ = build_instanced(meshes, inst_specs, num_tris)
+        unified = build_unified_clusters(ia, flat_cl).to(device)
+        instanced = ia.to(device)
+    bvh = {"clusters": flat_cl.to(device)} if flat_cl is not None else None
+
     no_lights = LightArrays.build_numpy([], [], num_tris)
     arrays = SceneArrays(
         v0=dev(soup.v0, np.float32), e1=dev(soup.e1, np.float32), e2=dev(soup.e2, np.float32),
@@ -399,6 +551,9 @@ def load_scene(path: str, width: int | None = None, height: int | None = None,
         attr=dev(_build_attr(soup, tri_kind, no_lights["tri_light_id"], no_lights["tri_prim_pdf"])),
         const_emission=None,
         lights=LightArrays.from_numpy(no_lights, device),
+        bvh=bvh,
+        instanced=instanced,
+        unified=unified,
     )
     ce = _const_emission_table(sg, mat_names)
     scene = Scene(

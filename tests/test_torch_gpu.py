@@ -1,5 +1,5 @@
-"""PyTorch port on the card: the K1 CUDA kernel against its plain torch
-version, and the slice on the card against the slice on the CPU.
+"""PyTorch port on the card: the K1-K4 CUDA kernels against their plain
+torch versions, and the slice on the card against the slice on the CPU.
 
 Every test here is marked gpu and skips without CUDA. The file imports no
 jax, so it also runs where only torch is installed:
@@ -13,6 +13,9 @@ import pytest
 import torch
 
 from akari_render_tpu_torch.accel import intersect as k1
+from akari_render_tpu_torch.accel import pairs
+from akari_render_tpu_torch.native import build_bvh_order
+from akari_render_tpu_torch.accel.cluster import build_clusters
 from akari_render_tpu_torch.camera import generate_rays
 from akari_render_tpu_torch.config import RenderTask
 from akari_render_tpu_torch.core.math import RAY_TMAX
@@ -84,3 +87,82 @@ def test_slice_on_card_matches_cpu(cuda):
             for dev in ("cpu", cuda)]
     assert np.all(np.isfinite(imgs[1]))
     np.testing.assert_allclose(imgs[1].mean(axis=(0, 1)), imgs[0].mean(axis=(0, 1)), rtol=0.01)
+
+
+def _soup_clusters(seed=7, T=3000, C=128):
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-5, 5, (T, 3)).astype(np.float32)
+    e1 = rng.normal(0, 0.3, (T, 3)).astype(np.float32)
+    e2 = rng.normal(0, 0.3, (T, 3)).astype(np.float32)
+    return build_clusters(v0, e1, e2, build_bvh_order(v0, e1, e2), cluster_size=C)
+
+
+def _pair_rays(n, seed, device):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-8, 8, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.where(rng.random(n) < 0.3, rng.uniform(0.5, 6.0, n), RAY_TMAX).astype(np.float32)
+    tmax[rng.random(n) < 0.05] = -1.0
+    o[3] = np.nan
+    ex0 = np.where(rng.random(n) < 0.3, rng.integers(0, 3000, n), -1).astype(np.int32)
+    mask = rng.random(n) < 0.3
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return t(o), t(d), torch.full((n,), 1e-3, device=device), t(tmax), t(ex0), t(mask)
+
+
+def test_pair_kernels_match_plain_on_card(cuda):
+    """K2, K3 and K4 against their plain versions on the card, on the
+    inputs intersect_pairs gives them, bit-equal."""
+    cl = _soup_clusters().to(cuda)
+    o, d, tmin, tmax, ex0, mask = _pair_rays(1 << 14, 5, cuda)
+    before = dict(pairs.launches)
+    s = pairs.sort_rays(cl, o, d, tmin, tmax, ex0, any_hit_mask=mask)
+    cb6 = pairs.cluster_bounds(cl)
+    e_con = pairs.cull_einit(s.summ, cb6)
+    assert torch.equal(e_con, pairs.cull_einit_torch(s.summ, cb6))
+    e_init = pairs.refine_all(cb6, s.o_soa, s.inv_soa, s.lim, e_con)
+    assert torch.equal(e_init, pairs.refine_all_torch(cb6, s.o_soa, s.inv_soa, s.lim, e_con))
+    assert torch.isfinite(e_init).any()
+    order = pairs.walk_order(e_init)
+    for any_hit in (False, True):
+        args = (*order, cl.tri_row, cl.tri, cl.xf, s.o_soa, s.d_soa, s.lim, s.ex, s.best0,
+                any_hit)
+        assert torch.equal(pairs.sweep_walk(*args), pairs.sweep_walk_torch(*args)), any_hit
+    assert {k: pairs.launches[k] - before[k] for k in before} == {"K2": 1, "K3": 1, "K4": 2}
+
+
+def test_intersect_pairs_card_matches_cpu(cuda):
+    """The whole pair sweep on the card (kernels) and on the CPU (plain
+    versions) gives the same hits, any hits and per-lane any hits."""
+    cl = _soup_clusters(seed=3)
+    cpu, gpu = (_pair_rays(5000, 9, dev) for dev in ("cpu", cuda))
+    for kw in ({}, {"any_hit": True}, {"any_hit_mask": True}):
+        res = []
+        for c, (o, d, tmin, tmax, ex0, mask) in ((cl, cpu), (cl.to(cuda), gpu)):
+            extra = {"any_hit_mask": mask} if "any_hit_mask" in kw else dict(kw)
+            res.append(pairs.intersect_pairs(c, o, d, tmin, tmax, ex0, **extra))
+        if kw.get("any_hit"):
+            assert torch.equal(res[0], res[1].cpu())
+        else:
+            for a, b in zip(res[0], res[1]):
+                assert torch.equal(a, b.cpu())
+
+
+def test_cluster_tier_on_card_matches_cpu(cuda):
+    """classroom 12x12, 2 spp, d12 (cluster tier, instancing, K2-K4) on the
+    card and on the CPU with the same GGX table: the same samples, so the
+    channel means agree to float rounding (within 1e-3)."""
+    scene_path = ROOT / "scenes/classroom/scene.json"
+    task = RenderTask.from_file(ROOT / "scenes/classroom/pt.json")
+    task.method.spp = 2
+    table = load_scene(str(scene_path), 12, 12, device=cuda).ggx_table_np
+    before = dict(pairs.launches)
+    imgs = [render_pt(load_scene(str(scene_path), 12, 12, device=dev, ggx_table=table),
+                      task.method, task)[0] for dev in ("cpu", cuda)]
+    assert all(pairs.launches[k] > before[k] for k in before)
+    assert np.all(np.isfinite(imgs[1])) and imgs[0].mean() > 0.0
+    np.testing.assert_allclose(imgs[1].mean(axis=(0, 1)), imgs[0].mean(axis=(0, 1)), rtol=1e-3)

@@ -1,6 +1,6 @@
 """PyTorch port, scene assembly: load_scene's arrays against the JAX
 package's, surface interactions, the interop path, emission power, and the
-scenes the flat-tier slice refuses."""
+scenes the port refuses or newly accepts."""
 import json
 import shutil
 from pathlib import Path
@@ -17,6 +17,7 @@ from akari_render_tpu_torch.interop import scene_arrays_from_numpy
 
 ROOT = Path(__file__).resolve().parents[1]
 MATBOX = ROOT / "scenes/matbox/scene.json"
+ACCEL_FIELDS = ("bvh", "instanced", "unified")  # None on matbox (flat tier)
 LIGHT_FIELDS = ("sel_prob", "sel_alias", "sel_pdf", "tri_prob", "tri_alias", "tri_pdf",
                 "tri_ids", "offset", "count", "tri_prim_pdf", "tri_light_id", "attr")
 
@@ -57,7 +58,9 @@ def test_load_scene_arrays_exact(scenes):
     ref = jax_arrays_numpy(js)
     for f in t_scene.SceneArrays._fields:
         got = getattr(ts.arrays, f)
-        if f == "param_mats":
+        if f in ACCEL_FIELDS:
+            assert got is None and ref[f] is None, f
+        elif f == "param_mats":
             for g, r in zip(got, ref[f]):
                 np.testing.assert_array_equal(g.numpy(), r)
         elif f == "lights":
@@ -77,7 +80,9 @@ def test_interop_rebuilds_the_same_arrays(scenes):
     arrays, tables = scene_arrays_from_numpy(jax_arrays_numpy(js), {"ggx_dielectric_s": table}, "cpu")
     for f in t_scene.SceneArrays._fields:
         got, want = getattr(arrays, f), getattr(ts.arrays, f)
-        if f == "param_mats":
+        if f in ACCEL_FIELDS:
+            assert got is None and want is None, f
+        elif f == "param_mats":
             assert all(torch.equal(g, w) for g, w in zip(got, want))
         elif f == "lights":
             assert all(torch.equal(getattr(got, k), getattr(want, k)) for k in LIGHT_FIELDS)
@@ -134,13 +139,19 @@ def test_unported_shader_op_is_refused(tmp_path, scenes):
         t_scene.load_scene(str(_scene_copy(tmp_path, to_noise)), 8, 8, ggx_table=table)
 
 
-def test_instanced_geometry_is_refused(tmp_path, scenes):
-    _, _, table = scenes
+def test_instanced_geometry_takes_unified_sweep(tmp_path, scenes):
+    """A second instance of the metal ball makes it instanced: both
+    instances stay in local space and the unified pair sweep covers them,
+    as in the JAX package (the flat part stays below the cluster tier)."""
+    js, _, table = scenes
 
     def duplicate_metal_ball(doc):
         doc["instances"]["metal_copy"] = dict(doc["instances"]["metal_i"])
 
     path = _scene_copy(tmp_path, duplicate_metal_ball)
-    assert t_scene._instanced_instances(t_scene.load_scene_json(path))
-    with pytest.raises(NotImplementedError, match="instanced"):
-        t_scene.load_scene(str(path), 8, 8, ggx_table=table)
+    skip, specs, _ = t_scene._partition_instances(t_scene.load_scene_json(path))
+    assert skip == {"metal_i", "metal_copy"} and len(specs) == 2
+    ts = t_scene.load_scene(str(path), 8, 8, ggx_table=table)
+    a = ts.arrays
+    assert a.bvh is None and a.instanced is not None and a.unified is not None
+    assert a.unified.xf is not None and ts.num_tris < js.num_tris

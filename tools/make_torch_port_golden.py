@@ -1,15 +1,21 @@
-"""Render the matbox reference images that chip_smoke.py holds the PyTorch
-port against, with the JAX package on the CPU.
+"""Render the reference images that chip_smoke.py holds the PyTorch port
+against, with the JAX package on the CPU.
 
-Writes akari_render_tpu_torch/testdata/matbox64_spp{16,256}.npy: matbox at
-64x64 through scenes/matbox/pt.json (d12, rr 5, independent sampler seed 0,
-gaussian filter r 1.5) at 16 and at 256 spp, as [64, 64, 3] float32.
+Writes into akari_render_tpu_torch/testdata/, as [H, W, 3] float32:
+- matbox64_spp{16,256}.npy: matbox at 64x64 through scenes/matbox/pt.json
+  (d12, rr 5, independent sampler seed 0, gaussian filter r 1.5) at 16 and
+  at 256 spp (about 7 minutes);
+- classroom96_spp16.npy: classroom at 96x96 through
+  scenes/classroom/pt.json (d12, rr 5, independent sampler seed 0,
+  gaussian filter r 1.5) at 16 spp, the resolution of the committed
+  BENCH_MSE_CLASSROOM.gt.exr.
 
 Usage:
-    python tools/make_torch_port_golden.py
+    python tools/make_torch_port_golden.py [--only matbox|classroom]
 """
 from __future__ import annotations
 
+import argparse
 import sys
 from pathlib import Path
 
@@ -18,8 +24,18 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+# (scene dir, resolution, spp list) per reference set
+SETS = {
+    "matbox": ("matbox", 64, (16, 256)),
+    "classroom": ("classroom", 96, (16,)),
+}
 
-def main():
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=sorted(SETS), default=None)
+    args = ap.parse_args(argv)
+
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -27,16 +43,19 @@ def main():
     from akari_render_tpu.integrators.pt import render_pt
     from akari_render_tpu.scene import load_scene
 
-    scene = load_scene(str(ROOT / "scenes/matbox/scene.json"), width=64, height=64)
     out_dir = ROOT / "akari_render_tpu_torch" / "testdata"
     out_dir.mkdir(parents=True, exist_ok=True)
-    for spp in (16, 256):
-        task = RenderTask.from_file(ROOT / "scenes/matbox/pt.json")
-        task.method.spp = spp
-        img, stats = render_pt(scene, task.method, task)
-        path = out_dir / f"matbox64_spp{spp}.npy"
-        np.save(path, np.asarray(img, np.float32))
-        print(f"wrote {path}: mean {img.mean(axis=(0, 1))} ({stats['total_time']:.1f}s)")
+    for name, (scene_dir, res, spps) in SETS.items():
+        if args.only not in (None, name):
+            continue
+        scene = load_scene(str(ROOT / "scenes" / scene_dir / "scene.json"), width=res, height=res)
+        for spp in spps:
+            task = RenderTask.from_file(ROOT / "scenes" / scene_dir / "pt.json")
+            task.method.spp = spp
+            img, stats = render_pt(scene, task.method, task)
+            path = out_dir / f"{name}{res}_spp{spp}.npy"
+            np.save(path, np.asarray(img, np.float32))
+            print(f"wrote {path}: mean {img.mean(axis=(0, 1))} ({stats['total_time']:.1f}s)")
 
 
 if __name__ == "__main__":

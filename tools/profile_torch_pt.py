@@ -1,14 +1,18 @@
-"""Profile the PyTorch port's path tracer on the card: where one matbox
-sample's time goes.
+"""Profile the PyTorch port's path tracer on the card: where one sample's
+time goes, on matbox (flat tier, K1) or classroom (cluster tier and
+instancing, K2-K4).
 
-Renders a warm-up sample, then `--spp` samples of matbox at `--res`^2 under
-torch.profiler (CPU and CUDA activities), and reports the wall time per
-sample, the device's busy and idle share, the K1 kernel's share, the kernel
-launch count, and the top device kernels and host ops. The full tables go
-to `--out`.
+Renders a warm-up sample, then `--spp` samples under torch.profiler (CPU
+and CUDA activities), and reports the wall time per sample, the device's
+busy and idle share, each hand-written kernel's share of the busy time
+and the sorts' share, the kernel launch count, and the top device kernels.
+A second, unprofiled sample brackets every Scene.intersect / occlude call
+with device synchronisations and reports the traversal layer's share of
+the wall time. The full tables go to `--out`.
 
 Usage:
-    python tools/profile_torch_pt.py [--res 512] [--spp 2] [--out build/profile_torch_pt.txt]
+    python tools/profile_torch_pt.py [--scene matbox|classroom] [--res N] [--spp 2]
+        [--out build/profile_torch_pt.txt]
 """
 from __future__ import annotations
 
@@ -21,10 +25,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+# device kernel name fragments of the port's hand-written kernels
+KERNELS = {"K1": "mt_kernel", "K2": "cull_kernel", "K3": "refine_all_kernel",
+           "K4": "sweep_kernel"}
+
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--res", type=int, default=512)
+    ap.add_argument("--scene", choices=("matbox", "classroom"), default="matbox")
+    ap.add_argument("--res", type=int, default=None,
+                    help="square resolution (default: the scene camera's)")
     ap.add_argument("--spp", type=int, default=2)
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch_pt.txt"))
     args = ap.parse_args()
@@ -42,12 +52,14 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     disable_tf32()
-    task = RenderTask.from_file(ROOT / "scenes/matbox/pt.json")
+    scene_dir = ROOT / "scenes" / args.scene
+    task = RenderTask.from_file(scene_dir / "pt.json")
     m = task.method
     settings = PTSettings(max_depth=m.max_depth, rr_depth=m.rr_depth, use_nee=m.use_nee,
                           clamp_indirect=m.clamp_indirect)
     filt = filter_from_config(task.filter_config)
-    scene = load_scene(str(ROOT / "scenes/matbox/scene.json"), args.res, args.res, device="cuda")
+    scene = load_scene(str(scene_dir / "scene.json"), args.res, args.res, device="cuda")
+    pixels = scene.camera.width * scene.camera.height
 
     def sample(i):
         return render_sample(scene, settings, filt, i, task.seed, task.sampler)
@@ -61,23 +73,49 @@ def main():
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
+    # the traversal layer, unprofiled: every intersect / occlude call
+    # bracketed by synchronisations
+    spent = [0.0]
+    for name in ("intersect", "occlude"):
+        def timed(*a, f=getattr(scene, name), **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = f(*a, **k)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+            return r
+        setattr(scene, name, timed)
+    t1 = time.perf_counter()
+    sample(1 + args.spp)
+    torch.cuda.synchronize()
+    wall_timed = time.perf_counter() - t1
+    del scene.intersect, scene.occlude
+
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    k1_us = sum(e.time_range.elapsed_us() for e in kernels if "mt_kernel" in e.name)
+
+    def share(pred):
+        us = sum(e.time_range.elapsed_us() for e in kernels if pred(e.name))
+        return us / busy_us if busy_us else 0.0
+
     avg = prof.key_averages()
     summary = {
         "device": torch.cuda.get_device_name(0),
-        "res": args.res,
+        "scene": args.scene,
+        "res": [scene.camera.width, scene.camera.height],
         "spp": args.spp,
         "wall_s_per_sample": wall / args.spp,
         "device_busy_s_per_sample": busy_us / 1e6 / args.spp,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-        "k1_share_of_busy": k1_us / busy_us if busy_us else 0.0,
+        **{f"{k}_share_of_busy": share(lambda n, p=p: p in n) for k, p in KERNELS.items()},
+        "sort_share_of_busy": share(lambda n: "Sort" in n or "sort" in n),
         "kernel_launches_per_sample": len(kernels) / args.spp,
-        "mpaths_per_s": args.res * args.res * args.spp / wall / 1e6,
+        "mpaths_per_s": pixels * args.spp / wall / 1e6,
+        "unprofiled_sample_s": wall_timed,
+        "traversal_share_of_unprofiled_sample": spent[0] / wall_timed,
     }
     dev_key = "self_device_time_total" if hasattr(avg[0], "self_device_time_total") else "self_cuda_time_total"
     by_dev = avg.table(sort_by=dev_key, row_limit=40)
