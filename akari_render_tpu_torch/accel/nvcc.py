@@ -38,8 +38,10 @@ def nvcc() -> str:
 
 def compile_library(source: Path, stem: str) -> tuple[Path, float]:
     """Compile `source` unless its library is built already. Returns the
-    library's path and the seconds nvcc took (0.0 when it was built)."""
-    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    library's path and the seconds nvcc took (0.0 when it was built). The
+    key covers the source, the flags and every header in csrc/."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{stem}_{key}.so"
     if so.exists():
         return so, 0.0

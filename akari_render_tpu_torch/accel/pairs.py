@@ -29,9 +29,10 @@ On the TPU the sweep's grid walks MAXC candidates per round and the host
 repeats rounds in a while_loop; the plain version keeps that round
 structure (`sweep_ent_torch` is one round, with the JAX `_sweep_ent`
 interface), while the CUDA kernel walks each block's whole list in one
-launch. The TPU's one-candidate `_sweep` (K6) is `sweep_ent_torch` with one
-candidate per round: the horizon early-out it lacks never changes a
-closest hit.
+launch. The TPU's one-candidate `_sweep` (K6) has its counterpart in
+`sweep`: the K4 kernel with the horizon early-out switched off, and as
+plain version `sweep_ent_torch` with one candidate per round and no entry
+cut. Nothing in the package calls it (as in the JAX package).
 
 Not ported: the legacy windowed walk (AKR_PAIRS_STATIC=0) and its window
 refine (K5), and the other sort-key layouts (AKR_SORT_KEY).
@@ -60,7 +61,7 @@ CHUNK_ELEMS = 1 << 22
 SOURCE = CSRC / "pairs.cu"
 # kernel launches since the last reset, per kernel; only the kernel
 # branches of the wrappers add to them
-launches = {"K2": 0, "K3": 0, "K4": 0}
+launches = {"K2": 0, "K3": 0, "K4": 0, "K6": 0}
 # seconds the last build took (0.0 when the library came from the cache)
 build_seconds = 0.0
 
@@ -81,7 +82,7 @@ def build() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.akr_cull.argtypes = [vp, vp, vp, ci, ci, vp]
         lib.akr_refine_all.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
-        lib.akr_sweep.argtypes = [vp] * 11 + [ci, ci, ci, ci, ci, vp]
+        lib.akr_sweep.argtypes = [vp] * 11 + [ci] * 6 + [vp, vp]
         for f in (lib.akr_cull, lib.akr_refine_all, lib.akr_sweep):
             f.restype = ci
         _lib = lib
@@ -427,14 +428,16 @@ def sweep_walk_torch(worder, went, kcnt, tri_row, tri, xf, o_soa, d_soa, lim, ex
 
 
 def sweep_walk(worder, went, kcnt, tri_row, tri, xf, o_soa, d_soa, lim, ex, best0,
-               any_hit: bool):
+               any_hit: bool, walked=None):
     """K4 (replaces akari_render_tpu/accel/pairs.py::_sweep_ent_kernel with
     mt_block_update, and the round loop around it): every block walks its
     candidates worder[b, :kcnt[b]] (entries went, ascending) until the next
     entry lies beyond the block horizon. tri [R, C, 12] triangle rows,
     tri_row [K] (or None: row = candidate), xf [K, 16] (or None: identity).
     Lanes: o/d [3, n], lim [2, n] (tmin, t-limit), ex [4, n] (exclusion ids
-    and the per-lane any-hit flag), best0 [4, n] (t, id, u, v) -> [4, n]."""
+    and the per-lane any-hit flag), best0 [4, n] (t, id, u, v) -> [4, n].
+    walked (int32 [B], or None; the kernel only) receives each block's
+    count of candidates tested."""
     if _route("sweep_walk", o_soa):
         return sweep_walk_torch(worder, went, kcnt, tri_row, tri, xf, o_soa, d_soa, lim, ex,
                                 best0, any_hit)
@@ -457,11 +460,65 @@ def sweep_walk(worder, went, kcnt, tri_row, tri, xf, o_soa, d_soa, lim, ex, best
     lim = _check("sweep_walk lim", lim, dev, torch.float32, (2, n))
     ex = _check("sweep_walk ex", ex, dev, torch.float32, (4, n))
     best = _check("sweep_walk best0", best0, dev, torch.float32, (4, n)).clone()
+    if walked is not None:
+        walked = _check("sweep_walk walked", walked, dev, torch.int32, (B,))
     if B:
         _launch("akr_sweep", _ptr(worder), _ptr(went), _ptr(kcnt), _ptr(tri_row), _ptr(tri),
                 _ptr(xf), _ptr(o_soa), _ptr(d_soa), _ptr(lim), _ptr(ex), _ptr(best),
-                B, K, C, BLOCK, int(bool(any_hit)))
+                B, K, C, BLOCK, int(bool(any_hit)), 1, _ptr(walked))
         launches["K4"] += 1
+    return best
+
+
+# ----------------------------------------------------------------------- K6
+def sweep_torch(tri_ix, xf_ix, o_soa, d_soa, lim, ex, tri, xf_tab, best_in, any_hit: bool):
+    """Plain version of K6: sweep_ent_torch one candidate per round, with
+    no entry cut (every candidate's entry -inf)."""
+    B, M = tri_ix.shape
+    no_cut = torch.full((B, 1, 1), -INF, device=o_soa.device)
+    best = best_in
+    for m in range(M):
+        best = sweep_ent_torch(tri_ix[:, m:m + 1], xf_ix[:, m:m + 1], o_soa, d_soa, lim, ex,
+                               no_cut, tri, xf_tab, best, any_hit)
+    return best
+
+
+def sweep(tri_ix, xf_ix, o_soa, d_soa, lim, ex, tri, xf_tab, best_in, any_hit: bool):
+    """K6 (replaces akari_render_tpu/accel/pairs.py::_sweep_kernel, via
+    _sweep; the interface of _sweep): block b tests its candidates
+    tri_ix[b, m] (rows of tri [R, C, 12]; R - 1 and above are dummies) with
+    transforms xf_tab[xf_ix[b, m]] in order m, one at a time, with no
+    horizon early-out. Lanes as sweep_walk; best_in [4, n] -> [4, n]. On
+    CUDA it is the K4 kernel with the early-out off."""
+    if _route("sweep", o_soa):
+        return sweep_torch(tri_ix, xf_ix, o_soa, d_soa, lim, ex, tri, xf_tab, best_in, any_hit)
+    dev = o_soa.device
+    B, M = tri_ix.shape
+    n = o_soa.shape[1]
+    R, C = tri.shape[0], tri.shape[1]
+    if n != B * BLOCK:
+        raise ValueError("sweep: lanes must be B * BLOCK")
+    if tri_ix.device != dev or xf_ix.device != dev or tuple(xf_ix.shape) != (B, M):
+        raise ValueError("sweep: tri_ix and xf_ix must be [B, M] on the lanes' device")
+    tri = _check("sweep tri", tri, dev, torch.float32, (R, C, 12))
+    xf_tab = _check("sweep xf_tab", xf_tab, dev, torch.float32, (xf_tab.shape[0], 16))
+    o_soa = _check("sweep o", o_soa, dev, torch.float32, (3, n))
+    d_soa = _check("sweep d", d_soa, dev, torch.float32, (3, n))
+    lim = _check("sweep lim", lim, dev, torch.float32, (2, n))
+    ex = _check("sweep ex", ex, dev, torch.float32, (4, n))
+    best = _check("sweep best_in", best_in, dev, torch.float32, (4, n)).clone()
+    # candidate id b * M + m: its tri row and transform, +inf entry for dummies
+    valid = tri_ix < R - 1
+    cand = torch.arange(B * M, dtype=torch.int32, device=dev).reshape(B, M)
+    went = torch.where(valid, 0.0, INF).to(torch.float32)
+    kcnt = torch.full((B,), M, dtype=torch.int32, device=dev)
+    tri_row = torch.where(valid, tri_ix, 0).reshape(-1).to(torch.int32)
+    xf = xf_tab[torch.clamp(xf_ix.reshape(-1).long(), 0, xf_tab.shape[0] - 1)].contiguous()
+    if B * M:
+        _launch("akr_sweep", _ptr(cand), _ptr(went), _ptr(kcnt), _ptr(tri_row), _ptr(tri),
+                _ptr(xf), _ptr(o_soa), _ptr(d_soa), _ptr(lim), _ptr(ex), _ptr(best),
+                B, M, C, BLOCK, int(bool(any_hit)), 0, _ptr(None))
+        launches["K6"] += 1
     return best
 
 

@@ -166,12 +166,18 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+//
+// With early_out 0 the same kernel serves K6 (_sweep_kernel): every
+// candidate of the list is tested (no horizon, no block reduction), except
+// those whose entry is +inf, which mark JAX's dummy rows. `walked` (or
+// null) receives each block's count of candidates tested.
 __global__ void sweep_kernel(const int32_t* __restrict__ worder, const float* __restrict__ went,
                              const int32_t* __restrict__ kcnt, const int32_t* __restrict__ tri_row,
                              const float* __restrict__ tri, const float* __restrict__ xf,
                              const float* __restrict__ o, const float* __restrict__ d,
                              const float* __restrict__ lim, const float* __restrict__ ex,
-                             float* __restrict__ best, int K, int C, int n, int any_hit) {
+                             float* __restrict__ best, int K, int C, int n, int any_hit,
+                             int early_out, int32_t* __restrict__ walked) {
   extern __shared__ float smem[];
   float* s_tri = smem;              // [C * 12]
   float* s_xf = smem + C * 12;      // [16]
@@ -190,17 +196,24 @@ __global__ void sweep_kernel(const int32_t* __restrict__ worder, const float* __
 
   const int cnt = kcnt[b];
   const int64_t wrow = int64_t(b) * K;
+  int steps = 0;
   for (int k = 0; k < cnt; ++k) {
-    // block horizon; the first barrier also ends the previous step's reads
-    float h = any_hit ? (bid >= 0.f ? kAnyHitRetired : tlim) : bt;
-    h = warp_max(h);
-    __syncthreads();
-    if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = h;
-    __syncthreads();
-    float horizon = s_red[0];
-    for (int w = 1; w < nwarps; ++w) horizon = fmaxf(horizon, s_red[w]);
     const float e = went[wrow + k];
-    if (!(e <= horizon)) break;  // ascending entries, shrinking horizon: done
+    if (early_out) {
+      // block horizon; the first barrier also ends the previous step's reads
+      float h = any_hit ? (bid >= 0.f ? kAnyHitRetired : tlim) : bt;
+      h = warp_max(h);
+      __syncthreads();
+      if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = h;
+      __syncthreads();
+      float horizon = s_red[0];
+      for (int w = 1; w < nwarps; ++w) horizon = fmaxf(horizon, s_red[w]);
+      if (!(e <= horizon)) break;  // ascending entries, shrinking horizon: done
+    } else {
+      if (!(e < kInf)) continue;  // a dummy candidate (the same for the whole block)
+      __syncthreads();            // the previous step's reads end
+    }
+    ++steps;
     const int ci = worder[wrow + k];
     const float* src = tri + int64_t(tri_row ? tri_row[ci] : ci) * C * 12;
     for (int i = threadIdx.x; i < C * 12; i += blockDim.x) s_tri[i] = src[i];
@@ -255,6 +268,7 @@ __global__ void sweep_kernel(const int32_t* __restrict__ worder, const float* __
       bid = sg; bu = su; bv = sv;
     }
   }
+  if (walked && threadIdx.x == 0) walked[b] = steps;
   best[lane] = bt;
   best[n + lane] = bid;
   best[2 * int64_t(n) + lane] = bu;
@@ -290,15 +304,17 @@ extern "C" int akr_refine_all(const float* cb6, const float* o, const float* inv
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4: worder [B, K] int32, went [B, K], kcnt [B] int32, tri_row [K] int32
-// (null: row = candidate), tri [R, C, 12], xf [K, 16] (null: identity),
-// o / d [3, n], lim [2, n], ex [4, n], best [4, n] in and out;
-// n = B * block_lanes, block_lanes a multiple of 32 up to 1024.
+// K4 (early_out 1) and K6 (early_out 0): worder [B, K] int32 candidate
+// ids, went [B, K], kcnt [B] int32, tri_row (null: row = candidate id)
+// and xf (null: identity) indexed by candidate id, tri [R, C, 12],
+// o / d [3, n], lim [2, n], ex [4, n], best [4, n] in and out, walked [B]
+// int32 out (or null); n = B * block_lanes, block_lanes a multiple of 32
+// up to 1024.
 extern "C" int akr_sweep(const int32_t* worder, const float* went, const int32_t* kcnt,
                          const int32_t* tri_row, const float* tri, const float* xf,
                          const float* o, const float* d, const float* lim, const float* ex,
                          float* best, int B, int K, int C, int block_lanes, int any_hit,
-                         void* stream) {
+                         int early_out, int32_t* walked, void* stream) {
   if (B <= 0) return 0;
   const size_t smem = (size_t(C) * 12 + 16 + 32) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -309,6 +325,6 @@ extern "C" int akr_sweep(const int32_t* worder, const float* went, const int32_t
   }
   sweep_kernel<<<B, block_lanes, smem, static_cast<cudaStream_t>(stream)>>>(
       worder, went, kcnt, tri_row, tri, xf, o, d, lim, ex, best, K, C, B * block_lanes,
-      any_hit);
+      any_hit, early_out, walked);
   return static_cast<int>(cudaGetLastError());
 }

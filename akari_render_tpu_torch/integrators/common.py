@@ -12,6 +12,10 @@ Shading groups lanes by shader kind (torch.nonzero per kind, gather,
 evaluate, scatter back) in place of the sorted-chunk lax.switch: each lane
 still evaluates exactly its own kind's closure. Only live lanes are
 shaded; the JAX package shades dead lanes too and discards the results.
+With AKR_PALLAS_SHADE on (not "0"), a scene whose kinds all bake into the
+reduced principled closure (Scene.shade_bake), NEE on and force_diffuse
+off, the live lanes go through K9 (fused_shade.py) in one launch per
+bounce instead, as in the JAX package.
 
 Not ported: the fused shadow/next-bounce traversal (AKR_FUSE_RAYS), the
 split-compacted resume (depth_end/resume_state), per-depth taps (GPT) and
@@ -28,6 +32,12 @@ from ..core.sampling import INV_PI, mis_weight
 from ..lights import finish_light_sample, light_point_attrs, pdf_direct, sample_light_point_ex
 from ..scene import Scene
 from ..svm.surface import DiffuseBsdf, SurfaceClosure
+from .fused_shade import fused_shade, fused_shade_enabled
+
+# since the last reset: iterations of trace_paths' bounce loop, and groups
+# of lanes (one shader kind of one bounce) shaded by dispatch_shade's
+# per-kind closures; neither adds a device sync
+counts = {"bounces": 0, "dispatch_groups": 0}
 
 
 @dataclass
@@ -55,6 +65,7 @@ def dispatch_shade(scene: Scene, si, extra: dict, fn, lanes, force_diffuse: bool
 
     if force_diffuse:  # every material becomes Lambert 0.8 (pt.rs:268-280)
         rows = torch.nonzero(lanes).squeeze(1)
+        counts["dispatch_groups"] += int(rows.numel() > 0)
         refl = torch.full((rows.shape[0], 3), 0.8 * INV_PI, device=lanes.device)
         frame = tuple(f[rows] for f in si["frame"])
         closure = SurfaceClosure(DiffuseBsdf(refl), frame, si["ng"][rows])
@@ -64,8 +75,31 @@ def dispatch_shade(scene: Scene, si, extra: dict, fn, lanes, force_diffuse: bool
         rows = torch.nonzero(lanes & (si["kind"] == k)).squeeze(1)
         if rows.numel() == 0:
             continue
+        counts["dispatch_groups"] += 1
         closure = scene.kind_closure(si, k, rows)
         scatter(rows, fn(closure, {key: v[rows] for key, v in extra.items()}))
+    return out
+
+
+def uses_fused_shade(scene: Scene, settings: PTSettings) -> bool:
+    """Whether trace_paths shades through K9 (the JAX package's rule):
+    AKR_PALLAS_SHADE on, a bake, NEE with a light, no force_diffuse."""
+    return (fused_shade_enabled() and settings.use_nee and scene.arrays.lights.num_lights > 0
+            and not settings.force_diffuse and scene.shade_bake is not None)
+
+
+def _fused_shade_live(bake, si, extra: dict, lanes):
+    """fused_shade (K9) over the lanes where `lanes` is True; other lanes
+    get zeros, as from dispatch_shade."""
+    n = lanes.shape[0]
+    rows = torch.nonzero(lanes).squeeze(1)
+    t, b, ns = (f[rows] for f in si["frame"])
+    res = fused_shade(bake, t, b, ns, si["ng"][rows], *(extra[k][rows] for k in (
+        "wo", "ls_wi", "ls_li", "ls_pdf", "u_bsdf")), si["mat"][rows])
+    out = {}
+    for key, v in res.items():
+        out[key] = torch.zeros((n,) + v.shape[1:], dtype=v.dtype, device=v.device)
+        out[key][rows] = v
     return out
 
 
@@ -123,6 +157,7 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler):
         "base_replay": torch.zeros((n, 3), device=dev),
     }
     nee = settings.use_nee and a.lights.num_lights > 0
+    fused = uses_fused_shade(scene, settings)
 
     def intersect_live():
         return scene.intersect(
@@ -159,6 +194,7 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler):
 
     depth = 0
     while depth < settings.max_depth and bool(torch.any(st["active"])):
+        counts["bounces"] += 1
         hit = intersect_live()
         lane_hit = st["active"] & hit.valid
         st["active"] = lane_hit
@@ -182,7 +218,10 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler):
         extra = {"wo": wo, "u_bsdf": u_bsdf}
         if ls is not None:
             extra.update(ls_wi=ls.wi, ls_li=ls.li, ls_pdf=ls.pdf)
-        sh = dispatch_shade(scene, si, extra, shade, st["active"], settings.force_diffuse)
+        if fused:  # fused implies NEE, so ls is set
+            sh = _fused_shade_live(scene.shade_bake, si, extra, st["active"])
+        else:
+            sh = dispatch_shade(scene, si, extra, shade, st["active"], settings.force_diffuse)
         if not sh:  # no live lane: every output is zero
             sh = {k: torch.zeros((n,) + s, dtype=dt, device=dev) for k, s, dt in (
                 ("wi", (3,), torch.float32), ("f", (3,), torch.float32),

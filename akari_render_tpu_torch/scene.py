@@ -16,6 +16,9 @@ Geometry takes one of the JAX package's tiers:
   every instance's clusters form one unified candidate list for the pair
   sweep. A flat part below the cluster tier goes through K1 and its hit is
   min-combined with the sweep's, as on the TPU.
+When every kind reduces to the diffuse + metal + specular principled
+closure with constant inputs, load_scene also bakes the per-material table
+the fused tiers read (Scene.shade_bake, svm/reduced.py).
 Alpha-tested traversal raises NotImplementedError. Where the JAX package
 fetches attributes or shader constants with one-hot MXU matmuls, the port
 gathers rows; the values are the same.
@@ -46,6 +49,7 @@ from .scenegraph.model import SceneGraph, load_scene_json, load_transform
 from .svm.compiler import CompiledKind, CompilerDriver, _image_key
 from .svm.eval import EvalContext, check_kind, dispatch_closure
 from .svm.precompute import get_table
+from .svm.reduced import bake_shading
 from .svm.surface import frame_from_n_t
 from .svm.texture import TextureAtlas
 
@@ -92,6 +96,9 @@ class Scene:
     ggx_table_np: np.ndarray
     # per-kind [kind_width, 2] host min/max of every constant column
     kind_const_ranges: list | None = None
+    # (material table [M, MAT_COLS], has_spec, has_metal) when every kind
+    # bakes into the reduced principled closure (K8, K9), else None
+    shade_bake: tuple | None = None
 
     @property
     def device(self):
@@ -490,8 +497,9 @@ def _mc_emission_power(scene: Scene, tri_ids: np.ndarray, n_samples: int = 16) -
 
 
 def load_scene(path: str, width: int | None = None, height: int | None = None,
-               device="cpu", ggx_table: np.ndarray | None = None) -> Scene:
-    """Load a scene.json onto `device`. ggx_table injects a [16, 16, 16]
+               device="cuda", ggx_table: np.ndarray | None = None) -> Scene:
+    """Load a scene.json onto `device` (the card unless the caller names
+    another). ggx_table injects a [16, 16, 16]
     GGX albedo table (for example the JAX package's); by default the port
     computes its own (svm/precompute.py)."""
     device = torch.device(device)
@@ -603,4 +611,5 @@ def load_scene(path: str, width: int | None = None, height: int | None = None,
     scene.arrays = scene.arrays._replace(
         lights=LightArrays.from_numpy(lights_np, device), attr=dev(attr)
     )
+    scene.shade_bake = bake_shading(scene)
     return scene

@@ -28,10 +28,37 @@ Phases (any failure exits non-zero; nothing is caught):
    and the committed 512-spp ground truth (BENCH_MSE_CLASSROOM.gt.exr);
 9. the cluster-tier path at full width: classroom 1920x1080, 1 spp, d12
    through the CLI with scenes/classroom/pt.json, with K2/K3/K4's launches
-   counted.
+   counted;
+10. build: the path megakernel K8 (csrc/megakernel.cu) and the fused shade
+   K9 (csrc/fused_shade.cu), in the same parallel build as phases 2 and 6;
+11. K9 parity: the live lanes of the first bounce of a path-B sample of
+   blinds 256x256 (the main path's inputs), and 2^18 lanes of seeded
+   blinds shade inputs, kernel against its plain version, with CUDA event
+   timings at both;
+12. K8 parity: blinds 256x256, 16 spp, d12 (one pass of the main path),
+   the kernel pass against its plain version per pixel and on the rays
+   each traced, with the time of each;
+13. fused-tier correctness: blinds 64x64, 16 spp, d12 through the CLI with
+   AKR_MEGAKERNEL=1 (path A) and with AKR_PALLAS_SHADE=1 (path B), each
+   held against the committed JAX image of its tier
+   (testdata/blinds64{_mk,}_spp16.npy) and the JAX 256-spp image;
+14. the fused tiers at full width: blinds 256x256, d12 through the CLI
+   three times, path B and path A with scenes/blinds/pt.json (64 spp;
+   path B: K9 at most once per bounce and no lane through the per-kind
+   dispatch; path A: K8 once per pass) and, as the baseline, the
+   wavefront with the per-kind dispatch at one 16-spp pass, with every
+   kernel's launches counted per path, and the device events of one sample
+   of each read from torch.profiler.
 
-It prints a JSON line of kernel results, the card's name and power limit,
-and last a JSON line {"ok": true, "device": {...}}.
+Each phase prints the seconds since the start when it ends.
+
+Phase 7 also runs K6 (the K4 kernel with the early-out off, `pairs.sweep`)
+at classroom's shapes against its plain version; no main path calls it.
+
+It prints a JSON line of kernel results (with each kernel's bound: the
+bytes it must move over 3.35 TB/s or the FP32 operations this run's data
+needs over 67 TFLOP/s, whichever is longer), the card's name and power
+limit, and last a JSON line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -74,6 +101,31 @@ PAIRS_T_REL = 1e-4
 PAIRS_T_ABS = 1e-5
 PAIRS_K1_MAX = 1
 GRAZE_M = 1e-5
+# the fused tiers on blinds
+BLINDS = ROOT / "scenes" / "blinds" / "scene.json"
+BLINDS_METHOD = ROOT / "scenes" / "blinds" / "pt.json"
+# phase-11 tolerances: K9 against its plain version, relative per output,
+# and the fraction of lanes whose valid flag may differ
+K9_REL = 1e-5
+K9_VALID_FRAC = 1e-5
+# phase-12 tolerances: per pixel rtol / atol; a rounding flip of a path
+# decision may put at most K8_PIX_FRAC of the pixels outside them, with the
+# channel means then within K8_MEAN_REL
+K8_RTOL, K8_ATOL, K8_PIX_FRAC, K8_MEAN_REL = 1e-3, 2e-3, 0.01, 1e-3
+# the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32 outside
+# the tensor cores, and HBM bandwidth
+FP32_PEAK = 67e12
+HBM_BPS = 3.35e12
+# FP32 operations of one Möller-Trumbore ray-triangle test (adds, multiplies
+# and the division; compares not counted), as K1, K4, K6 and K8 write it
+MT_FLOPS = 46
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(least milliseconds, what sets it): ops FP32 operations at the
+    FP32 peak against nbytes of device memory traffic at HBM_BPS."""
+    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def fail(msg: str):
@@ -106,6 +158,27 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(fn):
+    """(fn's result, milliseconds of that one call by CUDA events): for a
+    plain version whose result is also the one compared."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+T0 = time.perf_counter()
+
+
+def lap(phase: str):
+    print(f"[{time.perf_counter() - T0:.1f} s] {phase} done", flush=True)
 
 
 def make_rays(scene, device):
@@ -192,8 +265,12 @@ def k1_parity(scene, device):
     plain_ms = cuda_ms(lambda: k1.intersect_tris_torch(*args), 3)
     ms_any = cuda_ms(lambda: k1.intersect_tris(*args_any, any_hit=True), 20)
     plain_ms_any = cuda_ms(lambda: k1.intersect_tris_torch(*args_any, any_hit=True), 3)
+    # every ray is live: each tests every triangle; each ray reads 44 B
+    # (o, d, tmin, tmax, three ids) and writes 16 B, each triangle is 36 B
+    bound_ms, bound_by = bound(n * t_count * MT_FLOPS, n * 60 + t_count * 36)
     print(f"K1 times at {n} rays x {t_count} tris: closest {ms:.4f} ms (plain {plain_ms:.4f} ms), "
-          f"any hit {ms_any:.4f} ms (plain {plain_ms_any:.4f} ms)", flush=True)
+          f"any hit {ms_any:.4f} ms (plain {plain_ms_any:.4f} ms); bound {bound_ms:.4f} ms "
+          f"({bound_by}: {n * t_count * MT_FLOPS:.4g} FP32 operations)", flush=True)
     return {
         "name": "K1 brute-force Moller-Trumbore (closest hit)",
         "route": "cuda",
@@ -202,6 +279,9 @@ def k1_parity(scene, device):
         "max_abs_err": max_abs,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
     }
 
 
@@ -454,14 +534,17 @@ def pairs_parity(device):
     e_con = pairs.cull_einit(s.summ, cb6)
     e_con_p = pairs.cull_einit_torch(s.summ, cb6)
     e_init = pairs.refine_all(cb6, s.o_soa, s.inv_soa, s.lim, e_con)
-    e_init_p = pairs.refine_all_torch(cb6, s.o_soa, s.inv_soa, s.lim, e_con)
+    e_init_p, plain_ms = timed(lambda: pairs.refine_all_torch(cb6, s.o_soa, s.inv_soa, s.lim, e_con))
+    plain_ms = {"K3": plain_ms}
     order = pairs.walk_order(e_init)
     walks = {}
-    for mode, sr, any_hit in (("closest", s, False), ("any hit", s, True),
-                              ("any_hit_mask", s_mask, False)):
+    for mode, sr, any_hit in (("any hit", s, True), ("any_hit_mask", s_mask, False),
+                              ("closest", s, False)):
         args = (*order, cl.tri_row, cl.tri, cl.xf, sr.o_soa, sr.d_soa, sr.lim, sr.ex, sr.best0,
                 any_hit)
-        walks[mode] = (pairs.sweep_walk(*args), pairs.sweep_walk_torch(*args))
+        got = pairs.sweep_walk(*args)
+        want, plain_ms["K4"] = timed(lambda: pairs.sweep_walk_torch(*args))
+        walks[mode] = (got, want)  # closest last: K4's plain time is its walk's
     torch.cuda.synchronize()
     errs = {"K2": max_abs_diff(e_con, e_con_p), "K3": max_abs_diff(e_init, e_init_p),
             "K4": max(max_abs_diff(*w) for w in walks.values())}
@@ -479,16 +562,62 @@ def pairs_parity(device):
     print(f"K4 lanes with a hit: {hits}", flush=True)
 
     walk_args = (*order, cl.tri_row, cl.tri, cl.xf, s.o_soa, s.d_soa, s.lim, s.ex, s.best0, False)
+    walked = torch.zeros(B, dtype=torch.int32, device=device)
+    pairs.sweep_walk(*walk_args, walked=walked)
+
+    # K6: the first K6_M candidates of each block's closest-hit walk, with
+    # JAX's dummy row (index R) for the ends of short walks
+    R, C = cl.tri.shape[0], cl.tri.shape[1]
+    k6_m = 64
+    worder, _, kcnt = order
+    cand = worder[:, :k6_m].long()
+    valid = torch.arange(cand.shape[1], device=device)[None, :] < kcnt[:, None].long()
+    rows = cl.tri_row.long()[cand] if cl.tri_row is not None else cand
+    tri_k6 = torch.cat([cl.tri, torch.zeros((1, C, 12), device=device)])
+    xf_k6 = cl.xf if cl.xf is not None else torch.eye(4, device=device).reshape(1, 16)[:, :16]
+    k6_args = (torch.where(valid, rows, R), cand if cl.xf is not None else torch.zeros_like(cand),
+               s.o_soa, s.d_soa, s.lim, s.ex, tri_k6, xf_k6, s.best0, False)
+    k6 = pairs.sweep(*k6_args)
+    k6_p, plain_ms["K6"] = timed(lambda: pairs.sweep_torch(*k6_args))
+    torch.cuda.synchronize()
+    errs["K6"] = max_abs_diff(k6, k6_p)
+    print(f"K6 (K4 kernel, early-out off) at {n} rays x {int(valid.sum())} candidates (the first "
+          f"{k6_m} of each walk): lanes with a hit {int((k6[1] >= 0).sum())}, max abs err "
+          f"{errs['K6']}", flush=True)
+    check(torch.equal(k6, k6_p), "K6 differs from its plain version")
+
+    # the plain K3, K4 and K6 times are those of their parity calls above
     ms = {
         "K2": (cuda_ms(lambda: pairs.cull_einit(s.summ, cb6), 20),
                cuda_ms(lambda: pairs.cull_einit_torch(s.summ, cb6), 3)),
         "K3": (cuda_ms(lambda: pairs.refine_all(cb6, s.o_soa, s.inv_soa, s.lim, e_con), 20),
-               cuda_ms(lambda: pairs.refine_all_torch(cb6, s.o_soa, s.inv_soa, s.lim, e_con), 2)),
-        "K4": (cuda_ms(lambda: pairs.sweep_walk(*walk_args), 5),
-               cuda_ms(lambda: pairs.sweep_walk_torch(*walk_args), 1)),
+               plain_ms["K3"]),
+        "K4": (cuda_ms(lambda: pairs.sweep_walk(*walk_args), 5), plain_ms["K4"]),
+        "K6": (cuda_ms(lambda: pairs.sweep(*k6_args), 5), plain_ms["K6"]),
+    }
+    # bounds: K2 writes e_con (36 FP32 operations per element); K3 runs 12
+    # per lane x cluster on the tiles K2 left live; K4 and K6 transform each
+    # live lane's ray (33) and test it against C slots (MT_FLOPS + 1 each)
+    # per candidate tested, and read each lane's 16 floats, write its 4
+    nt = -(-K // pairs.RALL_TILE)
+    con = torch.nn.functional.pad(e_con, (0, nt * pairs.RALL_TILE - K), value=float("inf"))
+    live_tiles = int(torch.any(con.reshape(B, nt, pairs.RALL_TILE) < float("inf"), 2).sum())
+    live_lanes = (s.lim[1] > s.lim[0]).reshape(B, pairs.BLOCK).sum(1).double()
+    per_cand = 33 + C * (MT_FLOPS + 1)
+    table_bytes = cl.tri.numel() * 4 + (cl.xf.numel() * 4 if cl.xf is not None else 0)
+    bounds = {
+        "K2": bound(36.0 * B * K, 4.0 * (B * K + 16 * B + 6 * K)),
+        "K3": bound(12.0 * live_tiles * pairs.BLOCK * pairs.RALL_TILE,
+                    4.0 * (2 * B * K + 8 * n + 6 * K)),
+        "K4": bound(float((walked.double() * live_lanes).sum()) * per_cand,
+                    80.0 * n + table_bytes + 8.0 * float(walked.sum())),
+        "K6": bound(float((valid.sum(1).double() * live_lanes).sum()) * per_cand,
+                    80.0 * n + table_bytes),
     }
     print("pair kernel times at classroom's shapes (closest-hit walk for K4): " + ", ".join(
-        f"{k} {a:.4f} ms (plain {b:.4f} ms)" for k, (a, b) in ms.items()), flush=True)
+        f"{k} {a:.4f} ms (plain {b:.4f} ms, bound {bounds[k][0]:.4f} ms by {bounds[k][1]})"
+        for k, (a, b) in ms.items()) + f"; K4 tested {int(walked.sum())} candidates "
+        f"(mean {float(walked.float().mean()):.1f} per block)", flush=True)
 
     # independent check: K1 over the fully flattened world soup
     sg = load_scene_json(str(CLASSROOM))
@@ -521,13 +650,15 @@ def pairs_parity(device):
     check(bool(np.all(np.abs(edge[cross]) <= GRAZE_M)),
           "the pair sweep and K1 hit different surfaces on a ray that grazes no edge")
 
-    names = {"K2": ("K2 pair-sweep conservative cull", "_cull_kernel", 195),
-             "K3": ("K3 pair-sweep per-ray refine", "_refine_all_kernel", 333),
-             "K4": ("K4 pair-sweep candidate walk", "_sweep_ent_kernel", 544)}
+    names = {"K2": ("K2 pair-sweep conservative cull", 195),
+             "K3": ("K3 pair-sweep per-ray refine", 333),
+             "K4": ("K4 pair-sweep candidate walk", 544),
+             "K6": ("K6 one-candidate sweep (K4 kernel, early-out off; on no main path)", 430)}
     return {k: {"name": names[k][0], "route": "cuda",
                 "source": "akari_render_tpu_torch/csrc/pairs.cu",
-                "replaces": f"akari_render_tpu/accel/pairs.py:{names[k][2]}",
-                "max_abs_err": errs[k], "ms": ms[k][0], "plain_ms": ms[k][1]}
+                "replaces": f"akari_render_tpu/accel/pairs.py:{names[k][1]}",
+                "launches": 0, "max_abs_err": errs[k], "ms": ms[k][0], "plain_ms": ms[k][1],
+                "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None}
             for k in names}
 
 
@@ -581,8 +712,8 @@ def classroom_full_width(device):
                       "--device", device])
     wall = time.perf_counter() - t0
     launches = dict(pairs.launches)
-    for k, c in launches.items():
-        check(c > 0, f"the cluster-tier path launched {k} no time")
+    for k in ("K2", "K3", "K4"):
+        check(launches[k] > 0, f"the cluster-tier path launched {k} no time")
     img = read_exr(out)
     check(img.shape == (1080, 1920, 3) and bool(np.all(np.isfinite(img))),
           "1080p image shape / finiteness")
@@ -595,10 +726,364 @@ def classroom_full_width(device):
     return launches
 
 
-def build_all():
-    """Phases 2 and 6: one nvcc per kernel source, started together."""
+def blinds_setup(device):
+    """(scene, task, PTSettings, filter) of blinds at its own 256x256 with
+    scenes/blinds/pt.json."""
+    from akari_render_tpu_torch.config import RenderTask
+    from akari_render_tpu_torch.core.filters import filter_from_config
+    from akari_render_tpu_torch.integrators.common import PTSettings
+    from akari_render_tpu_torch.scene import load_scene
+
+    task = RenderTask.from_file(BLINDS_METHOD)
+    m = task.method
+    settings = PTSettings(max_depth=m.max_depth, rr_depth=m.rr_depth, use_nee=m.use_nee,
+                          clamp_indirect=m.clamp_indirect)
+    scene = load_scene(str(BLINDS), device=device)
+    return scene, task, settings, filter_from_config(task.filter_config)
+
+
+def path_b_bounce(device):
+    """The arguments of K9's first call in one path-B sample of blinds at
+    its own 256x256 with scenes/blinds/pt.json: the live lanes of the first
+    bounce, as the main path hands them to fused_shade."""
+    import torch
+
+    from akari_render_tpu_torch.integrators import common
+    from akari_render_tpu_torch.integrators.pt import render_sample
+
+    scene, task, settings, filt = blinds_setup(device)
+    real, calls = common.fused_shade, []
+
+    def capture(*args):
+        if not calls:
+            calls.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return real(*args)
+
+    common.fused_shade = capture
+    try:
+        with env_switch(AKR_PALLAS_SHADE="1"):
+            render_sample(scene, settings, filt, 0, task.seed, task.sampler)
+    finally:
+        common.fused_shade = real
+    check(len(calls) == 1, "a path-B sample of blinds made no K9 call")
+    return calls[0]
+
+
+def k9_check(label: str, args) -> dict:
+    """K9 against its plain version on one set of fused_shade arguments,
+    with CUDA event timings; returns its numbers for the JSON line."""
+    import torch
+
+    from akari_render_tpu_torch.integrators import fused_shade as fs
+
+    lanes = args[1].shape[0]
+    got = fs.fused_shade(*args)
+    want = fs.fused_shade_torch(*args)
+    torch.cuda.synchronize()
+    same = got["valid"] == want["valid"]
+    valid_mis = int((~same).sum())
+    max_abs, max_rel = 0.0, 0.0
+    for k in ("direct", "wi", "f", "pdf", "albedo"):
+        g, w = got[k], want[k]
+        if k in ("wi", "f", "pdf"):  # a flipped sample draws another direction
+            g, w = g[same], w[same]
+        max_abs = max(max_abs, max_abs_diff(g, w))
+        diff = torch.where(g == w, 0.0, torch.abs(g - w) / torch.clamp(torch.abs(w), min=1e-30))
+        max_rel = max(max_rel, float(torch.nan_to_num(diff, nan=float("inf")).max()))
+    ms = cuda_ms(lambda: fs.fused_shade(*args), 20)
+    plain_ms = cuda_ms(lambda: fs.fused_shade_torch(*args), 3)
+    # 26 values in (104 B) and 13 floats plus a bool out (53 B) per lane,
+    # the material table once
+    bound_ms, bound_by = bound(0.0, lanes * 157.0 + args[0][0].numel() * 4)
+    print(f"K9 parity on {label} ({lanes} lanes): valid "
+          f"{float(want['valid'].float().mean()):.4f}, valid mismatches {valid_mis}, max rel err "
+          f"{max_rel:.3g}, max abs err {max_abs:.3g}; kernel {ms:.4f} ms (plain {plain_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms by {bound_by})", flush=True)
+    check(valid_mis <= K9_VALID_FRAC * lanes, f"K9 valid differs on {valid_mis} lanes")
+    check(max_rel <= K9_REL, f"K9 disagrees with its plain version on {label}")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def k9_parity(device):
+    """Phase 11: K9 against its plain version on the live lanes of a real
+    path-B bounce at 256^2 and on 2^18 seeded blinds shade inputs. Returns
+    the kernel's JSON entry, timed at the path-B bounce."""
+    import numpy as np
+    import torch
+
+    scene, _, _, _ = blinds_setup(device)
+    check(scene.shade_bake is not None, "blinds must bake into the reduced closure")
+    n = N_RAYS
+    rng = np.random.default_rng(13)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+
+    def unit():
+        v = rng.normal(size=(n, 3))
+        return t(v / np.linalg.norm(v, axis=-1, keepdims=True))
+
+    si = scene.surface_interaction(t(rng.integers(0, scene.num_tris, n), torch.int64),
+                                   t(rng.random((n, 2)) * 0.45))
+    synthetic = (scene.shade_bake, *(f.contiguous() for f in si["frame"]), si["ng"].contiguous(),
+                 unit(), unit(), t(rng.random((n, 3)) * 3.0), t(rng.random(n) * 2.0 + 1e-3),
+                 t(rng.random((n, 3))), si["mat"])
+    main = k9_check("the live lanes of a path-B bounce at 256^2", path_b_bounce(device))
+    seeded = k9_check("seeded blinds inputs", synthetic)
+    main["max_abs_err"] = max(main["max_abs_err"], seeded["max_abs_err"])
+    return {"name": "K9 fused shade", "route": "cuda",
+            "source": "akari_render_tpu_torch/csrc/fused_shade.cu",
+            "replaces": "akari_render_tpu/integrators/pallas_shade.py:85", **main,
+            "library_ms": None}
+
+
+def k8_parity(device):
+    """Phase 12: one K8 pass of the main path (blinds 256^2, 16 spp, d12)
+    against its plain version per pixel and on the rays each traced, with
+    the time of each. Returns the kernel's JSON entry."""
+    import torch
+
+    from akari_render_tpu_torch.integrators import megakernel as mk
+
+    scene, task, settings, filt = blinds_setup(device)
+    check(mk.megakernel_eligible(scene, settings, task.sampler, filt),
+          "blinds must be megakernel-eligible")
+    tb = mk.pass_tables(scene, settings, filt, task.seed)
+    spp = task.method.spp_per_pass
+    rk = torch.zeros(2, dtype=torch.int64, device=device)
+    rp = torch.zeros(2, dtype=torch.int64, device=device)
+    got = mk.megakernel_pass(tb, 0, spp, rk)
+    want, plain_ms = timed(lambda: mk.megakernel_pass_torch(tb, 0, spp, rp))
+    diff = torch.abs(got - want)
+    bad = (diff > K8_ATOL + K8_RTOL * torch.abs(want)).any(0)
+    bad_frac = float(bad.float().mean())
+    mean_rel = float((torch.abs(got[:3].mean(1) - want[:3].mean(1))
+                      / torch.abs(want[:3].mean(1))).max())
+    max_abs = max_abs_diff(got, want)
+    print(f"K8 parity at {tb.width}^2 {spp} spp d{tb.max_depth}: pixels outside rtol {K8_RTOL} "
+          f"atol {K8_ATOL}: {int(bad.sum())} ({bad_frac:.3g}), channel means within "
+          f"{mean_rel:.3g}, max abs err {max_abs:.3g}; rays traced kernel {rk.tolist()} plain "
+          f"{rp.tolist()} (closest, shadow)", flush=True)
+    check(bool(torch.isfinite(got).all()), "K8 output not finite")
+    check(bad_frac == 0.0 or (bad_frac <= K8_PIX_FRAC and mean_rel <= K8_MEAN_REL),
+          "K8 disagrees with its plain version")
+    check(torch.equal(rk, rp), "K8 and its plain version traced different numbers of rays")
+
+    ms = cuda_ms(lambda: mk.megakernel_pass(tb, 0, spp), 10)
+    n_rays = int(rk.sum())
+    T = scene.num_tris
+    ops = float(n_rays) * T * MT_FLOPS
+    table_bytes = sum(x.numel() * 4 for x in (tb.attr, tb.ce, tb.lsel, tb.loff, tb.ltab, tb.mat))
+    bound_ms, bound_by = bound(ops, table_bytes + 16.0 * tb.npix)
+    print(f"K8 at {tb.width}^2, {spp} spp, d{tb.max_depth}: {ms:.4f} ms per pass (plain "
+          f"{plain_ms:.4f} ms, the parity call); {n_rays} rays traced x {T} triangles x "
+          f"{MT_FLOPS} = {ops:.4g} FP32 operations: bound {bound_ms:.4f} ms by {bound_by}",
+          flush=True)
+    return {"name": "K8 path megakernel", "route": "cuda",
+            "source": "akari_render_tpu_torch/csrc/megakernel.cu",
+            "replaces": "akari_render_tpu/integrators/megakernel.py:445",
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+class env_switch:
+    """Set environment switches for a block, then restore them."""
+
+    def __init__(self, **kv):
+        self.kv = kv
+
+    def __enter__(self):
+        import os
+
+        self.old = {k: os.environ.get(k) for k in self.kv}
+        os.environ.update(self.kv)
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# the two fused paths: (name, switch, shade the CLI reports, JAX image of its tier)
+FUSED_PATHS = (("path A", "AKR_MEGAKERNEL", "megakernel (K8)", "blinds64_mk_spp16.npy"),
+               ("path B", "AKR_PALLAS_SHADE", "fused (K9)", "blinds64_spp16.npy"))
+
+
+def blinds_correctness(device):
+    """Phase 13: paths A and B at 64^2, 16 spp through the CLI against the
+    committed JAX images of their tiers and the JAX 256-spp image."""
+    import numpy as np
+
+    from akari_render_tpu_torch.cli import main as cli_main
+    from akari_render_tpu_torch.core.image_io import read_exr
+
+    testdata = ROOT / "akari_render_tpu_torch" / "testdata"
+    gt = np.load(testdata / "blinds64_spp256.npy")
+    for name, switch, shade, ref in FUSED_PATHS:
+        out = OUT / f"blinds64_{name[-1]}.exr"
+        with env_switch(**{switch: "1"}):
+            stats = cli_main(["-s", str(BLINDS), "-m", str(BLINDS_METHOD), "--res", "64",
+                              "--spp", "16", "-o", str(out), "--device", device])
+        check(stats["shade"] == shade, f"{name} took the {stats['shade']} shade")
+        img = read_exr(out)
+        jax16 = np.load(testdata / ref)
+        check(img.shape == jax16.shape == gt.shape and bool(np.all(np.isfinite(img))),
+              f"blinds 64^2 {name} image shape / finiteness")
+        m_port, m_jax = img.mean(axis=(0, 1)), jax16.mean(axis=(0, 1))
+        mean_rel = float(np.max(np.abs(m_port - m_jax) / np.abs(m_jax)))
+        mse_port = float(np.mean((img - gt) ** 2))
+        mse_jax = float(np.mean((jax16 - gt) ** 2))
+        print(f"blinds 64^2 16spp {name} ({stats['tier']}, {shade}): means port {m_port} jax "
+              f"{m_jax} (max rel {mean_rel:.3g}); MSE(port, jax256) {mse_port:.6g}, MSE(jax16, "
+              f"jax256) {mse_jax:.6g}, MSE(port, jax16) {float(np.mean((img - jax16) ** 2)):.6g}",
+              flush=True)
+        check(mean_rel <= MEAN_TOL, f"blinds {name} means differ from the JAX image by more than 1%")
+        check(mse_port <= MSE_RATIO * mse_jax, f"blinds {name} MSE against the JAX 256-spp image too high")
+
+
+def reset_launches():
+    """Every kernel's launch count, and the bounce loop's counts, to 0."""
     from akari_render_tpu_torch.accel import intersect as k1
     from akari_render_tpu_torch.accel import pairs
+    from akari_render_tpu_torch.integrators import common
+    from akari_render_tpu_torch.integrators import fused_shade as fs
+    from akari_render_tpu_torch.integrators import megakernel as mk
+
+    k1.launches = mk.launches = fs.launches = 0
+    for k in pairs.launches:
+        pairs.launches[k] = 0
+    common.counts.update(bounces=0, dispatch_groups=0)
+
+
+def read_launches() -> dict:
+    from akari_render_tpu_torch.accel import intersect as k1
+    from akari_render_tpu_torch.accel import pairs
+    from akari_render_tpu_torch.integrators import common
+    from akari_render_tpu_torch.integrators import fused_shade as fs
+    from akari_render_tpu_torch.integrators import megakernel as mk
+
+    return {"K1": k1.launches, **pairs.launches, "K8": mk.launches, "K9": fs.launches,
+            **common.counts}
+
+
+def device_events_per_call(calls: dict) -> dict:
+    """Device events (kernels, copies, fills) of one call of each fn in
+    `calls` (name -> fn, each called once before, as a warm-up), by
+    torch.profiler in one window, where a marker kernel (spin_kernel)
+    opens each call's span. One window: this torch build drops the first
+    device events of a window that follows earlier large windows
+    (measured on the card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    # the raw kineto records: prof.events() would first build the
+    # profiler's Python event tree over every record
+    events = sorted((e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA)
+    print(f"profiler window {t1 - t0:.1f} s, {len(events)} device records read in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    counts = []
+    for _, name in events:
+        if "spin_kernel" in name:
+            counts.append(0)
+        elif counts:
+            counts[-1] += 1
+    check(len(counts) == len(calls), "the profiler lost a marker kernel")
+    return dict(zip(calls, counts))
+
+
+def blinds_full_width(device):
+    """Phase 14: blinds 256^2, d12 through the CLI: path B and path A at
+    scenes/blinds/pt.json's 64 spp, and the wavefront with the dispatch at
+    one 16-spp pass, each with every launch count read around it. Returns
+    the K8 and K9 launches of their paths."""
+    import numpy as np
+
+    from akari_render_tpu_torch.cli import main as cli_main
+    from akari_render_tpu_torch.core.image_io import read_exr
+    from akari_render_tpu_torch.integrators import megakernel as mk
+    from akari_render_tpu_torch.integrators.pt import render_sample
+
+    scene, task, settings, filt = blinds_setup(device)
+    tb = mk.pass_tables(scene, settings, filt, task.seed)
+    m = task.method
+    found = {}
+    for name, switch, shade, spp in (("wavefront", None, "dispatch", m.spp_per_pass),
+                                     ("path B", "AKR_PALLAS_SHADE", "fused (K9)", m.spp),
+                                     ("path A", "AKR_MEGAKERNEL", "megakernel (K8)", m.spp)):
+        out = OUT / f"blinds256_{name.replace(' ', '_')}.exr"
+        out.unlink(missing_ok=True)
+        with env_switch(**({switch: "1"} if switch else {})):
+            reset_launches()
+            t0 = time.perf_counter()
+            stats = cli_main(["-s", str(BLINDS), "-m", str(BLINDS_METHOD), "--spp", str(spp),
+                              "-o", str(out), "--device", device])
+            wall = time.perf_counter() - t0
+            got = read_launches()
+        img = read_exr(out)
+        check(img.shape == (256, 256, 3) and bool(np.all(np.isfinite(img))),
+              f"blinds 256^2 {name} image shape / finiteness")
+        check(stats["shade"] == shade, f"blinds 256^2 {name} took the {stats['shade']} shade")
+        check(stats["spp_total"] == spp, f"blinds 256^2 {name} rendered {stats['spp_total']} spp")
+        paths = scene.camera.width * scene.camera.height * spp
+        print(f"blinds 256^2 {spp}spp d{m.max_depth} {name} ({stats['tier']}, {shade}): render "
+              f"{stats['total_time']:.4f} s ({paths / stats['total_time'] / 1e6:.4f} Mpaths/s), "
+              f"CLI wall {wall:.3f} s, launches and counts {got}, image mean "
+              f"{img.mean(axis=(0, 1))}", flush=True)
+        if name == "wavefront":
+            check(got["K1"] > 0 and got["K8"] == 0 and got["K9"] == 0
+                  and got["dispatch_groups"] > 0, "the wavefront path's launches")
+        elif name == "path B":
+            # a bounce whose lanes all missed has nothing to shade
+            check(0 < got["K9"] <= got["bounces"], "path B must launch K9 at most once per bounce")
+            check(got["dispatch_groups"] == 0 and got["K8"] == 0,
+                  "path B shaded lanes through the dispatch")
+            found["K9"] = got["K9"]
+        else:
+            passes = -(-spp // m.spp_per_pass)
+            check(stats["tier"] == "megakernel" and got["K8"] == passes,
+                  "path A must launch K8 once per pass")
+            check(got["K1"] == got["K9"] == got["bounces"] == 0, "path A ran another kernel")
+            found["K8"] = got["K8"]
+
+    def wavefront_sample(switch=None):
+        def fn():
+            with env_switch(**({switch: "1"} if switch else {})):
+                render_sample(scene, settings, filt, 0, task.seed, task.sampler)
+        return fn
+
+    t0 = time.perf_counter()
+    events = device_events_per_call({
+        "wavefront": wavefront_sample(), "path B": wavefront_sample("AKR_PALLAS_SHADE"),
+        "path A": lambda: mk.megakernel_pass(tb, 0, 1)})  # a sample is a one-sample pass
+    print(f"blinds 256^2 device events per sample (torch.profiler, device activity only; "
+          f"{time.perf_counter() - t0:.1f} s): {events}", flush=True)
+    check(events["path A"] == 1, "path A's sample must be one device event")
+    return found
+
+
+def build_all():
+    """Phases 2, 6 and 10: one nvcc per kernel source, started together."""
+    from akari_render_tpu_torch.accel import intersect as k1
+    from akari_render_tpu_torch.accel import pairs
+    from akari_render_tpu_torch.integrators import fused_shade as fs
+    from akari_render_tpu_torch.integrators import megakernel as mk
 
     errors = []
 
@@ -609,7 +1094,8 @@ def build_all():
             errors.append(e)
 
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=run, args=(b,)) for b in (k1.build, pairs.build)]
+    threads = [threading.Thread(target=run, args=(b,))
+               for b in (k1.build, pairs.build, mk.build, fs.build)]
     for th in threads:
         th.start()
     for th in threads:
@@ -618,8 +1104,9 @@ def build_all():
         raise errors[0]
     wall = time.perf_counter() - t0
     print(f"K1 build: nvcc {k1.build_seconds:.3f} s", flush=True)
-    print(f"K2/K3/K4 build: nvcc {pairs.build_seconds:.3f} s ({wall:.3f} s for both builds, "
-          f"in parallel)", flush=True)
+    print(f"K2/K3/K4 build: nvcc {pairs.build_seconds:.3f} s", flush=True)
+    print(f"K8 build: nvcc {mk.build_seconds:.3f} s; K9 build: nvcc {fs.build_seconds:.3f} s "
+          f"({wall:.3f} s for the four builds, in parallel)", flush=True)
 
 
 def main():
@@ -638,18 +1125,36 @@ def main():
     OUT.mkdir(parents=True, exist_ok=True)
 
     build_all()
+    lap("phases 2, 6 and 10 (build)")
     scene = load_scene(str(SCENE), device=device)
     entry = k1_parity(scene, device)
     pcg_parity(device)
+    lap("phase 3 (K1 parity)")
     slice_correctness(device)
+    lap("phase 4 (matbox 64^2)")
     entry["launches"] = full_width(device)
+    lap("phase 5 (matbox 512^2)")
 
     pair_entries = pairs_parity(device)
+    lap("phase 7 (K2/K3/K4/K6 parity)")
     classroom_correctness(device)
+    lap("phase 8 (classroom 96^2)")
     for k, c in classroom_full_width(device).items():
-        pair_entries[k]["launches"] = c
+        if k in ("K2", "K3", "K4"):
+            pair_entries[k]["launches"] = c
+    lap("phase 9 (classroom 1080p)")
 
-    print(json.dumps({"kernels": [entry, *pair_entries.values()]}))
+    fused = {"K9": k9_parity(device)}
+    lap("phase 11 (K9 parity)")
+    fused["K8"] = k8_parity(device)
+    lap("phase 12 (K8 parity)")
+    blinds_correctness(device)
+    lap("phase 13 (blinds 64^2)")
+    for k, c in blinds_full_width(device).items():
+        fused[k]["launches"] = c
+    lap("phase 14 (blinds 256^2)")
+
+    print(json.dumps({"kernels": [entry, *pair_entries.values(), fused["K8"], fused["K9"]]}))
     print(gpu_query())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

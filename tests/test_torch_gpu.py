@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the K1-K4 CUDA kernels against their plain
-torch versions, and the slice on the card against the slice on the CPU.
+"""PyTorch port on the card: the K1-K4, K6, K8 and K9 CUDA kernels against
+their plain torch versions, and the slices on the card against the slices
+on the CPU.
 
 Every test here is marked gpu and skips without CUDA. The file imports no
 jax, so it also runs where only torch is installed:
@@ -18,13 +19,18 @@ from akari_render_tpu_torch.native import build_bvh_order
 from akari_render_tpu_torch.accel.cluster import build_clusters
 from akari_render_tpu_torch.camera import generate_rays
 from akari_render_tpu_torch.config import RenderTask
+from akari_render_tpu_torch.core.filters import GaussianFilter
 from akari_render_tpu_torch.core.math import RAY_TMAX
+from akari_render_tpu_torch.integrators import fused_shade as fs
+from akari_render_tpu_torch.integrators import megakernel as mk
+from akari_render_tpu_torch.integrators.common import PTSettings
 from akari_render_tpu_torch.integrators.pt import render_pt
 from akari_render_tpu_torch.scene import load_scene
 
 ROOT = Path(__file__).resolve().parents[1]
 SCENE = ROOT / "scenes/matbox/scene.json"
 METHOD = ROOT / "scenes/matbox/pt.json"
+BLINDS = ROOT / "scenes/blinds/scene.json"
 
 pytestmark = pytest.mark.gpu
 
@@ -132,7 +138,8 @@ def test_pair_kernels_match_plain_on_card(cuda):
         args = (*order, cl.tri_row, cl.tri, cl.xf, s.o_soa, s.d_soa, s.lim, s.ex, s.best0,
                 any_hit)
         assert torch.equal(pairs.sweep_walk(*args), pairs.sweep_walk_torch(*args)), any_hit
-    assert {k: pairs.launches[k] - before[k] for k in before} == {"K2": 1, "K3": 1, "K4": 2}
+    assert {k: pairs.launches[k] - before[k] for k in before} == {"K2": 1, "K3": 1, "K4": 2,
+                                                                  "K6": 0}
 
 
 def test_intersect_pairs_card_matches_cpu(cuda):
@@ -163,6 +170,92 @@ def test_cluster_tier_on_card_matches_cpu(cuda):
     before = dict(pairs.launches)
     imgs = [render_pt(load_scene(str(scene_path), 12, 12, device=dev, ggx_table=table),
                       task.method, task)[0] for dev in ("cpu", cuda)]
-    assert all(pairs.launches[k] > before[k] for k in before)
+    assert all(pairs.launches[k] > before[k] for k in ("K2", "K3", "K4"))
     assert np.all(np.isfinite(imgs[1])) and imgs[0].mean() > 0.0
     np.testing.assert_allclose(imgs[1].mean(axis=(0, 1)), imgs[0].mean(axis=(0, 1)), rtol=1e-3)
+
+
+def test_k6_sweep_matches_plain_on_card(cuda):
+    """K6 (the K4 kernel with the early-out off) against its plain version
+    on the card: every candidate of each block, dummies skipped, bit-equal."""
+    cl = _soup_clusters(seed=4).to(cuda)
+    o, d, tmin, tmax, ex0, _ = _pair_rays(4 * pairs.BLOCK, 6, cuda)
+    s = pairs.sort_rays(cl, o, d, tmin, tmax, ex0)
+    rng = np.random.default_rng(2)
+    B, R = s.summ.shape[0], cl.tri.shape[0]
+    tri = torch.cat([cl.tri, torch.zeros((1,) + tuple(cl.tri.shape[1:]), device=cuda)])
+    tri_ix = torch.as_tensor(rng.integers(0, R + 1, (B, 12)), device=cuda)
+    xf = torch.eye(4, device=cuda).reshape(1, 16).repeat(3, 1)
+    xf[:, 12] = torch.tensor([0.0, 0.0, 5000.0], device=cuda)
+    xf_ix = torch.as_tensor(rng.integers(0, 3, (B, 12)), device=cuda)
+    before = pairs.launches["K6"]
+    for any_hit in (False, True):
+        args = (tri_ix, xf_ix, s.o_soa, s.d_soa, s.lim, s.ex, tri, xf, s.best0, any_hit)
+        got = pairs.sweep(*args)
+        assert torch.equal(got, pairs.sweep_torch(*args)), any_hit
+        assert int((got[1] >= 0).sum()) > 50
+    assert pairs.launches["K6"] == before + 2
+
+
+def _blinds_shade_inputs(scene, n, seed, device):
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def unit():
+        v = rng.normal(size=(n, 3))
+        return t(v / np.linalg.norm(v, axis=-1, keepdims=True))
+
+    si = scene.surface_interaction(t(rng.integers(0, scene.num_tris, n), torch.int64),
+                                   t(rng.random((n, 2)) * 0.45))
+    return (scene.shade_bake, *si["frame"], si["ng"], unit(), unit(), t(rng.random((n, 3)) * 3.0),
+            t(rng.random(n) * 2.0 + 1e-3), t(rng.random((n, 3))), si["mat"])
+
+
+def test_fused_shade_kernel_matches_plain_on_card(cuda):
+    """K9 against its plain version on the card, every output bit-equal."""
+    scene = load_scene(str(BLINDS), 16, 16, device=cuda)
+    args = _blinds_shade_inputs(scene, 1 << 14, 8, cuda)
+    before = fs.launches
+    got = fs.fused_shade(*args)
+    want = fs.fused_shade_torch(*args)
+    assert fs.launches == before + 1
+    assert float(want["valid"].float().mean()) > 0.3
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_megakernel_matches_plain_on_card(cuda):
+    """One K8 pass against its plain version on the card at 32^2, 4 spp,
+    d12: the same rays traced, every pixel within rtol 1e-3, atol 2e-3."""
+    scene = load_scene(str(BLINDS), 32, 32, device=cuda)
+    tb = mk.pass_tables(scene, PTSettings(max_depth=12), GaussianFilter(1.5), 0)
+    rk = torch.zeros(2, dtype=torch.int64, device=cuda)
+    rp = torch.zeros(2, dtype=torch.int64, device=cuda)
+    before = mk.launches
+    got = mk.megakernel_pass(tb, 0, 4, rk)
+    want = mk.megakernel_pass_torch(tb, 0, 4, rp)
+    assert mk.launches == before + 1
+    assert torch.equal(rk, rp) and int(rk[0]) >= 4 * 32 * 32
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+
+
+def test_fused_paths_on_card_match_cpu(cuda, monkeypatch):
+    """blinds 16^2, 2 spp through the megakernel (AKR_MEGAKERNEL=1) and
+    through the fused shade (AKR_PALLAS_SHADE=1) on the card and on the CPU
+    with the same GGX table: channel means within 1e-3."""
+    table = load_scene(str(BLINDS), 16, 16, device=cuda).ggx_table_np
+    task = RenderTask.from_file(ROOT / "scenes/blinds/pt.json")
+    task.method.spp = task.method.spp_per_pass = 2
+    for switch, tier in (("AKR_MEGAKERNEL", "megakernel"), ("AKR_PALLAS_SHADE", "wavefront")):
+        monkeypatch.setenv(switch, "1")
+        imgs = []
+        for dev in ("cpu", cuda):
+            img, stats = render_pt(load_scene(str(BLINDS), 16, 16, device=dev, ggx_table=table),
+                                   task.method, task)
+            assert stats["tier"] == tier
+            imgs.append(img)
+        monkeypatch.delenv(switch)
+        assert np.all(np.isfinite(imgs[1])) and imgs[0].mean() > 0.0
+        np.testing.assert_allclose(imgs[1].mean(axis=(0, 1)), imgs[0].mean(axis=(0, 1)), rtol=1e-3)

@@ -226,6 +226,23 @@ def test_k4_round_matches_pallas(any_hit):
         assert (want[0] == np.float32(-3e38)).any()  # retired per-lane any-hit lanes
 
 
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+def test_k6_sweep_matches_pallas(any_hit):
+    """K6: `sweep` (its plain version on the CPU: one candidate per round,
+    no entry cut) against JAX's _sweep in interpret mode, on the round
+    inputs above (dummy candidates, instanced transforms, per-lane any-hit
+    flags), bit-equal. Without the horizon early-out it tests candidates
+    that the entry-cut round skips."""
+    tri_ix, xf_ix, o, d, lim, ex, cent, tri, xf, best = _sweep_inputs()
+    want = np.asarray(jit_unfused(
+        lambda *a: jp._sweep(*a, any_hit=any_hit, interpret=True)
+    )(tri_ix, xf_ix, o, d, lim, ex, tri, xf[:, None, :], best))
+    got = tp.sweep(t_(tri_ix), t_(xf_ix), t_(o), t_(d), t_(lim), t_(ex), t_(tri), t_(xf),
+                   t_(best), any_hit).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (want[1] >= 0).sum() > 100
+
+
 def _jax_pairs(jcl, o, d, tmin, tmax, ex=(None, None, None), **kw):
     fn = jit_unfused(lambda o_, d_, a, b, *e: jp.intersect_pairs(
         jcl, o_, d_, a, b, *e, interpret=True, maxc=6, **kw))

@@ -136,7 +136,7 @@ def test_unported_shader_op_is_refused(tmp_path, scenes):
                 n["color1"] = {"id": "noise_tex"}
 
     with pytest.raises(NotImplementedError, match="noise"):
-        t_scene.load_scene(str(_scene_copy(tmp_path, to_noise)), 8, 8, ggx_table=table)
+        t_scene.load_scene(str(_scene_copy(tmp_path, to_noise)), 8, 8, device="cpu", ggx_table=table)
 
 
 def test_instanced_geometry_takes_unified_sweep(tmp_path, scenes):
@@ -151,7 +151,7 @@ def test_instanced_geometry_takes_unified_sweep(tmp_path, scenes):
     path = _scene_copy(tmp_path, duplicate_metal_ball)
     skip, specs, _ = t_scene._partition_instances(t_scene.load_scene_json(path))
     assert skip == {"metal_i", "metal_copy"} and len(specs) == 2
-    ts = t_scene.load_scene(str(path), 8, 8, ggx_table=table)
+    ts = t_scene.load_scene(str(path), 8, 8, device="cpu", ggx_table=table)
     a = ts.arrays
     assert a.bvh is None and a.instanced is not None and a.unified is not None
     assert a.unified.xf is not None and ts.num_tris < js.num_tris

@@ -8,10 +8,15 @@ Writes into akari_render_tpu_torch/testdata/, as [H, W, 3] float32:
 - classroom96_spp16.npy: classroom at 96x96 through
   scenes/classroom/pt.json (d12, rr 5, independent sampler seed 0,
   gaussian filter r 1.5) at 16 spp, the resolution of the committed
-  BENCH_MSE_CLASSROOM.gt.exr.
+  BENCH_MSE_CLASSROOM.gt.exr;
+- blinds64_spp{16,256}.npy: blinds at 64x64 through scenes/blinds/pt.json
+  (the same settings) with the wavefront path tracer at 16 and 256 spp,
+  and blinds64_mk_spp16.npy: the same 16 spp through the megakernel
+  (render_pt_megakernel, the Pallas kernel in interpret mode; about 20 s
+  for the three).
 
 Usage:
-    python tools/make_torch_port_golden.py [--only matbox|classroom]
+    python tools/make_torch_port_golden.py [--only matbox|classroom|blinds]
 """
 from __future__ import annotations
 
@@ -24,10 +29,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-# (scene dir, resolution, spp list) per reference set
+# (scene dir, resolution, spp list, megakernel spp list) per reference set
 SETS = {
-    "matbox": ("matbox", 64, (16, 256)),
-    "classroom": ("classroom", 96, (16,)),
+    "matbox": ("matbox", 64, (16, 256), ()),
+    "classroom": ("classroom", 96, (16,), ()),
+    "blinds": ("blinds", 64, (16, 256), (16,)),
 }
 
 
@@ -40,20 +46,23 @@ def main(argv=None):
 
     jax.config.update("jax_platforms", "cpu")
     from akari_render_tpu.config import RenderTask
+    from akari_render_tpu.integrators.megakernel import render_pt_megakernel
     from akari_render_tpu.integrators.pt import render_pt
     from akari_render_tpu.scene import load_scene
 
     out_dir = ROOT / "akari_render_tpu_torch" / "testdata"
     out_dir.mkdir(parents=True, exist_ok=True)
-    for name, (scene_dir, res, spps) in SETS.items():
+    for name, (scene_dir, res, spps, mk_spps) in SETS.items():
         if args.only not in (None, name):
             continue
         scene = load_scene(str(ROOT / "scenes" / scene_dir / "scene.json"), width=res, height=res)
-        for spp in spps:
+        runs = [(spp, "", render_pt) for spp in spps]
+        runs += [(spp, "_mk", render_pt_megakernel) for spp in mk_spps]
+        for spp, tag, render in runs:
             task = RenderTask.from_file(ROOT / "scenes" / scene_dir / "pt.json")
             task.method.spp = spp
-            img, stats = render_pt(scene, task.method, task)
-            path = out_dir / f"{name}{res}_spp{spp}.npy"
+            img, stats = render(scene, task.method, task)
+            path = out_dir / f"{name}{res}{tag}_spp{spp}.npy"
             np.save(path, np.asarray(img, np.float32))
             print(f"wrote {path}: mean {img.mean(axis=(0, 1))} ({stats['total_time']:.1f}s)")
 

@@ -1,6 +1,8 @@
 """Profile the PyTorch port's path tracer on the card: where one sample's
-time goes, on matbox (flat tier, K1) or classroom (cluster tier and
-instancing, K2-K4).
+time goes, on matbox (flat tier, K1), classroom (cluster tier and
+instancing, K2-K4) or blinds (flat tier; with AKR_PALLAS_SHADE=1 the
+fused shade K9 shades each bounce, with AKR_MEGAKERNEL=1 each sample is
+one pass of the path megakernel K8).
 
 Renders a warm-up sample, then `--spp` samples under torch.profiler (CPU
 and CUDA activities), and reports the wall time per sample, the device's
@@ -11,13 +13,15 @@ with device synchronisations and reports the traversal layer's share of
 the wall time. The full tables go to `--out`.
 
 Usage:
-    python tools/profile_torch_pt.py [--scene matbox|classroom] [--res N] [--spp 2]
+    [AKR_PALLAS_SHADE=1 | AKR_MEGAKERNEL=1] python tools/profile_torch_pt.py
+        [--scene matbox|classroom|blinds] [--res N] [--spp 2]
         [--out build/profile_torch_pt.txt]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -27,12 +31,12 @@ sys.path.insert(0, str(ROOT))
 
 # device kernel name fragments of the port's hand-written kernels
 KERNELS = {"K1": "mt_kernel", "K2": "cull_kernel", "K3": "refine_all_kernel",
-           "K4": "sweep_kernel"}
+           "K4": "sweep_kernel", "K8": "megakernel", "K9": "fused_shade_kernel"}
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("matbox", "classroom"), default="matbox")
+    ap.add_argument("--scene", choices=("matbox", "classroom", "blinds"), default="matbox")
     ap.add_argument("--res", type=int, default=None,
                     help="square resolution (default: the scene camera's)")
     ap.add_argument("--spp", type=int, default=2)
@@ -46,6 +50,9 @@ def main():
     from akari_render_tpu_torch.core.filters import filter_from_config
     from akari_render_tpu_torch.core.math import disable_tf32
     from akari_render_tpu_torch.integrators.common import PTSettings
+    from akari_render_tpu_torch.integrators.megakernel import (
+        megakernel_eligible, megakernel_pass, pass_tables,
+    )
     from akari_render_tpu_torch.integrators.pt import render_sample
     from akari_render_tpu_torch.scene import load_scene
 
@@ -61,8 +68,15 @@ def main():
     scene = load_scene(str(scene_dir / "scene.json"), args.res, args.res, device="cuda")
     pixels = scene.camera.width * scene.camera.height
 
-    def sample(i):
-        return render_sample(scene, settings, filt, i, task.seed, task.sampler)
+    if (os.environ.get("AKR_MEGAKERNEL", "0") == "1"
+            and megakernel_eligible(scene, settings, task.sampler, filt)):
+        tables = pass_tables(scene, settings, filt, task.seed)
+
+        def sample(i):  # one megakernel pass of one sample
+            return megakernel_pass(tables, i, 1)
+    else:
+        def sample(i):
+            return render_sample(scene, settings, filt, i, task.seed, task.sampler)
 
     sample(0)
     torch.cuda.synchronize()
@@ -115,6 +129,9 @@ def main():
         "kernel_launches_per_sample": len(kernels) / args.spp,
         "mpaths_per_s": pixels * args.spp / wall / 1e6,
         "unprofiled_sample_s": wall_timed,
+        # the profiler's own start-up dwarfs a short sample: the idle share
+        # against the unprofiled sample is the one to read there
+        "device_idle_share_of_unprofiled_sample": 1.0 - busy_us / 1e6 / args.spp / wall_timed,
         "traversal_share_of_unprofiled_sample": spent[0] / wall_timed,
     }
     dev_key = "self_device_time_total" if hasattr(avg[0], "self_device_time_total") else "self_cuda_time_total"
