@@ -33,6 +33,9 @@ class ClusterArrays(NamedTuple):
     # sweep applies xf[k] (world->local affine rows + global-id offset)
     xf: torch.Tensor | None = None  # [K, 16] minv(12) | id_off | pad(3)
     tri_row: torch.Tensor | None = None  # [K] int32 row into tri
+    # packed 8-wide BVH over the candidate AABBs for the wide walk
+    # (accel/wide.py attach_wide): [Nn, 128] int32
+    wide: torch.Tensor | None = None
 
     @property
     def num_clusters(self) -> int:

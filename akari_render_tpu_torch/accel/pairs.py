@@ -1,10 +1,11 @@
 """Block-coherent pair-sweep intersection, the cluster tier's traversal
 (port of akari_render_tpu/accel/pairs.py: intersect_pairs with its default
-static-refine walk, and the kernels K2, K3 and K4).
+static-refine walk and its legacy windowed walk, and the kernels K2 to K6).
 
-1. SORT: rays are keyed by direction octant and a 6-D interleave of origin
-   and |direction| (the "i" layout), dead lanes last, and cut into blocks
-   of BLOCK consecutive rays.
+1. SORT: rays are keyed by direction octant and, by default, a 6-D
+   interleave of origin and |direction| (the "i" layout; AKR_SORT_KEY picks
+   the "o" or "dK" layout instead), dead lanes last, and cut into blocks of
+   BLOCK consecutive rays.
 2. K2, the conservative cull (`cull_einit`): each block's interval summary
    (origin box, inverse-direction interval, min tmin, max t-limit) against
    every cluster AABB, by interval arithmetic -> e_con [B, K], +inf where
@@ -34,12 +35,23 @@ launch. The TPU's one-candidate `_sweep` (K6) has its counterpart in
 plain version `sweep_ent_torch` with one candidate per round and no entry
 cut. Nothing in the package calls it (as in the JAX package).
 
-Not ported: the legacy windowed walk (AKR_PAIRS_STATIC=0) and its window
-refine (K5), and the other sort-key layouts (AKR_SORT_KEY).
+With AKR_PAIRS_STATIC=0 (read at every call) intersect_pairs takes the
+legacy windowed walk instead of steps 3 to 5: each block's walk order is
+the stable argsort of K2's conservative entries, and the host repeats
+rounds: gather the next WINDOW_MULT * MAXC members of every live block's
+order, K5 (`refine`: which of them can any lane's current [tmin, best t]
+slab interval reach?), keep the first MAXC that pass (members before the
+cut that fail are consumed without a test), and sweep those through the K4
+kernel. Every round ends in a host read of "is any block still live".
+
+Not ported, on purpose: AKR_WMULT (the window multiple stays WINDOW_MULT)
+and AKR_PALLAS_CULL (the XLA form of K2), which tune or A/B the TPU code
+and select no route.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
 from typing import NamedTuple
 
@@ -51,7 +63,8 @@ from .nvcc import CSRC, compile_library
 from .trace import Hit
 
 BLOCK = 512  # rays per sorted block, one CUDA block of K3 and K4
-MAXC = 64  # candidates per round of the plain walk
+MAXC = 64  # candidates per round of the plain walk and of the windowed walk
+WINDOW_MULT = 16  # members of a block's order examined per candidate swept (windowed walk)
 RALL_TILE = 256  # clusters per K3 tile: the unit of its predication
 ANY_HIT_RETIRED = -3e38  # best t of a lane with the per-lane any-hit flag, once hit
 INF = float("inf")
@@ -61,7 +74,7 @@ CHUNK_ELEMS = 1 << 22
 SOURCE = CSRC / "pairs.cu"
 # kernel launches since the last reset, per kernel; only the kernel
 # branches of the wrappers add to them
-launches = {"K2": 0, "K3": 0, "K4": 0, "K6": 0}
+launches = {"K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
 # seconds the last build took (0.0 when the library came from the cache)
 build_seconds = 0.0
 
@@ -70,7 +83,7 @@ _lib_lock = threading.Lock()
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the K2/K3/K4 library."""
+    """Compile (once per source hash) and load the K2 to K6 library."""
     global _lib, build_seconds
     with _lib_lock:
         if _lib is not None:
@@ -82,8 +95,9 @@ def build() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.akr_cull.argtypes = [vp, vp, vp, ci, ci, vp]
         lib.akr_refine_all.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.akr_refine_window.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.akr_sweep.argtypes = [vp] * 11 + [ci] * 6 + [vp, vp]
-        for f in (lib.akr_cull, lib.akr_refine_all, lib.akr_sweep):
+        for f in (lib.akr_cull, lib.akr_refine_all, lib.akr_refine_window, lib.akr_sweep):
             f.restype = ci
         _lib = lib
         return lib
@@ -146,16 +160,27 @@ def _fma_norm(a):
     return torch.sqrt(s)
 
 
-def sort_keys(o, d, lo, hi):
-    """Ray sort key, the JAX package's "i" layout (int64 holding the uint32
-    key): octant(3) | per-level interleave of a 5-bit/axis origin morton and
-    a 4-bit/axis |direction| morton, origin triple first, the finest origin
-    level trailing."""
+def sort_keys(o, d, lo, hi, mode: str | None = None):
+    """Ray sort key (int64 holding the JAX package's uint32 key), octant(3)
+    in the top bits and below it, by `mode` (default: AKR_SORT_KEY, read at
+    every call, else "i"):
+    - "i": a per-level interleave of a 5-bit/axis origin morton and a
+      4-bit/axis |direction| morton, origin triple first, the finest origin
+      level trailing;
+    - "dK", K in 1..9: a K-bit/axis |direction| morton above a
+      (9 - K)-bit/axis origin morton, so blocks become narrow cones;
+    - "o" (and "d0"): a 9-bit/axis origin morton."""
+    mode = mode or os.environ.get("AKR_SORT_KEY", "i")
     on = (o - lo) / torch.clamp(hi - lo, min=1e-20)  # origin in [0,1)^3
     octant = ((d[:, 0] < 0).to(torch.int64) * 4 + (d[:, 1] < 0).to(torch.int64) * 2
               + (d[:, 2] < 0).to(torch.int64))
     ad = torch.abs(d)
     ad = ad / torch.clamp(_fma_norm(ad), min=1e-20)[:, None]
+    if mode.startswith("d") and mode != "d0":
+        k = max(1, min(9, int(mode[1:] or 3)))
+        return (octant << 27) | (_morton3(ad, k) << (3 * (9 - k))) | _morton3(on, 9 - k)
+    if mode != "i":
+        return (octant << 27) | _morton3(on, 9)
     om = _morton3(on, 5)  # 15 bits
     dm = _morton3(ad, 4)  # 12 bits
     key = torch.zeros_like(om)
@@ -280,6 +305,58 @@ def refine_all(cb6, o_soa, i_soa, lim, e_con):
     return out
 
 
+# ----------------------------------------------------------------------- K5
+def refine_torch(wb, o_soa, i_soa, lim):
+    """Plain version of K5, the window refine of _refine_kernel: wb
+    [B, 6, W] gathered member boxes (min xyz | max xyz rows, W minor) ->
+    [B, W] int32, 1 where any lane of the block has a [lim[0], lim[1]] slab
+    interval that overlaps the member. Chunked over blocks."""
+    B, _, W = wb.shape
+    dev = wb.device
+    out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    nb = max(1, CHUNK_ELEMS // max(BLOCK * W, 1))
+    for s in range(0, B, nb):
+        e = min(B, s + nb)
+        lanes = slice(s * BLOCK, e * BLOCK)
+        near = torch.full((e - s, BLOCK, W), -INF, device=dev)
+        far = torch.full((e - s, BLOCK, W), INF, device=dev)
+        for a in range(3):
+            bmin, bmax = wb[s:e, a][:, None, :], wb[s:e, 3 + a][:, None, :]
+            oa = o_soa[a, lanes].reshape(e - s, BLOCK, 1)
+            ia = i_soa[a, lanes].reshape(e - s, BLOCK, 1)
+            t0 = (bmin - oa) * ia
+            t1 = (bmax - oa) * ia
+            near = torch.maximum(near, torch.minimum(t0, t1))
+            far = torch.minimum(far, torch.maximum(t0, t1))
+        near = torch.maximum(near, lim[0, lanes].reshape(e - s, BLOCK, 1))
+        far = torch.minimum(far, lim[1, lanes].reshape(e - s, BLOCK, 1))
+        out[s:e] = torch.any(near <= far, dim=1).to(torch.int32)
+    return out
+
+
+def refine(wb, o_soa, i_soa, lim):
+    """K5 (replaces akari_render_tpu/accel/pairs.py::_refine_kernel, via
+    _refine; the interface of _refine): wb [B, 6, W], o_soa/i_soa [3, n],
+    lim [2, n] (tmin and the lane's current t-limit, -inf once occluded),
+    n = B * BLOCK -> [B, W] int32 any-lane-pass. W needs no padding."""
+    if _route("refine", wb):
+        return refine_torch(wb, o_soa, i_soa, lim)
+    dev = wb.device
+    B, W, n = wb.shape[0], wb.shape[2], o_soa.shape[1]
+    if n != B * BLOCK:
+        raise ValueError("refine: lanes must be B * BLOCK")
+    wb = _check("refine wb", wb, dev, torch.float32, (B, 6, W))
+    o_soa = _check("refine o", o_soa, dev, torch.float32, (3, n))
+    i_soa = _check("refine inv_d", i_soa, dev, torch.float32, (3, n))
+    lim = _check("refine lim", lim, dev, torch.float32, (2, n))
+    out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    if B * W:
+        _launch("akr_refine_window", _ptr(wb), _ptr(o_soa), _ptr(i_soa), _ptr(lim), _ptr(out),
+                B, W, BLOCK)
+        launches["K5"] += 1
+    return out
+
+
 # ----------------------------------------------------------------------- K4
 _IDENT = (1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0)
 
@@ -383,6 +460,14 @@ def sweep_ent_torch(tri_ix, xf_ix, o_soa, d_soa, lim, ex, cent, tri, xf_tab, bes
     return best.permute(1, 0, 2).reshape(4, n)
 
 
+def _block_lim(best, B: int, any_hit: bool):
+    """Each block's horizon [B]: the worst live lane's best t."""
+    bt = best[0].reshape(B, -1)
+    if any_hit:
+        bt = torch.where(best[1].reshape(B, -1) >= 0.0, -INF, bt)
+    return bt.amax(dim=1)
+
+
 def sweep_walk_torch(worder, went, kcnt, tri_row, tri, xf, o_soa, d_soa, lim, ex, best0,
                      any_hit: bool, maxc: int = MAXC):
     """Plain version of K4: the static walk of intersect_pairs as the JAX
@@ -400,17 +485,11 @@ def sweep_walk_torch(worder, went, kcnt, tri_row, tri, xf, o_soa, d_soa, lim, ex
         e_at = torch.gather(went, 1, c[:, None].long())[:, 0]
         return (cursor < kcnt) & (e_at <= bt1)
 
-    def block_lim(best):
-        bt = best[0].reshape(B, -1)
-        if any_hit:
-            bt = torch.where(best[1].reshape(B, -1) >= 0.0, -INF, bt)
-        return bt.amax(dim=1)
-
     best = best0
     if K == 0:
         return best.clone()
     cursor = torch.zeros((B,), dtype=torch.int64, device=dev)
-    live = win_live(cursor, block_lim(best))
+    live = win_live(cursor, _block_lim(best, B, any_hit))
     while bool(live.any()):
         idx = cursor[:, None] + pos[None, :]
         idx_c = torch.clamp(idx, max=K - 1)
@@ -423,7 +502,7 @@ def sweep_walk_torch(worder, went, kcnt, tri_row, tri, xf, o_soa, d_soa, lim, ex
         best = sweep_ent_torch(tri_ix, cand_i, o_soa, d_soa, lim, ex, cent, tri, xf, best,
                                any_hit, dummy_row=R)
         cursor = torch.where(live, cursor + maxc_eff, cursor)
-        live = live & win_live(cursor, block_lim(best))
+        live = live & win_live(cursor, _block_lim(best, B, any_hit))
     return best
 
 
@@ -432,8 +511,10 @@ def sweep_walk(worder, went, kcnt, tri_row, tri, xf, o_soa, d_soa, lim, ex, best
     """K4 (replaces akari_render_tpu/accel/pairs.py::_sweep_ent_kernel with
     mt_block_update, and the round loop around it): every block walks its
     candidates worder[b, :kcnt[b]] (entries went, ascending) until the next
-    entry lies beyond the block horizon. tri [R, C, 12] triangle rows,
-    tri_row [K] (or None: row = candidate), xf [K, 16] (or None: identity).
+    entry lies beyond the block horizon. worder [B, M] holds candidate ids
+    (M = K for a whole walk, fewer for one round of the windowed walk). tri
+    [R, C, 12] triangle rows; tri_row [K] (or None: row = candidate) and xf
+    [K, 16] (or None: identity) are indexed by candidate id.
     Lanes: o/d [3, n], lim [2, n] (tmin, t-limit), ex [4, n] (exclusion ids
     and the per-lane any-hit flag), best0 [4, n] (t, id, u, v) -> [4, n].
     walked (int32 [B], or None; the kernel only) receives each block's
@@ -451,10 +532,10 @@ def sweep_walk(worder, went, kcnt, tri_row, tri, xf, o_soa, d_soa, lim, ex, best
     went = _check("sweep_walk went", went, dev, torch.float32, (B, K))
     kcnt = _check("sweep_walk kcnt", kcnt, dev, torch.int32, (B,))
     if tri_row is not None:
-        tri_row = _check("sweep_walk tri_row", tri_row, dev, torch.int32, (K,))
+        tri_row = _check("sweep_walk tri_row", tri_row, dev, torch.int32, (tri_row.shape[0],))
     tri = _check("sweep_walk tri", tri, dev, torch.float32, (R, C, 12))
     if xf is not None:
-        xf = _check("sweep_walk xf", xf, dev, torch.float32, (K, 16))
+        xf = _check("sweep_walk xf", xf, dev, torch.float32, (xf.shape[0], 16))
     o_soa = _check("sweep_walk o", o_soa, dev, torch.float32, (3, n))
     d_soa = _check("sweep_walk d", d_soa, dev, torch.float32, (3, n))
     lim = _check("sweep_walk lim", lim, dev, torch.float32, (2, n))
@@ -538,8 +619,10 @@ class SortedRays(NamedTuple):
 
 
 def sort_rays(cl: ClusterArrays, o, d, tmin, tmax, exclude0=None, exclude1=None, exclude2=None,
-              any_hit_mask=None) -> SortedRays:
-    """Sanitise, key and sort the rays, and summarise each block."""
+              any_hit_mask=None, dead_last: bool = True) -> SortedRays:
+    """Sanitise, key and sort the rays, and summarise each block. With
+    dead_last (the pair sweep's sort) dead lanes get the largest key; the
+    wide walk's sort leaves them where their key puts them."""
     dev = o.device
     n = o.shape[0]
     n_pad = ((n + BLOCK - 1) // BLOCK) * BLOCK
@@ -556,8 +639,8 @@ def sort_rays(cl: ClusterArrays, o, d, tmin, tmax, exclude0=None, exclude1=None,
     tmax = torch.where(finite, tmax, -1.0)
 
     keys = sort_keys(o, d, cl.cbmin.amin(dim=0)[None, :], cl.cbmax.amax(dim=0)[None, :])
-    # dead lanes sort last, into trailing blocks that cull everything
-    keys = torch.where(tmax <= tmin, 0xFFFFFFFF, keys)
+    if dead_last:  # into trailing blocks that cull everything
+        keys = torch.where(tmax <= tmin, 0xFFFFFFFF, keys)
     perm = torch.argsort(keys, stable=True)
 
     def srt(x, fill):
@@ -612,6 +695,78 @@ def walk_order(e_init):
     return worder, went, kcnt
 
 
+def windowed_walk(cl: ClusterArrays, s: SortedRays, e_con, any_hit: bool, maxc: int = MAXC,
+                  rounds: list | None = None):
+    """The legacy windowed walk of intersect_pairs (AKR_PAIRS_STATIC=0) over
+    K2's conservative entries e_con [B, K] -> best [4, n_pad]. Per round and
+    live block: the next W = WINDOW_MULT * maxc members of its order, K5 on
+    their boxes against the lanes' current limits, the first maxc passing
+    members swept through the K4 kernel (their entries ascend, so its break
+    at the horizon equals the TPU sweep's per-candidate skip), and the
+    cursor moved past the last one swept, or past the window when all that
+    passed were swept. The result does not depend on maxc. rounds (a list,
+    or None) receives one entry per round: the live blocks (a host value
+    the loop reads anyway)."""
+    B, K = e_con.shape
+    dev = e_con.device
+    best = s.best0
+    if K == 0:
+        return best.clone()
+    worder, went, kcnt = walk_order(e_con)
+    maxc_eff = min(maxc, K)
+    W = min(maxc_eff * WINDOW_MULT, K)
+    posW = torch.arange(W, device=dev)
+    cb6 = cluster_bounds(cl)  # [6, K]
+    kcnt64 = kcnt.long()
+
+    def win_live(cursor, bt1):
+        c = torch.clamp(cursor, max=K - 1)
+        e_at = torch.gather(went, 1, c[:, None])[:, 0]
+        return (cursor < kcnt64) & (e_at <= bt1)
+
+    cursor = torch.zeros((B,), dtype=torch.int64, device=dev)
+    live = win_live(cursor, _block_lim(best, B, any_hit))
+    while True:
+        n_live = int(live.sum())  # the round loop's host read
+        if not n_live:
+            break
+        if rounds is not None:
+            rounds.append(n_live)
+        idx = cursor[:, None] + posW[None, :]
+        idx_c = torch.clamp(idx, max=K - 1)
+        win_i = torch.gather(worder, 1, idx_c)  # [B, W] candidate ids
+        win_e = torch.where((idx < kcnt64[:, None]) & live[:, None],
+                            torch.gather(went, 1, idx_c), INF)
+        wb = cb6[:, win_i.long()].permute(1, 0, 2).contiguous()  # [B, 6, W]
+        lane_t1 = torch.where(best[1] >= 0.0, -INF, best[0]) if any_hit else best[0]
+        passed = refine(wb, s.o_soa, s.inv_soa, torch.stack([s.lim[0], lane_t1]))
+        nonzero = (passed > 0) & torch.isfinite(win_e)
+
+        # the first maxc passing members are swept; failing members before
+        # the cut are consumed without a test (no lane can hit them)
+        kept_rank = torch.cumsum(nonzero.to(torch.int64), dim=1)
+        selected = nonzero & (kept_rank <= maxc_eff)
+        cut = torch.where(selected, posW[None, :], -1).amax(dim=1)
+        advance = torch.where(kept_rank[:, -1] <= maxc_eff, W, cut + 1)
+        # compact the selected members, in order, to the front
+        order = torch.argsort(torch.where(selected, posW[None, :], W + posW[None, :]),
+                              dim=1)[:, :maxc_eff]
+        cand_ok = torch.gather(selected, 1, order)
+        cand_i = torch.gather(win_i, 1, order)
+        cand_e = torch.where(cand_ok, torch.gather(win_e, 1, order), INF)
+        best = sweep_walk(cand_i, cand_e, cand_ok.sum(dim=1).to(torch.int32), cl.tri_row,
+                          cl.tri, cl.xf, s.o_soa, s.d_soa, s.lim, s.ex, best, any_hit)
+        cursor = torch.where(live, cursor + advance, cursor)
+        live = live & win_live(cursor, _block_lim(best, B, any_hit))
+    return best
+
+
+def static_walk_enabled() -> bool:
+    """AKR_PAIRS_STATIC (read at every call): "0" takes the legacy windowed
+    walk, anything else the static-refine walk."""
+    return os.environ.get("AKR_PAIRS_STATIC", "1") != "0"
+
+
 def intersect_pairs(cl: ClusterArrays, o, d, tmin, tmax, exclude0=None, exclude1=None,
                     exclude2=None, any_hit=False, any_hit_mask=None):
     """Exact closest hit (a Hit) or any hit (bool [n]) through the pair
@@ -622,10 +777,13 @@ def intersect_pairs(cl: ClusterArrays, o, d, tmin, tmax, exclude0=None, exclude1
     s = sort_rays(cl, o, d, tmin, tmax, exclude0, exclude1, exclude2, any_hit_mask)
     cb6 = cluster_bounds(cl)
     e_con = cull_einit(s.summ, cb6)
-    e_init = refine_all(cb6, s.o_soa, s.inv_soa, s.lim, e_con)
-    worder, went, kcnt = walk_order(e_init)
-    best = sweep_walk(worder, went, kcnt, cl.tri_row, cl.tri, cl.xf, s.o_soa, s.d_soa, s.lim,
-                      s.ex, s.best0, any_hit)
+    if static_walk_enabled():
+        e_init = refine_all(cb6, s.o_soa, s.inv_soa, s.lim, e_con)
+        worder, went, kcnt = walk_order(e_init)
+        best = sweep_walk(worder, went, kcnt, cl.tri_row, cl.tri, cl.xf, s.o_soa, s.d_soa,
+                          s.lim, s.ex, s.best0, any_hit)
+    else:
+        best = windowed_walk(cl, s, e_con, any_hit)
     return _unsort_hits(best, s.perm, o.shape[0], any_hit)
 
 

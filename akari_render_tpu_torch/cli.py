@@ -5,8 +5,10 @@ Usage:
         -m scenes/matbox/pt.json --device cuda
 
 AKR_MEGAKERNEL=1 renders an eligible scene through the path megakernel
-(K8), AKR_PALLAS_SHADE=1 shades through the fused shade (K9); each render
-prints which tier and which shade ran.
+(K8), AKR_PALLAS_SHADE=1 shades through the fused shade (K9); on a
+cluster-tier scene AKR_WIDE=1 traverses with the wide-BVH walk (K7) and
+AKR_PAIRS_STATIC=0 with the pair sweep's legacy windowed walk (K5). Each
+render prints which tier, shade and traversal ran.
 
 `pt` is the only ported method; mcmc, gpt and aov method files exit with
 "not yet ported".
@@ -81,7 +83,7 @@ def _render_one(task, task_idx, n_tasks, scene, args, progress_cb):
     img, stats = render_pt(scene, task.method, task, progress_cb=progress_cb, session=session)
     write_image(str(out_p), img)
     print(f"wrote {out_p}  ({stats.get('total_time', 0.0):.2f}s render; tier {stats['tier']}, "
-          f"shade {stats['shade']})", file=sys.stderr)
+          f"shade {stats['shade']}, traversal {stats['traversal']})", file=sys.stderr)
     if args.save_stats:
         stats_path = out_p.with_suffix(".stats.json")
         scalars = {k: v for k, v in stats.items() if not hasattr(v, "shape") or v.ndim <= 1}

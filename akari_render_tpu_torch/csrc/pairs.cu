@@ -1,5 +1,6 @@
-// The pair sweep's three kernels for Hopper (sm_90a): K2 (conservative
-// cull), K3 (per-ray refine) and K4 (the candidate walk and sweep).
+// The pair sweep's kernels for Hopper (sm_90a): K2 (conservative cull), K3
+// (per-ray refine), K5 (the windowed walk's window refine) and K4 (the
+// candidate walk and sweep, which also serves K6).
 //
 // Each one computes exactly what its plain torch version in
 // accel/pairs.py computes, op for op (built with -fmad=false, so no product
@@ -11,10 +12,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "candidate_test.cuh"
+
 namespace {
 
-constexpr float kInf = INFINITY;
-constexpr float kAnyHitRetired = -3e38f;
+using akr::kInf;
 
 // ---------------------------------------------------------------------- K2
 // Replaces akari_render_tpu/accel/pairs.py::_cull_kernel (via _cull_einit).
@@ -130,6 +132,62 @@ refine_all_kernel(const float* __restrict__ cb6, const float* __restrict__ o,
   out[row] = best;
 }
 
+// ---------------------------------------------------------------------- K5
+// Replaces akari_render_tpu/accel/pairs.py::_refine_kernel (via _refine).
+// For one (ray block, tile of kRefineTile window members): 1 where any lane
+// of the block has a [tmin, t1] slab interval that overlaps the member's
+// box, else 0. wb is [B, 6, W] (min xyz | max xyz rows, W minor); lim row 1
+// is the lane's current limit (its best t, -inf once occluded).
+//
+// Bound: FP32 ALU, 12 operations per lane x member until a lane passes
+// (the output is 0 or 1, so a member's loop ends at its first passing
+// lane), and the [B, 6, W] read. Design: K3's, with an OR over the lanes
+// where K3 takes a min: the block's 512 lanes staged once in shared memory
+// (16 KB), one thread per window member reading each lane as a broadcast.
+__global__ void __launch_bounds__(kRefineTile)
+window_refine_kernel(const float* __restrict__ wb, const float* __restrict__ o,
+                     const float* __restrict__ inv, const float* __restrict__ lim,
+                     int32_t* __restrict__ out, int W, int n, int block_lanes) {
+  extern __shared__ float s_lane[];  // [8][block_lanes]: o xyz, inv xyz, tmin, t1
+  const int b = blockIdx.y;
+  const int w = blockIdx.x * kRefineTile + threadIdx.x;
+  const int64_t lane0 = int64_t(b) * block_lanes;
+  for (int i = threadIdx.x; i < block_lanes; i += kRefineTile) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      s_lane[a * block_lanes + i] = o[a * int64_t(n) + lane0 + i];
+      s_lane[(3 + a) * block_lanes + i] = inv[a * int64_t(n) + lane0 + i];
+    }
+    s_lane[6 * block_lanes + i] = lim[lane0 + i];
+    s_lane[7 * block_lanes + i] = lim[int64_t(n) + lane0 + i];
+  }
+  __syncthreads();
+  if (w >= W) return;
+  float bmin[3], bmax[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    bmin[a] = wb[(int64_t(b) * 6 + a) * W + w];
+    bmax[a] = wb[(int64_t(b) * 6 + 3 + a) * W + w];
+  }
+  int pass = 0;
+  for (int l = 0; l < block_lanes && !pass; ++l) {
+    float near = -kInf, far = kInf;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float oa = s_lane[a * block_lanes + l];
+      const float ia = s_lane[(3 + a) * block_lanes + l];
+      const float t0 = (bmin[a] - oa) * ia;
+      const float t1 = (bmax[a] - oa) * ia;
+      near = fmaxf(near, fminf(t0, t1));
+      far = fminf(far, fmaxf(t0, t1));
+    }
+    near = fmaxf(near, s_lane[6 * block_lanes + l]);
+    far = fminf(far, s_lane[7 * block_lanes + l]);
+    pass = near <= far;
+  }
+  out[int64_t(b) * W + w] = pass;
+}
+
 // ---------------------------------------------------------------------- K4
 // Replaces akari_render_tpu/accel/pairs.py::_sweep_ent_kernel with
 // mt_block_update (via _sweep_ent), and the host's round loop around it
@@ -147,25 +205,13 @@ refine_all_kernel(const float* __restrict__ cb6, const float* __restrict__ o,
 // lane) transforms its ray with the unnormalised local direction (t stays
 // the world parameter) and tests the C slots in order.
 //
-// Semantics held against the plain version: closest hit takes a slot when
-// t < the running best (strict), which equals the TPU's (t, first slot)
-// pick within a candidate and its strict `<` across candidates; a lane with
-// the per-lane any-hit flag (ex row 3 > 0.5) drops its best t to -3e38 once
-// a candidate improved it. Any hit keeps t and records the minimum global
-// id of the hitting slots of each candidate that hits. Global ids are
-// gid + xf[12] (the instance's id offset); gid < 0 marks padding.
+// The candidate test itself (candidate_test.cuh) is shared with K7.
 //
 // Bound: FP32 ALU, ~30 flops per ray x triangle test, C tests per lane and
 // candidate, plus a block-wide max per candidate. Design: triangles and
 // transform in shared memory (6 KB, read as broadcasts), the ray and its
 // best hit in registers; a lane that cannot hit (t-limit <= tmin) skips
 // the slot loop.
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
 //
 // With early_out 0 the same kernel serves K6 (_sweep_kernel): every
 // candidate of the list is tested (no horizon, no block reduction), except
@@ -185,14 +231,8 @@ __global__ void sweep_kernel(const int32_t* __restrict__ worder, const float* __
   const int b = blockIdx.x;
   const int nwarps = blockDim.x >> 5;
   const int64_t lane = int64_t(b) * blockDim.x + threadIdx.x;
-
-  const float wox = o[lane], woy = o[n + lane], woz = o[2 * int64_t(n) + lane];
-  const float wdx = d[lane], wdy = d[n + lane], wdz = d[2 * int64_t(n) + lane];
-  const float tmin = lim[lane], tlim = lim[n + lane];
-  const float ex0 = ex[lane], ex1 = ex[n + lane], ex2 = ex[2 * int64_t(n) + lane];
-  const bool sh = ex[3 * int64_t(n) + lane] > 0.5f;
-  float bt = best[lane], bid = best[n + lane];
-  float bu = best[2 * int64_t(n) + lane], bv = best[3 * int64_t(n) + lane];
+  const akr::LaneRay ray = akr::load_lane_ray(o, d, lim, ex, n, lane);
+  akr::LaneBest hit = akr::load_lane_best(best, n, lane);
 
   const int cnt = kcnt[b];
   const int64_t wrow = int64_t(b) * K;
@@ -201,8 +241,7 @@ __global__ void sweep_kernel(const int32_t* __restrict__ worder, const float* __
     const float e = went[wrow + k];
     if (early_out) {
       // block horizon; the first barrier also ends the previous step's reads
-      float h = any_hit ? (bid >= 0.f ? kAnyHitRetired : tlim) : bt;
-      h = warp_max(h);
+      const float h = akr::warp_max(akr::lane_limit(ray, hit, any_hit));
       __syncthreads();
       if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = h;
       __syncthreads();
@@ -215,64 +254,12 @@ __global__ void sweep_kernel(const int32_t* __restrict__ worder, const float* __
     }
     ++steps;
     const int ci = worder[wrow + k];
-    const float* src = tri + int64_t(tri_row ? tri_row[ci] : ci) * C * 12;
-    for (int i = threadIdx.x; i < C * 12; i += blockDim.x) s_tri[i] = src[i];
-    if (threadIdx.x < 16) {
-      const int i = threadIdx.x;
-      s_xf[i] = xf ? xf[int64_t(ci) * 16 + i] : ((i == 0 || i == 5 || i == 10) ? 1.f : 0.f);
-    }
+    akr::stage_candidate(s_tri, s_xf, tri, xf, tri_row ? tri_row[ci] : ci, ci, C);
     __syncthreads();
-    if (!(bt > tmin)) continue;  // t > tmin and t < bt cannot both hold
-    const float* x = s_xf;
-    const float ox = x[0] * wox + x[1] * woy + x[2] * woz + x[3];
-    const float oy = x[4] * wox + x[5] * woy + x[6] * woz + x[7];
-    const float oz = x[8] * wox + x[9] * woy + x[10] * woz + x[11];
-    const float dx = x[0] * wdx + x[1] * wdy + x[2] * wdz;
-    const float dy = x[4] * wdx + x[5] * wdy + x[6] * wdz;
-    const float dz = x[8] * wdx + x[9] * wdy + x[10] * wdz;
-    const float id_off = x[12];
-    float cur = bt, su = 0.f, sv = 0.f, sg = 0.f;
-    float gmin = kInf;
-    for (int j = 0; j < C; ++j) {
-      const float* t12 = s_tri + 12 * j;
-      const float ax = t12[0], ay = t12[1], az = t12[2];
-      const float e1x = t12[3], e1y = t12[4], e1z = t12[5];
-      const float e2x = t12[6], e2y = t12[7], e2z = t12[8];
-      const float gid = t12[9];
-      const float px = dy * e2z - dz * e2y;
-      const float py = dz * e2x - dx * e2z;
-      const float pz = dx * e2y - dy * e2x;
-      const float det = e1x * px + e1y * py + e1z * pz;
-      const bool ok_det = fabsf(det) > 1e-12f;
-      const float inv_det = ok_det ? 1.0f / det : 0.0f;
-      const float tx = ox - ax, ty = oy - ay, tz = oz - az;
-      const float u = (tx * px + ty * py + tz * pz) * inv_det;
-      const float qx = ty * e1z - tz * e1y;
-      const float qy = tz * e1x - tx * e1z;
-      const float qz = tx * e1y - ty * e1x;
-      const float v = (qx * dx + qy * dy + qz * dz) * inv_det;
-      const float t = (qx * e2x + qy * e2y + qz * e2z) * inv_det;
-      const float gidw = gid + id_off;
-      const bool base = ok_det && u >= 0.f && v >= 0.f && u + v <= 1.f && t > tmin &&
-                        gid >= 0.f && gidw != ex0 && gidw != ex1 && gidw != ex2;
-      if (any_hit) {
-        if (base && t < bt) gmin = fminf(gmin, gidw);
-      } else if (base && t < cur) {
-        cur = t; su = u; sv = v; sg = gidw;
-      }
-    }
-    if (any_hit) {
-      if (gmin < kInf) bid = gmin;
-    } else if (cur < bt) {
-      bt = sh ? kAnyHitRetired : cur;
-      bid = sg; bu = su; bv = sv;
-    }
+    akr::candidate_test(s_tri, s_xf, C, ray, hit, any_hit);
   }
   if (walked && threadIdx.x == 0) walked[b] = steps;
-  best[lane] = bt;
-  best[n + lane] = bid;
-  best[2 * int64_t(n) + lane] = bu;
-  best[3 * int64_t(n) + lane] = bv;
+  akr::store_lane_best(best, n, lane, hit);
 }
 
 }  // namespace
@@ -301,6 +288,19 @@ extern "C" int akr_refine_all(const float* cb6, const float* o, const float* inv
   const size_t smem = size_t(8) * block_lanes * sizeof(float);
   refine_all_kernel<<<grid, kRefineTile, smem, static_cast<cudaStream_t>(stream)>>>(
       cb6, o, inv, lim, e_con, out, K, B * block_lanes, block_lanes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5: wb [B, 6, W], o / inv [3, n], lim [2, n] -> out [B, W] int32,
+// n = B * block_lanes.
+extern "C" int akr_refine_window(const float* wb, const float* o, const float* inv,
+                                 const float* lim, int32_t* out, int B, int W, int block_lanes,
+                                 void* stream) {
+  if (B <= 0 || W <= 0) return 0;
+  const dim3 grid((W + kRefineTile - 1) / kRefineTile, B);
+  const size_t smem = size_t(8) * block_lanes * sizeof(float);
+  window_refine_kernel<<<grid, kRefineTile, smem, static_cast<cudaStream_t>(stream)>>>(
+      wb, o, inv, lim, out, W, B * block_lanes, block_lanes);
   return static_cast<int>(cudaGetLastError());
 }
 

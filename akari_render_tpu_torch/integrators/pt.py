@@ -9,7 +9,8 @@ peaks at 2.1 GiB on an 80 GB H100, so nothing splits the pixels.
 With AKR_MEGAKERNEL=1 an eligible scene (megakernel.megakernel_eligible)
 renders through the path megakernel K8 instead, one launch per pass; an
 ineligible one takes the wavefront, as in the JAX package. The stats say
-which tier rendered ("tier") and which shade ran ("shade").
+which tier rendered ("tier"), which shade ran ("shade") and which traversal
+the rays took ("traversal": Scene.traversal, or "megakernel (K8)").
 
 Not ported, on purpose or not yet:
 - the persistent wavefront (AKR_PERSISTENT) and the split-compacted pass
@@ -73,7 +74,7 @@ def render_pt(scene: Scene, config: PTConfig, task=None, progress_cb=None, sessi
     if (os.environ.get("AKR_MEGAKERNEL", "0") == "1"
             and megakernel_eligible(scene, settings, sampler_config, filt)):
         img, stats = render_pt_megakernel(scene, config, task, progress_cb, session)
-        stats.update(tier="megakernel", shade="megakernel (K8)")
+        stats.update(tier="megakernel", shade="megakernel (K8)", traversal="megakernel (K8)")
         return img, stats
     spp_chunk = min(config.spp, config.spp_per_pass)
     # the task seed rides as seed_extra, exactly as in the JAX package
@@ -85,7 +86,8 @@ def render_pt(scene: Scene, config: PTConfig, task=None, progress_cb=None, sessi
     film = Film.new(width, height, scene.device)
     done = 0  # samples accumulated; the absolute sample index keys the sampler
     stats = {"time": [], "spp": [], "tier": "wavefront",
-             "shade": "fused (K9)" if uses_fused_shade(scene, settings) else "dispatch"}
+             "shade": "fused (K9)" if uses_fused_shade(scene, settings) else "dispatch",
+             "traversal": scene.traversal}
     t0 = time.time()
     pass_no = 0
     while done < config.spp:

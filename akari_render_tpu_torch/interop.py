@@ -21,15 +21,15 @@ from .scene import SceneArrays
 
 _INT_FIELDS = ("inst_id", "shader_kind", "tri_mat")
 _ACCEL_FIELDS = ("bvh", "instanced", "unified")
-_CLUSTER_INT_FIELDS = ("order", "tri_row")
+_CLUSTER_INT_FIELDS = ("order", "tri_row", "wide")
 _INSTANCED_INT_FIELDS = ("tri_base", "tri_count", "mesh_tri_start", "cluster_lo",
                          "cluster_hi", "inst_index", "mat_slot", "slot_mat", "slot_kind")
 
 
 def cluster_arrays_from_numpy(arrays: dict, device) -> ClusterArrays:
-    """arrays: the ClusterArrays fields by name (numpy; xf and tri_row may
-    be missing or None). Fields the port does not keep (the JAX package's
-    superclusters and wide BVH) are ignored."""
+    """arrays: the ClusterArrays fields by name (numpy; xf, tri_row and
+    wide, the wide walk's node table, may be missing or None). Fields the
+    port does not keep (the JAX package's superclusters) are ignored."""
     fields = {}
     for name in ClusterArrays._fields:
         v = arrays.get(name)

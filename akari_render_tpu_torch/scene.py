@@ -10,7 +10,9 @@ Geometry takes one of the JAX package's tiers:
 - flat (fewer than BVH_MIN_TRIS triangles, nothing instanced): every ray
   against every triangle through K1 (accel/intersect.py);
 - cluster (BVH_MIN_TRIS or more, or AKR_FORCE_BVH): BVH-ordered clusters
-  traversed by the pair sweep (accel/pairs.py, K2-K4);
+  traversed by the pair sweep (accel/pairs.py, K2-K4; with
+  AKR_PAIRS_STATIC=0 its legacy windowed walk, K2, K5 and K4) or, with
+  AKR_WIDE=1, by the wide-BVH walk (accel/wide.py, K7);
 - instanced: geometry referenced by several non-emissive instances stays
   in local space (accel/instanced.py); the flat clusters (if any) and
   every instance's clusters form one unified candidate list for the pair
@@ -39,8 +41,9 @@ from .accel.instanced import (
     apply_3x3, apply_affine, apply_linear, build_instanced, build_unified_clusters,
 )
 from .accel.intersect import intersect_tris
-from .accel.pairs import intersect_pairs
+from .accel.pairs import intersect_pairs, static_walk_enabled
 from .accel.trace import Hit
+from .accel.wide import attach_wide, intersect_wide
 from .camera import PerspectiveCamera, camera_from_scenegraph
 from .core.math import RAY_TMAX, Frame, normalize, orthonormal_basis
 from .lights import LightArrays
@@ -55,6 +58,27 @@ from .svm.texture import TextureAtlas
 
 # the JAX package's cluster-tier threshold (Scene.BVH_MIN_TRIS)
 BVH_MIN_TRIS = 32768
+# AKR_WIDE's default: the pair sweep stays the cluster tier's traversal
+# unless the caller asks for the wide walk
+_WIDE_DEFAULT = "0"
+
+
+def _use_wide(cl) -> bool:
+    """Route a cluster traversal through the wide-BVH walk (accel/wide.py):
+    when the node table is attached and AKR_WIDE (read at every call) is
+    not "0"."""
+    return cl.wide is not None and os.environ.get("AKR_WIDE", _WIDE_DEFAULT) != "0"
+
+
+def _cluster_trace(cl, o, d, tmin, tmax, exclude0=None, exclude1=None, exclude2=None,
+                   any_hit=False, any_hit_mask=None):
+    """One cluster-tier traversal: the wide walk under AKR_WIDE=1, else the
+    pair sweep. any_hit_mask (per-lane any hit inside a closest-hit call)
+    is the pair sweep's alone and forces it."""
+    if any_hit_mask is None and _use_wide(cl):
+        return intersect_wide(cl, o, d, tmin, tmax, exclude0, exclude1, exclude2, any_hit=any_hit)
+    return intersect_pairs(cl, o, d, tmin, tmax, exclude0, exclude1, exclude2, any_hit=any_hit,
+                           any_hit_mask=any_hit_mask)
 
 
 class SceneArrays(NamedTuple):
@@ -104,10 +128,24 @@ class Scene:
     def device(self):
         return self.arrays.v0.device
 
+    @property
+    def traversal(self) -> str:
+        """The traversal a ray takes now, under the switches as they stand:
+        "flat (K1)" without clusters, else "wide" (AKR_WIDE=1),
+        "pairs-windowed" (AKR_PAIRS_STATIC=0) or "pairs-static". A flat part
+        below the cluster tier beside instances also goes through K1."""
+        a = self.arrays
+        cl = a.unified if a.unified is not None else (a.bvh or {}).get("clusters")
+        if cl is None:
+            return "flat (K1)"
+        if _use_wide(cl):
+            return "wide"
+        return "pairs-static" if static_walk_enabled() else "pairs-windowed"
+
     def intersect(self, o, d, tmin, tmax, exclude0=None, exclude1=None, exclude2=None,
                   any_hit_mask=None) -> Hit:
         """Closest hit through the scene's tier. With instances, the unified
-        pair sweep covers them (and the flat clusters, on the cluster tier);
+        cluster traversal covers them (and the flat clusters, on the cluster tier);
         a flat part below the cluster tier goes through K1 up to the sweep's
         hit. any_hit_mask: per-lane any hit for the pair sweep; K1 runs
         closest hit for those lanes (callers read only `valid`)."""
@@ -115,8 +153,8 @@ class Scene:
         if a.unified is None:
             return self._trace_flat(o, d, tmin, tmax, exclude0, exclude1, exclude2,
                                     any_hit_mask=any_hit_mask)
-        hit_u = intersect_pairs(a.unified, o, d, tmin, tmax, exclude0, exclude1, exclude2,
-                                any_hit_mask=any_hit_mask)
+        hit_u = _cluster_trace(a.unified, o, d, tmin, tmax, exclude0, exclude1, exclude2,
+                               any_hit_mask=any_hit_mask)
         if a.bvh is not None or self.num_tris == 0:
             return hit_u
         hit = self._trace_flat(o, d, tmin, torch.minimum(tmax, hit_u.t), exclude0, exclude1,
@@ -130,8 +168,8 @@ class Scene:
         a = self.arrays
         if a.unified is None:
             return self._trace_flat(o, d, tmin, tmax, exclude0, exclude1, exclude2, any_hit=True)
-        occ = intersect_pairs(a.unified, o, d, tmin, tmax, exclude0, exclude1, exclude2,
-                              any_hit=True)
+        occ = _cluster_trace(a.unified, o, d, tmin, tmax, exclude0, exclude1, exclude2,
+                             any_hit=True)
         if a.bvh is not None or self.num_tris == 0:
             return occ
         return occ | self._trace_flat(o, d, tmin, tmax, exclude0, exclude1, exclude2,
@@ -139,8 +177,8 @@ class Scene:
 
     def _trace_flat(self, o, d, tmin, tmax, exclude0=None, exclude1=None, exclude2=None,
                     any_hit=False, any_hit_mask=None):
-        """The flat soup alone: the pair sweep over its clusters on the
-        cluster tier, else K1. A Hit, or bool [N] for any hit."""
+        """The flat soup alone: the cluster traversal over its clusters on
+        the cluster tier, else K1. A Hit, or bool [N] for any hit."""
         a = self.arrays
         n = o.shape[0]
         if self.num_tris == 0:
@@ -153,8 +191,8 @@ class Scene:
                 valid=torch.zeros((n,), dtype=torch.bool, device=o.device),
             )
         if a.bvh is not None:
-            return intersect_pairs(a.bvh["clusters"], o, d, tmin, tmax, exclude0, exclude1,
-                                   exclude2, any_hit=any_hit, any_hit_mask=any_hit_mask)
+            return _cluster_trace(a.bvh["clusters"], o, d, tmin, tmax, exclude0, exclude1,
+                                  exclude2, any_hit=any_hit, any_hit_mask=any_hit_mask)
         return intersect_tris(o, d, tmin, tmax, a.v0, a.e1, a.e2, exclude0, exclude1, exclude2,
                               any_hit=any_hit)
 
@@ -535,7 +573,7 @@ def load_scene(path: str, width: int | None = None, height: int | None = None,
     flat_cl = None
     if num_tris >= BVH_MIN_TRIS or os.environ.get("AKR_FORCE_BVH"):
         order = build_bvh_order(soup.v0, soup.e1, soup.e2)
-        flat_cl = build_clusters(soup.v0, soup.e1, soup.e2, order)
+        flat_cl = attach_wide(build_clusters(soup.v0, soup.e1, soup.e2, order))
     # instanced tier, and the unified candidate list over both
     instanced = unified = None
     if inst_specs:
@@ -544,7 +582,7 @@ def load_scene(path: str, width: int | None = None, height: int | None = None,
             spec["slot_mat"] = [name_to_idx[m] for m in spec["materials"]] or [0]
             spec["slot_kind"] = [refs[m].kind for m in spec["materials"]] or [0]
         ia, _ = build_instanced(meshes, inst_specs, num_tris)
-        unified = build_unified_clusters(ia, flat_cl).to(device)
+        unified = attach_wide(build_unified_clusters(ia, flat_cl)).to(device)
         instanced = ia.to(device)
     bvh = {"clusters": flat_cl.to(device)} if flat_cl is not None else None
 

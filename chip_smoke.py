@@ -48,7 +48,24 @@ Phases (any failure exits non-zero; nothing is caught):
    dispatch; path A: K8 once per pass) and, as the baseline, the
    wavefront with the per-kind dispatch at one 16-spp pass, with every
    kernel's launches counted per path, and the device events of one sample
-   of each read from torch.profiler.
+   of each read from torch.profiler;
+15. build: the wide-BVH walk K7 (csrc/wide.cu), in the same parallel build
+   (K5, the window refine, is part of csrc/pairs.cu);
+16. K7 and K5 parity on phase 7's classroom rays: the wide walk's kernel
+   against its plain version (closest hit with exclusion ids and cut tmax
+   against the plain rounds; any hit against the plain version at one leaf
+   a round, which is the kernel step for step, with the nodes expanded and
+   leaves tested of each block), bit-equal; the wide walk and the windowed
+   walk against the static pair sweep (valid and t bit-equal; ids equal
+   except on exact t ties, counted); K5 on the first round's window of that
+   windowed traversal against its plain version, bit-equal; CUDA event
+   timings and bounds;
+17. the other traversals' correctness: classroom 96x96, 16 spp, d12 through
+   the CLI with AKR_WIDE=1 and with AKR_PAIRS_STATIC=0, each held to phase
+   8's gates and against phase 8's image;
+18. the other traversals at full width: classroom 1920x1080, 1 spp, d12
+   through the CLI under each switch, with every kernel's launches counted
+   and the windowed walk's rounds, beside phase 9's default route.
 
 Each phase prints the seconds since the start when it ends.
 
@@ -57,7 +74,8 @@ at classroom's shapes against its plain version; no main path calls it.
 
 It prints a JSON line of kernel results (with each kernel's bound: the
 bytes it must move over 3.35 TB/s or the FP32 operations this run's data
-needs over 67 TFLOP/s, whichever is longer), the card's name and power
+needs over 67 TFLOP/s, whichever is longer; a lane's slab test of one box
+counted as 12), the card's name and power
 limit, and last a JSON line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -504,7 +522,9 @@ def classroom_rays(scene, cl, device):
 def pairs_parity(device):
     """Phase 7: K2, K3 and K4 against their plain versions at classroom's
     shapes, and the pair sweep against K1 over the flattened world soup.
-    Returns the three kernels' JSON entries."""
+    Returns the kernels' JSON entries and, for phase 16, the scene, its
+    candidate list, the rays with their exclusion ids, their sorted blocks
+    and the static pair sweep's hits."""
     import numpy as np
     import torch
 
@@ -654,27 +674,54 @@ def pairs_parity(device):
              "K3": ("K3 pair-sweep per-ray refine", 333),
              "K4": ("K4 pair-sweep candidate walk", 544),
              "K6": ("K6 one-candidate sweep (K4 kernel, early-out off; on no main path)", 430)}
-    return {k: {"name": names[k][0], "route": "cuda",
-                "source": "akari_render_tpu_torch/csrc/pairs.cu",
-                "replaces": f"akari_render_tpu/accel/pairs.py:{names[k][1]}",
-                "launches": 0, "max_abs_err": errs[k], "ms": ms[k][0], "plain_ms": ms[k][1],
-                "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None}
-            for k in names}
+    entries = {k: {"name": names[k][0], "route": "cuda",
+                   "source": "akari_render_tpu_torch/csrc/pairs.cu",
+                   "replaces": f"akari_render_tpu/accel/pairs.py:{names[k][1]}",
+                   "launches": 0, "max_abs_err": errs[k], "ms": ms[k][0], "plain_ms": ms[k][1],
+                   "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None}
+               for k in names}
+    return entries, {"scene": scene, "cl": cl, "rays": (o, d, tmin, tmax), "ex": (ex0, ex1),
+                     "sorted": s, "e_con": e_con, "static_hits": hp}
 
 
-def classroom_correctness(device):
-    """Phase 8: classroom 96^2 16 spp against the committed JAX image and
-    ground truth."""
+class windowed_rounds:
+    """For a block, collect the windowed walk's rounds: the list it yields
+    receives each round's count of live blocks."""
+
+    def __enter__(self):
+        from akari_render_tpu_torch.accel import pairs
+
+        self.real, rounds = pairs.windowed_walk, []
+        pairs.windowed_walk = lambda *a, **k: self.real(*a, rounds=rounds, **k)
+        return rounds
+
+    def __exit__(self, *exc):
+        from akari_render_tpu_torch.accel import pairs
+
+        pairs.windowed_walk = self.real
+
+
+# the cluster tier's traversals: the name the stats report -> its switch
+TRAVERSALS = {"pairs-static": {}, "wide": {"AKR_WIDE": "1"},
+              "pairs-windowed": {"AKR_PAIRS_STATIC": "0"}}
+
+
+def classroom_correctness(device, traversal="pairs-static", base=None):
+    """Phases 8 and 17: classroom 96^2 16 spp through `traversal` against
+    the committed JAX image and ground truth and, where given, against the
+    default traversal's image `base`. Returns the image."""
     import numpy as np
 
     from akari_render_tpu_torch.cli import main as cli_main
     from akari_render_tpu_torch.core.image_io import read_exr
 
-    out = OUT / "classroom96.exr"
+    out = OUT / f"classroom96_{traversal}.exr"
     t0 = time.perf_counter()
-    cli_main(["-s", str(CLASSROOM), "-m", str(CLASSROOM_METHOD), "--res", "96", "--spp", "16",
-              "-o", str(out), "--device", device])
+    with env_switch(**TRAVERSALS[traversal]):
+        stats = cli_main(["-s", str(CLASSROOM), "-m", str(CLASSROOM_METHOD), "--res", "96",
+                          "--spp", "16", "-o", str(out), "--device", device])
     wall = time.perf_counter() - t0
+    check(stats["traversal"] == traversal, f"classroom 96^2 took the {stats['traversal']} traversal")
     img = read_exr(out)
     jax16 = np.load(ROOT / "akari_render_tpu_torch" / "testdata" / "classroom96_spp16.npy")
     gt = read_exr(CLASSROOM_GT)
@@ -685,45 +732,175 @@ def classroom_correctness(device):
     mse_port = float(np.mean((img - gt) ** 2))
     mse_jax = float(np.mean((jax16 - gt) ** 2))
     mse_pj = float(np.mean((img - jax16) ** 2))
-    print(f"classroom 96^2 16spp ({wall:.3f} s CLI wall): means port {m_port} jax {m_jax} "
-          f"(max rel {mean_rel:.3g}); MSE(port, gt) {mse_port:.6g}, MSE(jax16, gt) "
-          f"{mse_jax:.6g}, MSE(port, jax16) {mse_pj:.6g}", flush=True)
+    vs_base = "" if base is None else (f", max abs difference from the pairs-static image "
+                                       f"{float(np.abs(img - base).max()):.3g}")
+    print(f"classroom 96^2 16spp, {traversal} ({wall:.3f} s CLI wall): means port {m_port} jax "
+          f"{m_jax} (max rel {mean_rel:.3g}); MSE(port, gt) {mse_port:.6g}, MSE(jax16, gt) "
+          f"{mse_jax:.6g}, MSE(port, jax16) {mse_pj:.6g}{vs_base}", flush=True)
     check(mean_rel <= MEAN_TOL, "classroom channel means differ from the JAX image by more than 1%")
     check(mse_port <= MSE_RATIO * mse_jax, "classroom MSE against the ground truth too high")
+    return img
 
 
-def classroom_full_width(device):
-    """Phase 9: classroom 1920x1080 1 spp d12 through the CLI, K2/K3/K4
-    launches counted. Returns the launch counts."""
+def classroom_full_width(device, traversal="pairs-static"):
+    """Phases 9 and 18: classroom 1920x1080 1 spp d12 through the CLI with
+    `traversal`, every kernel's launches counted around it. Returns the
+    launch counts."""
     import numpy as np
     import torch
 
-    from akari_render_tpu_torch.accel import pairs
     from akari_render_tpu_torch.cli import main as cli_main
     from akari_render_tpu_torch.core.image_io import read_exr
 
-    out = OUT / "classroom1080.exr"
+    out = OUT / f"classroom1080_{traversal}.exr"
     out.unlink(missing_ok=True)
     torch.cuda.reset_peak_memory_stats()
-    for k in pairs.launches:
-        pairs.launches[k] = 0
-    t0 = time.perf_counter()
-    stats = cli_main(["-s", str(CLASSROOM), "-m", str(CLASSROOM_METHOD), "-o", str(out),
-                      "--device", device])
-    wall = time.perf_counter() - t0
-    launches = dict(pairs.launches)
-    for k in ("K2", "K3", "K4"):
-        check(launches[k] > 0, f"the cluster-tier path launched {k} no time")
+    with env_switch(**TRAVERSALS[traversal]), windowed_rounds() as rounds:
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = cli_main(["-s", str(CLASSROOM), "-m", str(CLASSROOM_METHOD), "-o", str(out),
+                          "--device", device])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    check(stats["traversal"] == traversal, f"classroom 1080p took the {stats['traversal']} traversal")
+    used = {"pairs-static": ("K2", "K3", "K4"), "wide": ("K7",),
+            "pairs-windowed": ("K2", "K4", "K5")}[traversal]
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"):
+        check((launches[k] > 0) == (k in used),
+              f"classroom 1080p through {traversal} launched {k} {launches[k]} times")
     img = read_exr(out)
     check(img.shape == (1080, 1920, 3) and bool(np.all(np.isfinite(img))),
           "1080p image shape / finiteness")
     paths = 1920 * 1080
     peak = torch.cuda.max_memory_allocated()
-    print(f"classroom 1920x1080 1spp d12: render {stats['total_time']:.3f} s "
+    walk = (f", {len(rounds)} rounds of the windowed walk in {launches['K2']} traversals (a host "
+            f"read each; {sum(rounds)} live blocks in all)") if traversal == "pairs-windowed" else ""
+    print(f"classroom 1920x1080 1spp d12, {traversal}: render {stats['total_time']:.3f} s "
           f"({paths / stats['total_time'] / 1e6:.4f} Mpaths/s), CLI wall {wall:.3f} s, "
-          f"launches {launches}, peak device memory {peak / 2**30:.3f} GiB "
+          f"launches and counts {launches}{walk}, peak device memory {peak / 2**30:.3f} GiB "
           f"({peak / paths:.0f} B per lane), image mean {img.mean(axis=(0, 1))}", flush=True)
     return launches
+
+
+def other_traversals_parity(ctx, device):
+    """Phase 16: K7 (the wide walk) and K5 (the window refine) against
+    their plain versions on phase 7's classroom rays, and both traversals
+    against the static pair sweep. Returns the two kernels' JSON entries."""
+    import torch
+
+    from akari_render_tpu_torch.accel import pairs, wide
+
+    cl, (o, d, tmin, tmax), (ex0, ex1) = ctx["cl"], ctx["rays"], ctx["ex"]
+    hp = ctx["static_hits"]
+    n, K, C = o.shape[0], cl.num_clusters, cl.tri.shape[1]
+    sw = pairs.sort_rays(cl, o, d, tmin, tmax, ex0, ex1, dead_last=False)
+    B = sw.summ.shape[0]
+
+    def walk_args(any_hit):
+        return (cl.wide, cl.tri, cl.xf, sw.o_soa, sw.d_soa, sw.lim, sw.ex, sw.best0, any_hit)
+
+    # closest hit (exclusion ids, cut tmax) against the plain rounds; any
+    # hit against the plain version at one leaf a round, counts and all
+    counts = torch.zeros((B, 2), dtype=torch.int32, device=device)
+    got = wide.wide_walk(*walk_args(False), counts=counts)
+    want, plain_ms = timed(lambda: wide.wide_walk_torch(*walk_args(False)))
+    counts_any = torch.zeros((B, 2), dtype=torch.int32, device=device)
+    counts_any_p = torch.zeros((B, 2), dtype=torch.int32, device=device)
+    got_any = wide.wide_walk(*walk_args(True), counts=counts_any)
+    want_any, plain_ms_any = timed(
+        lambda: wide.wide_walk_torch(*walk_args(True), maxc=1, counts=counts_any_p))
+    err_k7 = max(max_abs_diff(got, want), max_abs_diff(got_any, want_any))
+    print(f"K7 parity at {n} rays ({B} blocks) x {K} candidates ({cl.wide.shape[0]} nodes): "
+          f"closest hit, lanes with a hit {int((got[1] >= 0).sum())}, nodes expanded "
+          f"{int(counts[:, 0].sum())} (max {int(counts[:, 0].max())} a block), leaves tested "
+          f"{int(counts[:, 1].sum())} (max {int(counts[:, 1].max())}); any hit, lanes occluded "
+          f"{int((got_any[1] >= 0).sum())}, nodes {int(counts_any[:, 0].sum())}, leaves "
+          f"{int(counts_any[:, 1].sum())}; max abs err {err_k7}", flush=True)
+    check(torch.equal(got, want), "K7 (closest hit) differs from its plain version")
+    check(torch.equal(got_any, want_any), "K7 (any hit) differs from its plain version")
+    check(torch.equal(counts_any, counts_any_p),
+          "K7's nodes expanded / leaves tested differ from the plain version's at one leaf a round")
+
+    # both traversals against the static pair sweep, no exclusions
+    hw = wide.intersect_wide(cl, o, d, tmin, tmax)
+    with env_switch(AKR_PAIRS_STATIC="0"), windowed_rounds() as rounds:
+        hwin = pairs.intersect_pairs(cl, o, d, tmin, tmax)
+    for name, h in (("wide walk", hw), ("windowed walk", hwin)):
+        id_mis = hp.valid & (h.tri_id != hp.tri_id)
+        print(f"{name} vs the static pair sweep: hits {int(h.valid.sum())} / "
+              f"{int(hp.valid.sum())}, valid equal {torch.equal(h.valid, hp.valid)}, t bit-equal "
+              f"{torch.equal(h.t, hp.t)}, ids differ on {int(id_mis.sum())} rays (exact t ties "
+              f"between two candidates)" + (f"; {len(rounds)} rounds" if h is hwin else ""),
+              flush=True)
+        check(torch.equal(h.valid, hp.valid) and torch.equal(h.t, hp.t),
+              f"the {name}'s valid or t differs from the static pair sweep's")
+        check(bool(torch.equal(h.bary[~id_mis], hp.bary[~id_mis])),
+              f"the {name}'s u, v differ from the static pair sweep's on the same triangle")
+    check(torch.equal(hwin.tri_id, hp.tri_id), "the windowed walk's ids differ from the static walk's")
+
+    # K5 on the first round's window of the windowed traversal of phase 7's
+    # sorted blocks (exclusion ids do not reach it)
+    s7, calls, real_refine = ctx["sorted"], [], pairs.refine
+
+    def capture(*args):
+        if not calls:
+            calls.append(tuple(a.clone() for a in args))
+        return real_refine(*args)
+
+    pairs.refine = capture
+    try:
+        pairs.windowed_walk(cl, s7, ctx["e_con"], False)
+    finally:
+        pairs.refine = real_refine
+    check(len(calls) == 1, "the windowed walk made no K5 call")
+    k5_args = calls[0]
+    wb = k5_args[0]
+    W = wb.shape[2]
+    passed = pairs.refine(*k5_args)
+    passed_p, plain_ms_k5 = timed(lambda: pairs.refine_torch(*k5_args))
+    err_k5 = max_abs_diff(passed.float(), passed_p.float())
+    print(f"K5 parity on the first window of the windowed walk ({tuple(wb.shape)}): members "
+          f"that pass {float(passed.float().mean()):.4f}; max abs err {err_k5}", flush=True)
+    check(tuple(wb.shape) == (B, 6, pairs.MAXC * pairs.WINDOW_MULT), "K5's window shape")
+    check(torch.equal(passed, passed_p), "K5 differs from its plain version")
+
+    ms_k7 = cuda_ms(lambda: wide.wide_walk(*walk_args(False)), 5)
+    ms_k7_any = cuda_ms(lambda: wide.wide_walk(*walk_args(True)), 5)
+    ms_k5 = cuda_ms(lambda: pairs.refine(*k5_args), 20)
+    # bounds. K7: per live lane 8 slab tests (12 operations each) a node
+    # expanded and a ray transform (33) plus C triangle tests (MT_FLOPS + 1)
+    # a leaf tested; it reads each lane's 16 floats, the node table and the
+    # triangle and transform tables once, and writes 4 floats a lane. K5:
+    # one slab test for a member that passes (the lane that passes), one
+    # per live lane for a member that fails; it reads the window and the
+    # lanes' 8 floats and writes an int a member.
+    live_w = (sw.lim[1] > sw.lim[0]).reshape(B, pairs.BLOCK).sum(1).double()
+    table_bytes = (cl.tri.numel() + cl.wide.numel()
+                   + (cl.xf.numel() if cl.xf is not None else 0)) * 4
+    ops_k7 = float((live_w * (counts[:, 0].double() * 96
+                              + counts[:, 1].double() * (33 + C * (MT_FLOPS + 1)))).sum())
+    b_k7 = bound(ops_k7, 80.0 * n + table_bytes)
+    live_7 = (k5_args[3][1] > k5_args[3][0]).reshape(B, pairs.BLOCK).sum(1).double()
+    ops_k5 = 12.0 * float(torch.where(passed > 0, 1.0, live_7[:, None]).sum())
+    b_k5 = bound(ops_k5, 4.0 * (7 * B * W + 8 * n))
+    print(f"K7 at classroom's shapes: closest hit {ms_k7:.4f} ms (plain {plain_ms:.4f} ms, bound "
+          f"{b_k7[0]:.4f} ms by {b_k7[1]}: {ops_k7:.4g} FP32 operations), any hit {ms_k7_any:.4f} "
+          f"ms (plain, one leaf a round, {plain_ms_any:.4f} ms); K5 {ms_k5:.4f} ms (plain "
+          f"{plain_ms_k5:.4f} ms, bound {b_k5[0]:.4f} ms by {b_k5[1]}: {ops_k5:.4g} FP32 "
+          f"operations)", flush=True)
+    common = {"route": "cuda", "launches": 0, "library_ms": None}
+    return {
+        "K5": {"name": "K5 windowed walk's window refine",
+               "source": "akari_render_tpu_torch/csrc/pairs.cu",
+               "replaces": "akari_render_tpu/accel/pairs.py:267", "max_abs_err": err_k5,
+               "ms": ms_k5, "plain_ms": plain_ms_k5, "bound_ms": b_k5[0], "bound_by": b_k5[1],
+               **common},
+        "K7": {"name": "K7 wide-BVH walk (with the leaf test)",
+               "source": "akari_render_tpu_torch/csrc/wide.cu",
+               "replaces": "akari_render_tpu/accel/wide.py:187", "max_abs_err": err_k7,
+               "ms": ms_k7, "plain_ms": plain_ms, "bound_ms": b_k7[0], "bound_by": b_k7[1],
+               **common},
+    }
 
 
 def blinds_setup(device):
@@ -949,26 +1126,27 @@ def blinds_correctness(device):
 def reset_launches():
     """Every kernel's launch count, and the bounce loop's counts, to 0."""
     from akari_render_tpu_torch.accel import intersect as k1
-    from akari_render_tpu_torch.accel import pairs
+    from akari_render_tpu_torch.accel import pairs, wide
     from akari_render_tpu_torch.integrators import common
     from akari_render_tpu_torch.integrators import fused_shade as fs
     from akari_render_tpu_torch.integrators import megakernel as mk
 
     k1.launches = mk.launches = fs.launches = 0
-    for k in pairs.launches:
-        pairs.launches[k] = 0
+    for counts in (pairs.launches, wide.launches):
+        for k in counts:
+            counts[k] = 0
     common.counts.update(bounces=0, dispatch_groups=0)
 
 
 def read_launches() -> dict:
     from akari_render_tpu_torch.accel import intersect as k1
-    from akari_render_tpu_torch.accel import pairs
+    from akari_render_tpu_torch.accel import pairs, wide
     from akari_render_tpu_torch.integrators import common
     from akari_render_tpu_torch.integrators import fused_shade as fs
     from akari_render_tpu_torch.integrators import megakernel as mk
 
-    return {"K1": k1.launches, **pairs.launches, "K8": mk.launches, "K9": fs.launches,
-            **common.counts}
+    return {"K1": k1.launches, **pairs.launches, **wide.launches, "K8": mk.launches,
+            "K9": fs.launches, **common.counts}
 
 
 def device_events_per_call(calls: dict) -> dict:
@@ -1079,9 +1257,9 @@ def blinds_full_width(device):
 
 
 def build_all():
-    """Phases 2, 6 and 10: one nvcc per kernel source, started together."""
+    """Phases 2, 6, 10 and 15: one nvcc per kernel source, started together."""
     from akari_render_tpu_torch.accel import intersect as k1
-    from akari_render_tpu_torch.accel import pairs
+    from akari_render_tpu_torch.accel import pairs, wide
     from akari_render_tpu_torch.integrators import fused_shade as fs
     from akari_render_tpu_torch.integrators import megakernel as mk
 
@@ -1095,7 +1273,7 @@ def build_all():
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=run, args=(b,))
-               for b in (k1.build, pairs.build, mk.build, fs.build)]
+               for b in (k1.build, pairs.build, wide.build, mk.build, fs.build)]
     for th in threads:
         th.start()
     for th in threads:
@@ -1104,9 +1282,10 @@ def build_all():
         raise errors[0]
     wall = time.perf_counter() - t0
     print(f"K1 build: nvcc {k1.build_seconds:.3f} s", flush=True)
-    print(f"K2/K3/K4 build: nvcc {pairs.build_seconds:.3f} s", flush=True)
+    print(f"K2-K6 build: nvcc {pairs.build_seconds:.3f} s; K7 build: nvcc "
+          f"{wide.build_seconds:.3f} s", flush=True)
     print(f"K8 build: nvcc {mk.build_seconds:.3f} s; K9 build: nvcc {fs.build_seconds:.3f} s "
-          f"({wall:.3f} s for the four builds, in parallel)", flush=True)
+          f"({wall:.3f} s for the five builds, in parallel)", flush=True)
 
 
 def main():
@@ -1125,7 +1304,7 @@ def main():
     OUT.mkdir(parents=True, exist_ok=True)
 
     build_all()
-    lap("phases 2, 6 and 10 (build)")
+    lap("phases 2, 6, 10 and 15 (build)")
     scene = load_scene(str(SCENE), device=device)
     entry = k1_parity(scene, device)
     pcg_parity(device)
@@ -1135,14 +1314,23 @@ def main():
     entry["launches"] = full_width(device)
     lap("phase 5 (matbox 512^2)")
 
-    pair_entries = pairs_parity(device)
+    pair_entries, ctx = pairs_parity(device)
     lap("phase 7 (K2/K3/K4/K6 parity)")
-    classroom_correctness(device)
+    other = other_traversals_parity(ctx, device)
+    del ctx  # its tensors would count in the renders' peak memory
+    lap("phase 16 (K7 and K5 parity)")
+    base96 = classroom_correctness(device)
     lap("phase 8 (classroom 96^2)")
     for k, c in classroom_full_width(device).items():
         if k in ("K2", "K3", "K4"):
             pair_entries[k]["launches"] = c
     lap("phase 9 (classroom 1080p)")
+    for traversal in ("wide", "pairs-windowed"):
+        classroom_correctness(device, traversal, base96)
+    lap("phase 17 (classroom 96^2, wide and windowed)")
+    other["K7"]["launches"] = classroom_full_width(device, "wide")["K7"]
+    other["K5"]["launches"] = classroom_full_width(device, "pairs-windowed")["K5"]
+    lap("phase 18 (classroom 1080p, wide and windowed)")
 
     fused = {"K9": k9_parity(device)}
     lap("phase 11 (K9 parity)")
@@ -1154,7 +1342,8 @@ def main():
         fused[k]["launches"] = c
     lap("phase 14 (blinds 256^2)")
 
-    print(json.dumps({"kernels": [entry, *pair_entries.values(), fused["K8"], fused["K9"]]}))
+    print(json.dumps({"kernels": [entry, *pair_entries.values(), other["K5"], other["K7"],
+                                  fused["K8"], fused["K9"]]}))
     print(gpu_query())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

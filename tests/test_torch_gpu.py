@@ -1,5 +1,5 @@
-"""PyTorch port on the card: the K1-K4, K6, K8 and K9 CUDA kernels against
-their plain torch versions, and the slices on the card against the slices
+"""PyTorch port on the card: the K1-K9 CUDA kernels against their plain
+torch versions, and the slices on the card against the slices
 on the CPU.
 
 Every test here is marked gpu and skips without CUDA. The file imports no
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from akari_render_tpu_torch.accel import intersect as k1
-from akari_render_tpu_torch.accel import pairs
+from akari_render_tpu_torch.accel import nvcc, pairs, wide
 from akari_render_tpu_torch.native import build_bvh_order
 from akari_render_tpu_torch.accel.cluster import build_clusters
 from akari_render_tpu_torch.camera import generate_rays
@@ -139,7 +139,7 @@ def test_pair_kernels_match_plain_on_card(cuda):
                 any_hit)
         assert torch.equal(pairs.sweep_walk(*args), pairs.sweep_walk_torch(*args)), any_hit
     assert {k: pairs.launches[k] - before[k] for k in before} == {"K2": 1, "K3": 1, "K4": 2,
-                                                                  "K6": 0}
+                                                                  "K5": 0, "K6": 0}
 
 
 def test_intersect_pairs_card_matches_cpu(cuda):
@@ -157,6 +157,86 @@ def test_intersect_pairs_card_matches_cpu(cuda):
         else:
             for a, b in zip(res[0], res[1]):
                 assert torch.equal(a, b.cpu())
+
+
+def test_window_refine_kernel_matches_plain_on_card(cuda):
+    """K5 against its plain version on the card: windows of 160 gathered
+    member boxes (not a multiple of the kernel's tile) against the sorted
+    blocks, with occluded lanes (limit -inf), bit-equal."""
+    cl = _soup_clusters(C=16).to(cuda)
+    o, d, tmin, tmax, ex0, _ = _pair_rays(1 << 13, 7, cuda)
+    s = pairs.sort_rays(cl, o, d, tmin, tmax, ex0)
+    B, W = s.summ.shape[0], 160
+    rng = np.random.default_rng(3)
+    win = torch.as_tensor(rng.integers(0, cl.num_clusters, (B, W)), device=cuda)
+    wb = pairs.cluster_bounds(cl)[:, win].permute(1, 0, 2).contiguous()
+    t1 = torch.where(torch.as_tensor(rng.random(s.lim.shape[1]) < 0.2, device=cuda),
+                     -float("inf"), s.lim[1])
+    lim = torch.stack([s.lim[0], t1])
+    before = pairs.launches["K5"]
+    got = pairs.refine(wb, s.o_soa, s.inv_soa, lim)
+    assert pairs.launches["K5"] == before + 1
+    assert torch.equal(got, pairs.refine_torch(wb, s.o_soa, s.inv_soa, lim))
+    assert 0.02 < float(got.float().mean()) < 0.98
+
+
+def test_wide_walk_kernel_matches_plain_on_card(cuda):
+    """K7 against its plain version on the card: with one leaf a round the
+    plain version is the kernel step for step, so best and both counts
+    (nodes expanded, leaves tested) are bit-equal, closest and any hit;
+    against the default round size closest hit is bit-equal and any hit
+    agrees on the occlusion."""
+    cl = wide.attach_wide(_soup_clusters(C=16)).to(cuda)
+    o, d, tmin, tmax, ex0, _ = _pair_rays(1 << 13, 5, cuda)
+    s = pairs.sort_rays(cl, o, d, tmin, tmax, ex0, dead_last=False)
+    B = s.summ.shape[0]
+    before = wide.launches["K7"]
+    for any_hit in (False, True):
+        args = (cl.wide, cl.tri, cl.xf, s.o_soa, s.d_soa, s.lim, s.ex, s.best0, any_hit)
+        ck = torch.zeros((B, 2), dtype=torch.int32, device=cuda)
+        cp = torch.zeros((B, 2), dtype=torch.int32, device=cuda)
+        got = wide.wide_walk(*args, counts=ck)
+        assert torch.equal(got, wide.wide_walk_torch(*args, maxc=1, counts=cp)), any_hit
+        assert torch.equal(ck, cp) and int(ck[:, 1].max()) > 8
+        ref = wide.wide_walk_torch(*args)
+        assert torch.equal(got[1] >= 0, ref[1] >= 0) and (any_hit or torch.equal(got, ref))
+        assert int((got[1] >= 0).sum()) > 500
+    assert wide.launches["K7"] == before + 2
+
+
+def test_other_traversals_card_match_cpu(cuda, monkeypatch):
+    """intersect_wide and the windowed intersect_pairs on the card
+    (kernels) and on the CPU (plain versions) give the same hits and any
+    hits, which are the static pair sweep's."""
+    cl = wide.attach_wide(_soup_clusters(seed=3, C=32))
+    cpu, gpu = (_pair_rays(5000, 9, dev) for dev in ("cpu", cuda))
+    ref = pairs.intersect_pairs(cl, *cpu[:5])
+    ref_any = pairs.intersect_pairs(cl, *cpu[:5], any_hit=True)
+    before = {**pairs.launches, **wide.launches}
+    for fn, switch in ((wide.intersect_wide, None), (pairs.intersect_pairs, "AKR_PAIRS_STATIC")):
+        if switch:
+            monkeypatch.setenv(switch, "0")
+        for c, (o, d, tmin, tmax, ex0, _) in ((cl, cpu), (cl.to(cuda), gpu)):
+            for a, b in zip(fn(c, o, d, tmin, tmax, ex0), ref):
+                assert torch.equal(a.cpu(), b), fn.__name__
+            assert torch.equal(fn(c, o, d, tmin, tmax, ex0, any_hit=True).cpu(), ref_any)
+    after = {**pairs.launches, **wide.launches}
+    assert after["K7"] == before["K7"] + 2 and after["K5"] > before["K5"]
+    assert after["K3"] == before["K3"]  # the windowed walk runs no static refine
+
+
+def test_failed_kernel_build_raises(cuda, tmp_path, monkeypatch):
+    """A kernel source that does not compile raises at the first launch:
+    no fallback to the plain version."""
+    bad = tmp_path / "wide.cu"
+    bad.write_text(wide.SOURCE.read_text() + "\nthis does not compile;\n")
+    monkeypatch.setattr(wide, "SOURCE", bad)
+    monkeypatch.setattr(wide, "_lib", None)
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path / "out")
+    cl = wide.attach_wide(_soup_clusters(C=32)).to(cuda)
+    o, d, tmin, tmax, ex0, _ = _pair_rays(1024, 2, cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        wide.intersect_wide(cl, o, d, tmin, tmax)
 
 
 def test_cluster_tier_on_card_matches_cpu(cuda):

@@ -18,12 +18,14 @@ import torch
 from akari_render_tpu import scene as j_scene
 from akari_render_tpu.accel import pairs as jp
 from akari_render_tpu.accel.bvh import build_bvh as j_build_bvh
+from akari_render_tpu.accel.wide import attach_wide as j_attach_wide
 from akari_render_tpu.config import PTConfig as JPTConfig
 from akari_render_tpu.integrators.pt import render_pt as j_render_pt
 from akari_render_tpu.native import get_lib as j_native_lib
 from akari_render_tpu.svm.precompute import get_table as j_get_table
 from akari_render_tpu_torch import scene as t_scene
 from akari_render_tpu_torch.accel import pairs as tp
+from akari_render_tpu_torch.accel import wide as tw
 from akari_render_tpu_torch import native as t_native
 from akari_render_tpu_torch.native import build_bvh_order
 from akari_render_tpu_torch.config import PTConfig as TPTConfig
@@ -85,7 +87,11 @@ def _np(x):
 
 def _assert_clusters_equal(got, want, what):
     """Every field the port keeps, bit-equal (the JAX package's extra
-    superclusters and wide BVH are not ported)."""
+    superclusters are not ported). The port attaches the wide walk's node
+    table to every traversed list at load; the JAX package only where its
+    pair-sweep tier runs (not on the CPU), so a missing one is built here."""
+    if got.wide is not None and want.wide is None:
+        want = j_attach_wide(want)
     for f in got._fields:
         g, w = getattr(got, f), _np(getattr(want, f))
         if g is None or w is None:
@@ -187,8 +193,8 @@ def test_interop_carries_accel_state(inst_scenes):
     the port's own."""
     js, ts = inst_scenes[True]
     ja = js.arrays
-    unified = cluster_arrays_from_numpy({f: _np(getattr(ja.unified, f)) for f in ja.unified._fields},
-                                        "cpu")
+    ju = j_attach_wide(ja.unified)  # the node table rides along
+    unified = cluster_arrays_from_numpy({f: _np(getattr(ju, f)) for f in ju._fields}, "cpu")
     inst = {f: _np(getattr(ja.instanced, f)) for f in ja.instanced._fields if f != "clusters"}
     inst["clusters"] = {f: _np(getattr(ja.instanced.clusters, f))
                         for f in ja.instanced.clusters._fields}
@@ -293,14 +299,42 @@ def test_scene_intersections_match(inst_scenes, force_bvh):
         np.testing.assert_array_equal(tsi[key].numpy()[v], np.asarray(jsi[key])[v], err_msg=key)
 
 
-def test_slice_through_cluster_tier_matches_jax(inst_scenes, table):
+@pytest.fixture(scope="module")
+def jax_slice(inst_scenes):
+    """The JAX package's 32x32, 4 spp, d5 render of the instanced scene
+    with its flat part forced into the cluster tier."""
+    jimg, _ = j_render_pt(inst_scenes[True][0], JPTConfig(spp=4, max_depth=5, spp_per_pass=4))
+    return np.asarray(jimg)
+
+
+def test_slice_through_cluster_tier_matches_jax(inst_scenes, jax_slice):
     """The instanced scene with its flat part forced into the cluster tier,
     32x32 at 4 spp, d5, through both packages' path tracers at the same
     seed (tolerance of tests/test_instanced.py's render check)."""
-    js, ts = inst_scenes[True]
-    jimg, _ = j_render_pt(js, JPTConfig(spp=4, max_depth=5, spp_per_pass=4))
-    timg, _ = t_render_pt(ts, TPTConfig(spp=4, max_depth=5, spp_per_pass=4))
-    jimg = np.asarray(jimg)
-    assert timg.shape == jimg.shape == (32, 32, 3) and np.isfinite(timg).all()
-    assert jimg.mean() > 0.0
-    np.testing.assert_allclose(timg, jimg, rtol=1e-3, atol=2e-3)
+    _, ts = inst_scenes[True]
+    timg, stats = t_render_pt(ts, TPTConfig(spp=4, max_depth=5, spp_per_pass=4))
+    assert stats["traversal"] == "pairs-static"
+    assert timg.shape == jax_slice.shape == (32, 32, 3) and np.isfinite(timg).all()
+    assert jax_slice.mean() > 0.0
+    np.testing.assert_allclose(timg, jax_slice, rtol=1e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("switch,traversal", [("AKR_WIDE=1", "wide"),
+                                              ("AKR_PAIRS_STATIC=0", "pairs-windowed")])
+def test_slice_through_other_traversals_matches_jax(inst_scenes, jax_slice, switch, traversal,
+                                                    monkeypatch):
+    """The same render through the wide-BVH walk and through the legacy
+    windowed walk: the stats name the traversal, its entry point ran, and
+    the image is within the same tolerance of the JAX package's (the hits
+    are the same whatever the traversal; rtol 1e-3, atol 2e-3 as above)."""
+    _, ts = inst_scenes[True]
+    monkeypatch.setenv(*switch.split("="))
+    calls = []
+    for mod, name in ((tw, "wide_walk"), (tp, "windowed_walk")):
+        monkeypatch.setattr(mod, name, lambda *a, _f=getattr(mod, name), _n=name, **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    timg, stats = t_render_pt(ts, TPTConfig(spp=4, max_depth=5, spp_per_pass=4))
+    assert stats["traversal"] == traversal
+    assert set(calls) == {"wide_walk" if traversal == "wide" else "windowed_walk"}
+    assert np.isfinite(timg).all()
+    np.testing.assert_allclose(timg, jax_slice, rtol=1e-3, atol=2e-3)

@@ -1,6 +1,7 @@
-"""PyTorch port, the pair sweep (accel/pairs.py): the plain versions of K2,
-K3 and K4 against the JAX package's Pallas kernels in interpret mode, and
-intersect_pairs against the JAX intersect_pairs, all bit-equal.
+"""PyTorch port, the pair sweep (accel/pairs.py): the plain versions of K2
+to K6 against the JAX package's Pallas kernels in interpret mode, the sort
+keys' layouts, and intersect_pairs (static and windowed walk) against the
+JAX intersect_pairs, all bit-equal.
 
 XLA on the CPU contracts a*b + c into fused multiply-adds, which round
 differently from torch's separate ops (and from the CUDA kernels, built
@@ -73,6 +74,26 @@ def test_cluster_build_matches(clusters):
     jcl, tcl = clusters
     for f in ("cbmin", "cbmax", "tri", "order"):
         np.testing.assert_array_equal(getattr(tcl, f).numpy(), np.asarray(getattr(jcl, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("mode", ["o", "d0", "d3", "d9"])
+def test_sort_key_layouts_match(mode, monkeypatch):
+    """The "o" and "dK" sort-key layouts against _morton_keys, bit-equal in
+    int64, named by argument and through AKR_SORT_KEY."""
+    rng = np.random.default_rng(8)
+    n = 20000
+    o = rng.uniform(-3.2, 3.2, (n, 3)).astype(np.float32)  # some outside the box: clipped
+    d = (rng.normal(size=(n, 3)) * rng.choice([1e-3, 1.0, 1e3], (n, 1))).astype(np.float32)
+    d[:50, 2] = 0.0
+    lo, hi = np.full((1, 3), -3.0, np.float32), np.full((1, 3), 3.0, np.float32)
+    want = np.asarray(jit_unfused(lambda *a: jp._morton_keys(*a, mode=mode))(o, d, lo, hi))
+    got = tp.sort_keys(t_(o), t_(d), t_(lo), t_(hi), mode=mode)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    monkeypatch.setenv("AKR_SORT_KEY", mode)
+    assert torch.equal(tp.sort_keys(t_(o), t_(d), t_(lo), t_(hi)), got)
+    monkeypatch.delenv("AKR_SORT_KEY")
+    assert not torch.equal(tp.sort_keys(t_(o), t_(d), t_(lo), t_(hi)), got)  # default "i"
 
 
 def test_sort_keys_match():
@@ -162,6 +183,35 @@ def test_k3_plain_matches_pallas():
     got = tp.refine_all_torch(*(t_(a) for a in args)).numpy()
     np.testing.assert_array_equal(got, want)
     assert np.isinf(got[1:]).all() and np.isfinite(got[0]).sum() > 50
+
+
+def test_k5_plain_matches_pallas(monkeypatch):
+    """K5's plain version against _refine in interpret mode: a gathered
+    window of boxes per block (W 512, two chunks of the TPU kernel), with
+    the TPU walk's padding members (min +inf, max -inf: their slabs are
+    unbounded, so they pass for any live lane, and the caller slices them
+    off), lanes occluded in any hit (limit -inf) and a dead block; exact,
+    chunked or not."""
+    B, W = 3, 512
+    o, _, inv, lim = _block_lanes(B, seed=15)
+    lim[1, ::5] = -np.inf
+    rng = np.random.default_rng(16)
+    bmin = rng.uniform(-3, 2, (B, 3, W)).astype(np.float32)
+    wb = np.concatenate([bmin, bmin + rng.uniform(0, 0.4, (B, 3, W)).astype(np.float32)], axis=1)
+    wb[:, :3, -70:] = np.inf
+    wb[:, 3:, -70:] = -np.inf
+    args = (wb, o.T.copy(), inv.T.copy(), lim)
+    want = np.asarray(jit_unfused(lambda *a: jp._refine(*a, interpret=True))(*args))
+    got = tp.refine_torch(*(t_(a) for a in args))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert bool(got[:B - 1, -70:].all()) and not got[B - 1].any()
+    assert 20 < int(got[0, :-70].sum()) < W - 70  # some real members pass, some fail
+    monkeypatch.setattr(tp, "CHUNK_ELEMS", tp.BLOCK * W)
+    assert torch.equal(tp.refine_torch(*(t_(a) for a in args)), got)
+    before = dict(tp.launches)
+    assert torch.equal(tp.refine(*(t_(a) for a in args)), got)  # CPU: the plain version
+    assert tp.launches == before
 
 
 def _sweep_inputs(B=2, M=8, C=16, R=12, seed=9):
@@ -299,6 +349,41 @@ def test_intersect_pairs_matches_jax(clusters, case):
     else:
         _assert_hits_equal(got, want)
         assert int(got.valid.sum()) > 50
+
+
+@pytest.mark.parametrize("case", range(3), ids=["closest", "exclusions", "any_hit"])
+def test_windowed_walk_matches_jax(clusters, case, monkeypatch):
+    """intersect_pairs under AKR_PAIRS_STATIC=0, the legacy windowed walk
+    (K2, then rounds of window gather, K5, selection and sweep), against the
+    JAX package's under the same switch (maxc 6: a window of 96 of the 157
+    clusters, several rounds) and against the port's static walk, bit-equal.
+    The port's rounds use the default MAXC, and 6: the result does not
+    depend on it."""
+    jcl, tcl = clusters
+    o, d, tmin, tmax = _rays()
+    _, tmax_c, exs, _, any_hit = _pairs_cases(len(o))[case]
+    tmax = tmax if tmax_c is None else tmax_c
+    static = _torch_pairs(tcl, o, d, tmin, tmax, exs, any_hit=any_hit)
+    monkeypatch.setenv("AKR_PAIRS_STATIC", "0")
+    calls = []
+    real = tp.windowed_walk
+    monkeypatch.setattr(tp, "windowed_walk", lambda *a, **k: calls.append(1) or real(*a, **k))
+    want = _jax_pairs(jcl, o, d, tmin, tmax, exs, any_hit=any_hit)  # traced under the switch
+    got = _torch_pairs(tcl, o, d, tmin, tmax, exs, any_hit=any_hit)
+    assert calls == [1]
+    s = tp.sort_rays(tcl, t_(o), t_(d), t_(tmin), t_(tmax), *(None if e is None else t_(e) for e in exs))
+    e_con = tp.cull_einit(s.summ, tp.cluster_bounds(tcl))
+    rounds = []
+    small = tp._unsort_hits(real(tcl, s, e_con, any_hit, maxc=6, rounds=rounds), s.perm, len(o),
+                            any_hit)
+    assert len(rounds) > 1
+    if any_hit:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert torch.equal(got, static) and torch.equal(got, small)
+    else:
+        _assert_hits_equal(got, want)
+        for a, b, c in zip(got, static, small):
+            assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_nan_lane_matches_jax(clusters):

@@ -1,6 +1,7 @@
 """Profile the PyTorch port's path tracer on the card: where one sample's
 time goes, on matbox (flat tier, K1), classroom (cluster tier and
-instancing, K2-K4) or blinds (flat tier; with AKR_PALLAS_SHADE=1 the
+instancing: K2-K4, with AKR_WIDE=1 the wide-BVH walk K7, with
+AKR_PAIRS_STATIC=0 the windowed walk K2, K5 and K4) or blinds (flat tier; with AKR_PALLAS_SHADE=1 the
 fused shade K9 shades each bounce, with AKR_MEGAKERNEL=1 each sample is
 one pass of the path megakernel K8).
 
@@ -13,7 +14,8 @@ with device synchronisations and reports the traversal layer's share of
 the wall time. The full tables go to `--out`.
 
 Usage:
-    [AKR_PALLAS_SHADE=1 | AKR_MEGAKERNEL=1] python tools/profile_torch_pt.py
+    [AKR_PALLAS_SHADE=1 | AKR_MEGAKERNEL=1 | AKR_WIDE=1 | AKR_PAIRS_STATIC=0]
+    python tools/profile_torch_pt.py
         [--scene matbox|classroom|blinds] [--res N] [--spp 2]
         [--out build/profile_torch_pt.txt]
 """
@@ -31,7 +33,8 @@ sys.path.insert(0, str(ROOT))
 
 # device kernel name fragments of the port's hand-written kernels
 KERNELS = {"K1": "mt_kernel", "K2": "cull_kernel", "K3": "refine_all_kernel",
-           "K4": "sweep_kernel", "K8": "megakernel", "K9": "fused_shade_kernel"}
+           "K4": "sweep_kernel", "K5": "window_refine_kernel", "K7": "wide_walk_kernel",
+           "K8": "megakernel", "K9": "fused_shade_kernel"}
 
 
 def main():
@@ -119,6 +122,7 @@ def main():
     summary = {
         "device": torch.cuda.get_device_name(0),
         "scene": args.scene,
+        "traversal": scene.traversal,
         "res": [scene.camera.width, scene.camera.height],
         "spp": args.spp,
         "wall_s_per_sample": wall / args.spp,
