@@ -10,6 +10,7 @@ IEEE division.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
@@ -59,3 +60,22 @@ def compile_library(source: Path, stem: str) -> tuple[Path, float]:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return so, time.perf_counter() - t0
+
+
+INFO_FIELDS = ("registers", "static_smem", "dynamic_smem", "local_bytes", "threads",
+               "blocks_per_sm")
+
+
+def read_kernel_info(fn, names, *args: int) -> dict:
+    """{kernel: {INFO_FIELDS}} from a library's kernel-info entry point
+    `fn(out, *args)` (csrc/kernel_info.cuh's layout, one row a kernel of
+    `names`; args: the launch shape the entry point takes): what the
+    compiler gave each kernel (registers a thread, shared and local memory
+    in bytes) and the blocks of that shape that one SM keeps resident."""
+    out = (ctypes.c_int32 * (len(INFO_FIELDS) * len(names)))()
+    err = fn(ctypes.cast(out, ctypes.c_void_p), *args)
+    if err != 0:
+        raise RuntimeError(f"kernel info failed: CUDA error {err}")
+    vals = list(out)
+    return {k: dict(zip(INFO_FIELDS, vals[i * len(INFO_FIELDS):(i + 1) * len(INFO_FIELDS)]))
+            for i, k in enumerate(names)}

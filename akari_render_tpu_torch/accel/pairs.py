@@ -10,10 +10,13 @@ static-refine walk and its legacy windowed walk, and the kernels K2 to K6).
    (origin box, inverse-direction interval, min tmin, max t-limit) against
    every cluster AABB, by interval arithmetic -> e_con [B, K], +inf where
    rejected.
-3. K3, the per-ray refine (`refine_all`): every lane's own slab test against
-   every cluster, skipping tiles that K2 rejected in full -> e_init [B, K],
-   each cluster's minimum passing-lane entry.
-4. Each block's walk order is the stable argsort of its e_init row.
+3. K3, the per-ray refine: every lane's own slab test against every
+   cluster, skipping tiles that K2 rejected in full -> e_init [B, K], each
+   cluster's minimum passing-lane entry (`refine_all_torch`).
+4. Each block's walk order is the stable argsort of its e_init row
+   (`walk_order`). On the card one kernel computes steps 3 and 4
+   (`refine_walk`), with exact skips of its own
+   (`refine_walk_grouped_torch` is that kernel step for step).
 5. K4, the sweep (`sweep_walk`): each block walks its candidates in that
    order; a candidate's 128 triangles (in local space, with the
    candidate's world->local transform and global-id offset applied to the
@@ -64,7 +67,7 @@ import torch
 
 from ..core.math import RAY_TMAX
 from .cluster import ClusterArrays
-from .nvcc import CSRC, compile_library
+from .nvcc import CSRC, compile_library, read_kernel_info
 from .trace import Hit
 
 BLOCK = 512  # rays per sorted block, one CUDA block of K3 and K4
@@ -106,12 +109,13 @@ def build() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.akr_cull.argtypes = [vp, vp, vp, ci, ci, vp]
-        lib.akr_refine_all.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.akr_refine_walk.argtypes = [vp] * 11 + [ci, ci, ci, vp]
+        lib.akr_refine_walk_keys.argtypes = []
         lib.akr_refine_window.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.akr_sweep.argtypes = [vp] * 12 + [ci] * 7 + [vp, vp, vp]
-        lib.akr_pairs_kernel_info.argtypes = [vp, ci, ci]
-        for f in (lib.akr_cull, lib.akr_refine_all, lib.akr_refine_window, lib.akr_sweep,
-                  lib.akr_pairs_kernel_info):
+        lib.akr_pairs_kernel_info.argtypes = [vp, ci, ci, ci]
+        for f in (lib.akr_cull, lib.akr_refine_walk, lib.akr_refine_walk_keys,
+                  lib.akr_refine_window, lib.akr_sweep, lib.akr_pairs_kernel_info):
             f.restype = ci
         _lib = lib
         return lib
@@ -144,28 +148,10 @@ def _launch(fn, *args):
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
 
 
-INFO_FIELDS = ("registers", "static_smem", "dynamic_smem", "local_bytes", "threads",
-               "blocks_per_sm")
-
-
-def read_kernel_info(fn, names, C: int) -> dict:
-    """{kernel: {INFO_FIELDS}} from a library's kernel-info entry point `fn`
-    at C slots a candidate and BLOCK lanes a block: what the compiler gave
-    each kernel (registers a thread, shared and local memory in bytes) and
-    the blocks of its launch shape that one SM keeps resident."""
-    out = (ctypes.c_int32 * (len(INFO_FIELDS) * len(names)))()
-    err = fn(ctypes.cast(out, ctypes.c_void_p), C, BLOCK)
-    if err != 0:
-        raise RuntimeError(f"kernel info failed: CUDA error {err}")
-    vals = list(out)
-    return {k: dict(zip(INFO_FIELDS, vals[i * len(INFO_FIELDS):(i + 1) * len(INFO_FIELDS)]))
-            for i, k in enumerate(names)}
-
-
-def kernel_info(C: int = 128) -> dict:
-    """The resources of K2, K3, K5 and K4 (K6 is K4's kernel) on the
-    current card."""
-    return read_kernel_info(build().akr_pairs_kernel_info, ("K2", "K3", "K5", "K4"), C)
+def kernel_info(C: int = 128, K: int = 4633) -> dict:
+    """The resources of K2, K3 (at K clusters: its keys' shared memory),
+    K5 and K4 (K6 is K4's kernel) on the current card."""
+    return read_kernel_info(build().akr_pairs_kernel_info, ("K2", "K3", "K5", "K4"), C, BLOCK, K)
 
 
 # ---------------------------------------------------------------- sort keys
@@ -319,28 +305,111 @@ def refine_all_torch(cb6, o_soa, i_soa, lim, e_con):
     return out
 
 
-def refine_all(cb6, o_soa, i_soa, lim, e_con):
-    """K3 (replaces akari_render_tpu/accel/pairs.py::_refine_all_kernel):
-    cb6 [6, K], o_soa/i_soa [3, n], lim [2, n], e_con [B, K] with
-    n = B * BLOCK -> e_init [B, K]."""
-    if _route("refine_all", cb6):
-        return refine_all_torch(cb6, o_soa, i_soa, lim, e_con)
+def refine_walk_torch(cb6, o_soa, i_soa, lim, e_con):
+    """Plain version of K3 with the walk order it feeds: refine_all_torch,
+    then walk_order -> (e_init [B, K], worder [B, K] int32, went [B, K],
+    kcnt [B] int32)."""
+    e_init = refine_all_torch(cb6, o_soa, i_soa, lim, e_con)
+    return (e_init, *walk_order(e_init))
+
+
+def _ordered_bits(x):
+    """float32 -> int64 holding the uint32 that orders as x does
+    (csrc/candidate_test.cuh::ordered_bits)."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u | 0x80000000)
+
+
+def refine_walk_grouped_torch(cb6, o_soa, i_soa, lim, e_con, tally=None):
+    """The K3 kernel step for step in torch, for tests at small sizes: a
+    lane whose tmin is not below its t-limit never passes; of the clusters
+    whose K2 entry is finite, each is slab-tested only against the warps of
+    32 lanes whose live lanes' interval summary K2's chain passes
+    (cull_einit_torch on the summaries); the walk is the ascending sort of
+    the keys (entry as ordered bits, +0 for -0; cluster id). Returns what
+    refine_walk_torch returns, up to the sign of a zero entry; it must equal
+    it. tally (a dict, or None) gains the kernel's counters: "tests"
+    ((cluster, warp) summary tests) and "units" (those that pass)."""
+    B, K = e_con.shape
+    dev = cb6.device
+    G = BLOCK // 32
+    live = lim[0] <= lim[1]
+    lv = live.reshape(B, G, 32)
+    o = o_soa.T.reshape(B, G, 32, 3)
+    iv = i_soa.T.reshape(B, G, 32, 3)
+    tmin = torch.where(live, lim[0], INF).reshape(B, G, 32)
+    tlim = torch.where(live, lim[1], -INF).reshape(B, G, 32)
+    m = lv[..., None]
+    summ = torch.cat([torch.where(m, o, INF).amin(2), torch.where(m, o, -INF).amax(2),
+                      torch.where(m, iv, INF).amin(2), torch.where(m, iv, -INF).amax(2),
+                      tmin.amin(2)[..., None], tlim.amax(2)[..., None],
+                      torch.zeros((B, G, 2), device=dev)], dim=2)
+    tested = lv.any(2)[..., None] & torch.isfinite(e_con)[:, None, :]
+    unit = tested & torch.isfinite(cull_einit_torch(summ.reshape(B * G, 16), cb6)).reshape(B, G, K)
+    if tally is not None:
+        tally["tests"] = tally.get("tests", 0) + int(tested.sum())
+        tally["units"] = tally.get("units", 0) + int(unit.sum())
+    e_init = torch.full((B, K), INF, device=dev)
+    for b in range(B):
+        g, c = torch.nonzero(unit[b], as_tuple=True)
+        if g.numel() == 0:
+            continue
+        near = torch.full((g.numel(), 32), -INF, device=dev)
+        far = torch.full((g.numel(), 32), INF, device=dev)
+        for a in range(3):
+            oa, ia = o[b, g, :, a], iv[b, g, :, a]
+            t0 = (cb6[a, c][:, None] - oa) * ia
+            t1 = (cb6[3 + a, c][:, None] - oa) * ia
+            near = torch.maximum(near, torch.minimum(t0, t1))
+            far = torch.minimum(far, torch.maximum(t0, t1))
+        near = torch.maximum(near, tmin[b, g])
+        far = torch.minimum(far, tlim[b, g])
+        e_init[b].scatter_reduce_(0, c, torch.where(near <= far, near, INF).amin(1), "amin")
+    ids = torch.arange(K, device=dev)[None, :]
+    finite = torch.isfinite(e_init)
+    # (entry as ordered bits, id) in an int64: +inf entries sort last, by id
+    keys = ((_ordered_bits(e_init + 0.0) - (1 << 31)) << 32) + ids
+    worder = (torch.sort(keys, dim=1).values & 0xFFFFFFFF).to(torch.int32)
+    went = torch.gather(e_init, 1, worder.long()) + 0.0
+    return e_init, worder, went, finite.sum(dim=1).to(torch.int32)
+
+
+def refine_walk(cb6, o_soa, i_soa, lim, e_con, counts=None):
+    """K3 with the walk order it feeds (replaces
+    akari_render_tpu/accel/pairs.py::_refine_all_kernel, via _refine_all,
+    and the stable argsort of its rows): cb6 [6, K], o_soa/i_soa [3, n],
+    lim [2, n], e_con [B, K] with n = B * BLOCK -> (e_init [B, K], worder
+    [B, K] int32, went [B, K], kcnt [B] int32) as refine_walk_torch gives
+    them; from the kernel, worder[b] and went[b] past kcnt[b] are left
+    unwritten (nothing reads them). counts (int32 [B, 2], or None; the
+    kernel only) receives each block's (cluster, warp) summary tests and
+    units of 32 lanes' slab tests run."""
+    if _route("refine_walk", cb6):
+        return refine_walk_torch(cb6, o_soa, i_soa, lim, e_con)
     dev = cb6.device
     K, n = cb6.shape[1], o_soa.shape[1]
     if n % BLOCK:
-        raise ValueError("refine_all: lanes must be a multiple of BLOCK")
+        raise ValueError("refine_walk: lanes must be a multiple of BLOCK")
     B = n // BLOCK
-    cb6 = _check("refine_all cb6", cb6, dev, torch.float32, (6, K))
-    o_soa = _check("refine_all o", o_soa, dev, torch.float32, (3, n))
-    i_soa = _check("refine_all inv_d", i_soa, dev, torch.float32, (3, n))
-    lim = _check("refine_all lim", lim, dev, torch.float32, (2, n))
-    e_con = _check("refine_all e_con", e_con, dev, torch.float32, (B, K))
-    out = torch.empty((B, K), dtype=torch.float32, device=dev)
-    if B * K:
-        _launch("akr_refine_all", _ptr(cb6), _ptr(o_soa), _ptr(i_soa), _ptr(lim), _ptr(e_con),
-                _ptr(out), B, K, BLOCK)
+    cb6 = _check("refine_walk cb6", cb6, dev, torch.float32, (6, K))
+    o_soa = _check("refine_walk o", o_soa, dev, torch.float32, (3, n))
+    i_soa = _check("refine_walk inv_d", i_soa, dev, torch.float32, (3, n))
+    lim = _check("refine_walk lim", lim, dev, torch.float32, (2, n))
+    e_con = _check("refine_walk e_con", e_con, dev, torch.float32, (B, K))
+    e_init = torch.empty((B, K), dtype=torch.float32, device=dev)
+    worder = torch.empty((B, K), dtype=torch.int32, device=dev)
+    went = torch.empty((B, K), dtype=torch.float32, device=dev)
+    kcnt = torch.empty((B,), dtype=torch.int32, device=dev)
+    if counts is not None:
+        counts = _check("refine_walk counts", counts, dev, torch.int32, (B, 2))
+    if B:
+        keys = (torch.empty((B, K), dtype=torch.int64, device=dev)
+                if K > build().akr_refine_walk_keys() else None)
+        _launch("akr_refine_walk", _ptr(cb6), _ptr(o_soa), _ptr(i_soa), _ptr(lim), _ptr(e_con),
+                _ptr(e_init), _ptr(worder), _ptr(went), _ptr(kcnt), _ptr(keys), _ptr(counts),
+                B, K, BLOCK)
         launches["K3"] += 1
-    return out
+    return e_init, worder, went, kcnt
 
 
 # ----------------------------------------------------------------------- K5
@@ -501,19 +570,19 @@ def candidate_test_boxes(cl: ClusterArrays, cb6):
     return torch.cat([cb6, flag[None, :].to(cb6.dtype)]).contiguous()
 
 
-def mt_update_culled(tri, x, box, o, d, lim, ex, best, any_hit: bool):
+def mt_update_culled(tri, x, box, o, d, lim, ex, best, any_hit: bool, box_t1=None):
     """_mt_update as the kernels run it: of the lanes that can still be
     hit (best t > tmin), those that pass the box test (box [nb, 7], a row of
-    candidate_test_boxes each) test the candidate, and the others only its
-    sliver slots. Each lane becomes a block of its own, in whose copy of
-    the triangles the slots it skips are padding (gid -1), and goes
-    through _mt_update. For tests at small sizes: the copy is
-    [nb * L, C, 12]."""
+    candidate_test_boxes each) over [tmin, box_t1] ([nb, L]; default their
+    best t) test the candidate, and the others only its sliver slots. Each
+    lane becomes a block of its own, in whose copy of the triangles the
+    slots it skips are padding (gid -1), and goes through _mt_update. For
+    tests at small sizes: the copy is [nb * L, C, 12]."""
     nb, C, L = tri.shape[0], tri.shape[1], o.shape[2]
     tmin, bt = lim[:, 0], best[:, 0]
     live = bt > tmin
     in_box = live & box_pass_torch(box[:, None, :6], o.permute(0, 2, 1), d.permute(0, 2, 1),
-                                   tmin, bt)
+                                   tmin, bt if box_t1 is None else box_t1)
     tested = in_box[:, :, None] | (live[:, :, None] & sliver_slots(tri)[:, None, :])  # [nb, L, C]
     tri1 = tri[:, None].expand(nb, L, C, 12).clone()
     tri1[..., 9] = torch.where(tested, tri1[..., 9], -1.0)
@@ -958,8 +1027,7 @@ def intersect_pairs(cl: ClusterArrays, o, d, tmin, tmax, exclude0=None, exclude1
     cb6 = cluster_bounds(cl)
     e_con = cull_einit(s.summ, cb6)
     if static_walk_enabled():
-        e_init = refine_all(cb6, s.o_soa, s.inv_soa, s.lim, e_con)
-        worder, went, kcnt = walk_order(e_init)
+        _, worder, went, kcnt = refine_walk(cb6, s.o_soa, s.inv_soa, s.lim, e_con)
         best = sweep_walk(worder, went, kcnt, cl.tri_row, cl.tri, cl.xf, s.o_soa, s.d_soa,
                           s.lim, s.ex, s.best0, any_hit, boxes=candidate_test_boxes(cl, cb6))
     else:

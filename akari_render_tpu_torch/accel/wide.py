@@ -42,9 +42,9 @@ import numpy as np
 import torch
 
 from .cluster import ClusterArrays
-from .nvcc import CSRC, compile_library
+from .nvcc import CSRC, compile_library, read_kernel_info
 from .pairs import (BLOCK, CHUNK_ELEMS, INF, _check, _ptr, _route, _unsort_hits,
-                    candidate_test_boxes, cluster_bounds, read_kernel_info, sort_rays,
+                    candidate_test_boxes, cluster_bounds, sort_rays,
                     sweep_ent_torch)
 
 STACK_DEPTH = 192  # >= 7 * tree depth + 8; build_wide asserts
@@ -175,8 +175,8 @@ def build_wide(cbmin: np.ndarray, cbmax: np.ndarray,
 
 
 def kernel_info(C: int = 128) -> dict:
-    """K7's resources on the current card (pairs.read_kernel_info)."""
-    return read_kernel_info(build().akr_wide_kernel_info, ("K7",), C)
+    """K7's resources on the current card (nvcc.read_kernel_info)."""
+    return read_kernel_info(build().akr_wide_kernel_info, ("K7",), C, BLOCK)
 
 
 def attach_wide(cl: ClusterArrays) -> ClusterArrays:

@@ -1,7 +1,8 @@
-// The candidate test of the cluster tier, shared by K4/K6 (pairs.cu) and
-// K7 (wide.cu): a block's 512 rays against the C triangles of one
-// candidate cluster, staged in shared memory with the candidate's
-// world->local row, its world box and its sliver flag.
+// The candidate test of the cluster tier, shared by K4/K6 (pairs.cu), K7
+// (wide.cu) and the flat tier's K1 (intersect.cu, a tile of consecutive
+// triangles as the candidate, the identity as its row): a block's 512 rays
+// against the C triangles of one candidate cluster, staged in shared memory
+// with the candidate's world->local row, its world box and its sliver flag.
 //
 // What it computes is pairs.py::_mt_update (mt_block_update of the JAX
 // package): every value that reaches `best` is produced by the same
@@ -78,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "kernel_info.cuh"
 
 namespace akr {
 
@@ -307,7 +310,8 @@ __device__ __forceinline__ unsigned ordered_bits(float f) {
 }
 
 // The whole block against the candidate staged in `buf` (stage_candidate's
-// layout, visible to every thread);
+// layout, visible to every thread), each lane's box test over [tmin,
+// box_t1] (box_t1 >= b.t: the lane's best t, or for K1 that t widened);
 // folds an improvement into each lane's b. Every thread of the block must
 // call it: it holds two barriers. The caller's next barrier must come
 // before the next call (it does: the horizon's).
@@ -331,14 +335,14 @@ __device__ __forceinline__ unsigned ordered_bits(float f) {
 //    on the same values: the same bits).
 template <bool kStats>
 __device__ __forceinline__ void candidate_test(const float* buf, int C, const LaneRay& r,
-                                               LaneBest& b, int any_hit, const CullScratch& s,
-                                               CullStats& st) {
+                                               LaneBest& b, float box_t1, int any_hit,
+                                               const CullScratch& s, CullStats& st) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const float4* t4 = reinterpret_cast<const float4*>(buf);
   const float* box = buf + C * 12 + 16;
   // t > tmin and t < b.t cannot both hold for a lane with b.t <= tmin
   const bool live = b.t > r.tmin;
-  const bool in_box = live && box_pass(box, r, b.t);
+  const bool in_box = live && box_pass(box, r, box_t1);
   const bool active = in_box || (live && box[6] > 0.f);  // box[6]: the row holds slivers
   const unsigned vote = __ballot_sync(kFullWarp, active);
   int pos = 0;
@@ -421,26 +425,6 @@ __device__ __forceinline__ void add_cull_stats(int32_t* __restrict__ stats, int 
 #pragma unroll
     for (int i = 0; i < kStatInts; ++i) atomicAdd(stats + kStatInts * block + i, int(v[i]));
   }
-}
-
-// One kernel's resources into the host array out[6]: registers a thread,
-// static and dynamic shared memory and local memory in bytes, threads a
-// block, and the blocks of that shape an SM keeps resident.
-template <typename Kernel>
-cudaError_t kernel_info(Kernel kernel, int threads, size_t dyn_smem, int32_t* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  int resident = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, threads, dyn_smem);
-  if (err != cudaSuccess) return err;
-  out[0] = attr.numRegs;
-  out[1] = int32_t(attr.sharedSizeBytes);
-  out[2] = int32_t(dyn_smem);
-  out[3] = int32_t(attr.localSizeBytes);
-  out[4] = threads;
-  out[5] = resident;
-  return cudaSuccess;
 }
 
 }  // namespace akr

@@ -19,6 +19,7 @@
 
 #include <cuda_runtime.h>
 
+#include "kernel_info.cuh"
 #include "reduced_closure.cuh"
 
 namespace {
@@ -65,11 +66,12 @@ __global__ void fused_shade_kernel(const float* __restrict__ tab, int M,
   st3(albedo, i, o.albedo);
 }
 
+constexpr int kThreads = 256;
+
 template <bool SPEC, bool METAL>
 int launch(const float* tab, int M, const float* const* in, const int32_t* mat, float* direct,
            float* wi, float* f, float* pdf, bool* valid, float* albedo, int N,
            cudaStream_t stream) {
-  constexpr int kThreads = 256;
   const size_t smem = size_t(M) * akr::kMatCols * sizeof(float);
   auto kernel = fused_shade_kernel<SPEC, METAL>;
   if (smem > 48 * 1024) {
@@ -106,4 +108,20 @@ extern "C" int akr_fused_shade(const float* tab, int M, int has_spec, int has_me
   if (has_metal)
     return launch<false, true>(tab, M, in, mat, direct, wi, f, pdf, valid, albedo, N, s);
   return launch<false, false>(tab, M, in, mat, direct, wi, f, pdf, valid, albedo, N, s);
+}
+
+// K9's resources at M materials (its shared memory) and its lobes: out is
+// a host array [6] (akr::kernel_info's layout).
+extern "C" int akr_fused_shade_kernel_info(int32_t* out, int M, int has_spec, int has_metal) {
+  const size_t smem = size_t(M) * akr::kMatCols * sizeof(float);
+  cudaError_t err;
+  if (has_spec && has_metal)
+    err = akr::kernel_info(fused_shade_kernel<true, true>, kThreads, smem, out);
+  else if (has_spec)
+    err = akr::kernel_info(fused_shade_kernel<true, false>, kThreads, smem, out);
+  else if (has_metal)
+    err = akr::kernel_info(fused_shade_kernel<false, true>, kThreads, smem, out);
+  else
+    err = akr::kernel_info(fused_shade_kernel<false, false>, kThreads, smem, out);
+  return static_cast<int>(err);
 }

@@ -27,6 +27,7 @@
 
 #include <cuda_runtime.h>
 
+#include "kernel_info.cuh"
 #include "reduced_closure.cuh"
 
 namespace {
@@ -330,6 +331,19 @@ megakernel(Tables g, int width, int npix, int s0, int spp, uint32_t scramble, in
   }
 }
 
+// Dynamic shared memory of a pass: every table it reads.
+size_t megakernel_smem(int T, int M, int L, int S) {
+  return (size_t(T) * kAttr + size_t(M) * 3 + 5 * size_t(L) + 4 * size_t(S) +
+          size_t(M) * akr::kMatCols + 24) * sizeof(float);
+}
+
+auto megakernel_for(int has_spec, int has_metal) {
+  if (has_spec && has_metal) return megakernel<true, true>;
+  if (has_spec) return megakernel<true, false>;
+  if (has_metal) return megakernel<false, true>;
+  return megakernel<false, false>;
+}
+
 }  // namespace
 
 // One pass. attr [T, 41], ce [M, 3], lsel [3, L], loff [2, L], ltab [4, S],
@@ -347,14 +361,9 @@ extern "C" int akr_megakernel(const float* attr, int T, const float* ce, int M, 
                               void* stream) {
   if (npix <= 0) return 0;
   const Tables g = {attr, ce, lsel, loff, ltab, mat, cam, T, M, L, S};
-  const size_t smem =
-      (size_t(T) * kAttr + size_t(M) * 3 + 5 * size_t(L) + 4 * size_t(S) +
-       size_t(M) * akr::kMatCols + 24) * sizeof(float);
+  const size_t smem = megakernel_smem(T, M, L, S);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = megakernel<false, false>;
-  if (has_spec && has_metal) kernel = megakernel<true, true>;
-  else if (has_spec) kernel = megakernel<true, false>;
-  else if (has_metal) kernel = megakernel<false, true>;
+  const auto kernel = megakernel_for(has_spec, has_metal);
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -365,4 +374,12 @@ extern "C" int akr_megakernel(const float* attr, int T, const float* ce, int M, 
       g, width, npix, s0, spp, scramble, max_depth, rr_depth, clamp_ind, gaussian, radius, sigma,
       out, reinterpret_cast<unsigned long long*>(rays));
   return static_cast<int>(cudaGetLastError());
+}
+
+// K8's resources at a pass's table sizes (they set its shared memory) and
+// lobes: out is a host array [6] (akr::kernel_info's layout).
+extern "C" int akr_megakernel_kernel_info(int32_t* out, int T, int M, int L, int S, int has_spec,
+                                          int has_metal) {
+  return static_cast<int>(akr::kernel_info(megakernel_for(has_spec, has_metal), kThreads,
+                                           megakernel_smem(T, M, L, S), out));
 }

@@ -154,7 +154,7 @@ wide_walk_kernel(const int32_t* __restrict__ nodes, const float* __restrict__ tr
         akr::stage_candidate(smem + (use ^ 1) * sf, tri, xf, boxes, n_cand, s_srow[sp - 1], next,
                              C);
       }
-      akr::candidate_test<kStats>(buf, C, ray, hit, any_hit, scratch, st);
+      akr::candidate_test<kStats>(buf, C, ray, hit, hit.t, any_hit, scratch, st);
       akr::stage_wait();  // the horizon's barrier makes the next leaf's copy visible
       horizon = akr::block_max(akr::lane_limit(ray, hit, any_hit), s_hred, parity);
       ready = next;

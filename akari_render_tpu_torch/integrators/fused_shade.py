@@ -26,7 +26,7 @@ import threading
 
 import torch
 
-from ..accel.nvcc import CSRC, compile_library
+from ..accel.nvcc import CSRC, compile_library, read_kernel_info
 from ..svm.reduced import MAT_COLS, reduced_shade
 
 SOURCE = CSRC / "fused_shade.cu"
@@ -75,8 +75,19 @@ def build() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.akr_fused_shade.argtypes = [vp, ci, ci, ci] + [vp] * 10 + [vp] * 6 + [ci, vp]
         lib.akr_fused_shade.restype = ci
+        lib.akr_fused_shade_kernel_info.argtypes = [vp, ci, ci, ci]
+        lib.akr_fused_shade_kernel_info.restype = ci
         _lib = lib
         return lib
+
+
+def kernel_info(bake) -> dict:
+    """K9's resources on the current card for a Scene.shade_bake (its
+    material table sets the shared memory, its flags the lobes;
+    nvcc.read_kernel_info)."""
+    tab, has_spec, has_metal = bake
+    return read_kernel_info(build().akr_fused_shade_kernel_info, ("K9",), tab.shape[0],
+                            int(bool(has_spec)), int(bool(has_metal)))
 
 
 def _ptr(t):

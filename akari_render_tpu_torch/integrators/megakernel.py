@@ -39,7 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..accel.nvcc import CSRC, compile_library
+from ..accel.nvcc import CSRC, compile_library, read_kernel_info
 from ..svm.reduced import (
     MAT_COLS, TWO_PI_F, dot3, force_diffuse_table, normalize3, reduced_shade,
 )
@@ -436,8 +436,18 @@ def build() -> ctypes.CDLL:
             + [ci, ci, cf, ci, cf, cf, ci, ci]  # depth, rr, clamp, gauss, radius, sigma, spec, metal
             + [vp, vp, vp])  # out, rays, stream
         lib.akr_megakernel.restype = ci
+        lib.akr_megakernel_kernel_info.argtypes = [vp] + [ci] * 6
+        lib.akr_megakernel_kernel_info.restype = ci
         _lib = lib
         return lib
+
+
+def kernel_info(tb: PassTables) -> dict:
+    """K8's resources on the current card at the tables of a pass (their
+    sizes set its shared memory) and its lobes (nvcc.read_kernel_info)."""
+    return read_kernel_info(build().akr_megakernel_kernel_info, ("K8",), tb.attr.shape[0],
+                            tb.ce.shape[0], tb.lsel.shape[1], tb.ltab.shape[1], int(tb.has_spec),
+                            int(tb.has_metal))
 
 
 def _ptr(t):

@@ -40,7 +40,7 @@ from .accel.flatten import TriangleSoup, flatten_scene, local_mesh_arrays
 from .accel.instanced import (
     apply_3x3, apply_affine, apply_linear, build_instanced, build_unified_clusters,
 )
-from .accel.intersect import intersect_tris
+from .accel.intersect import FlatTiles, flat_tiles, intersect_tris
 from .accel.pairs import intersect_pairs, static_walk_enabled
 from .accel.trace import Hit
 from .accel.wide import attach_wide, intersect_wide
@@ -123,6 +123,9 @@ class Scene:
     # (material table [M, MAT_COLS], has_spec, has_metal) when every kind
     # bakes into the reduced principled closure (K8, K9), else None
     shade_bake: tuple | None = None
+    # K1's tiles of the flat soup (accel/intersect.py FlatTiles) when K1
+    # traces it, else None
+    tiles: FlatTiles | None = None
 
     @property
     def device(self):
@@ -194,7 +197,7 @@ class Scene:
             return _cluster_trace(a.bvh["clusters"], o, d, tmin, tmax, exclude0, exclude1,
                                   exclude2, any_hit=any_hit, any_hit_mask=any_hit_mask)
         return intersect_tris(o, d, tmin, tmax, a.v0, a.e1, a.e2, exclude0, exclude1, exclude2,
-                              any_hit=any_hit)
+                              any_hit=any_hit, tiles=self.tiles)
 
     def surface_interaction(self, tri_id, bary):
         """Fetch and interpolate hit attributes. Returns dict(p, ng, ns, uv,
@@ -612,6 +615,7 @@ def load_scene(path: str, width: int | None = None, height: int | None = None,
         ggx_table=dev(table_np),
         ggx_table_np=table_np,
         kind_const_ranges=[np.stack([m.min(axis=0), m.max(axis=0)], axis=-1) for m in param_np],
+        tiles=flat_tiles(arrays.v0, arrays.e1, arrays.e2) if bvh is None and num_tris else None,
     )
 
     # emissive detection and per-triangle power (load.rs:312-414)

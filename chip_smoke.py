@@ -8,27 +8,36 @@ Phases (any failure exits non-zero; nothing is caught):
 1. environment: the card's name and power limit; CUDA must be present;
 2. build: compile the K1 intersect kernel from csrc/ and time the build
    (in parallel with phase 6's build: one nvcc per source);
-3. K1 parity: matbox's triangles against 2^18 rays (camera rays plus
-   seeded random rays from inside the box, some with exclusion ids),
-   kernel against its plain torch version, closest and any hit, with CUDA
-   event timings; and the PCG32 sampler on the card against the CPU;
+3. K1 parity: matbox's tiles against 2^18 rays (camera rays plus seeded
+   random rays from inside the box, some with exclusion ids, and as many
+   shadow segments), against rays aimed at the triangles that define every
+   tile's box (down to 1e-6 rad from a triangle's plane) and through the
+   sliver triangles (tests/torch_cull_rays.py), and blinds' 28 triangles
+   against 2^18 rays: kernel against its plain torch version, closest and
+   any hit, every id, t, u, v and flag bit-equal; its counters, the
+   recounted bound and CUDA event timings; and the PCG32 sampler on the
+   card against the CPU;
 4. slice correctness: matbox 64x64, 16 spp, d12 through the port's CLI,
    held against the committed JAX images (testdata/matbox64_spp*.npy);
 5. the flat-tier path at full width: matbox 512x512 through the CLI with
-   scenes/matbox/pt.json, with K1's launches counted;
+   scenes/matbox/pt.json, with K1's launches counted and each timed (CUDA
+   events) beside its bound;
 6. build: compile the pair-sweep kernels K2, K3 and K4 (csrc/pairs.cu);
 7. K2/K3/K4 parity at classroom's shapes: the unified candidate list
    (4,633 clusters) against 2^18 rays (1080p camera rays, rays from
    interior points, shadow segments, dead and NaN lanes, exclusion ids),
-   each kernel against its plain version, bit-equal, with CUDA event
-   timings; and the pair sweep against K1 over the fully flattened world
-   soup, an independent check;
+   each kernel against its plain version, bit-equal (K3 with the walk
+   order: e_init, kcnt and each walk's prefix), with counters and CUDA
+   event timings; K3 in one 1080p sample of the main path, every launch
+   timed beside the PyTorch chain of its sort half (walk_order) and the
+   first two held against the plain version; and the pair sweep against
+   K1 over the fully flattened world soup, an independent check;
 8. cluster-tier correctness: classroom 96x96, 16 spp, d12 through the CLI,
    held against the committed JAX image (testdata/classroom96_spp16.npy)
    and the committed 512-spp ground truth (BENCH_MSE_CLASSROOM.gt.exr);
 9. the cluster-tier path at full width: classroom 1920x1080, 1 spp, d12
    through the CLI with scenes/classroom/pt.json, with K2/K3/K4's launches
-   counted;
+   counted and every K3 and K4 launch timed;
 10. build: the path megakernel K8 (csrc/megakernel.cu) and the fused shade
    K9 (csrc/fused_shade.cu), in the same parallel build as phases 2 and 6;
 11. K9 parity: the live lanes of the first bounce of a path-B sample of
@@ -72,11 +81,12 @@ Phases (any failure exits non-zero; nothing is caught):
    and the windowed walk's rounds, beside phase 9's default route.
 
 Each phase prints the seconds since the start when it ends. After the
-build it prints what the compiler gave K2-K5 and K7 (registers a thread,
-shared memory) and the blocks an SM keeps resident. Phases 9 and 18 time
-every K4 and K7 launch of their renders with CUDA events and compute a
-bound of each from its own walk (no counters run in a render: bytes, node
-steps and box tests).
+build it prints what the compiler gave every kernel (registers a thread,
+shared memory; K3 at classroom's 4,633 clusters, K8 and K9 at blinds'
+tables) and the blocks an SM keeps resident. Phases 5, 9 and 18 time
+every K1, K3, K4 and K7 launch of their renders with CUDA events and
+compute a bound of each from its own work (K3 from its counters; no other
+counters run in a render: bytes, node steps and box tests).
 
 Phase 7 also runs K6 (the K4 kernel with the early-out off, `pairs.sweep`)
 at classroom's shapes against its plain version; no main path calls it.
@@ -84,11 +94,13 @@ at classroom's shapes against its plain version; no main path calls it.
 It prints a JSON line of kernel results (with each kernel's bound: the
 bytes it must move over 3.35 TB/s or the FP32 operations this run's data
 needs over 67 TFLOP/s, whichever is longer; a lane's slab test of one box
-counted as 12; for K4, K6 and K7 the operations are those the candidate
-test needs lane by lane with its box test, from its counters, and
-`full_count_ms` beside them is the time of every live lane against every
-slot, the count before the box test), the card's name and power limit, and
-last a JSON line {"ok": true, "device": {...}}.
+counted as 12; for K1, K4, K6 and K7 the operations are those the
+candidate test needs lane by lane with its box test, from its counters,
+for K3 those its counters show (summary tests and units of slab tests),
+and `full_count_ms` beside them is the time of the count before the skips:
+every live lane against every triangle, slot or cluster of a live tile;
+each kernel's registers and resident blocks), the card's name and power
+limit, and last a JSON line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -109,10 +121,6 @@ OUT = ROOT / "build" / "chip_smoke"
 N_RAYS = 1 << 18
 FULL_SPP = 8
 
-# phase-3 tolerances: ids / occlusion may differ on at most this fraction of
-# rays; t, u, v agree to this relative error where the ids agree
-ID_MISMATCH_FRAC = 1e-5
-REL_TOL = 1e-5
 # phase-4 tolerances: channel means within 1 % of the JAX 16-spp image, and
 # MSE against the JAX 256-spp image within 1.1x of the JAX 16-spp image's
 MEAN_TOL = 0.01
@@ -268,7 +276,8 @@ def lap(phase: str):
 
 
 def make_rays(scene, device):
-    """2^17 jittered camera rays plus 2^17 rays from inside the box."""
+    """2^17 jittered camera rays (pixels drawn without replacement where the
+    film has enough) plus 2^17 rays from inside the box."""
     import numpy as np
     import torch
 
@@ -277,7 +286,7 @@ def make_rays(scene, device):
     rng = np.random.default_rng(7)
     cam = scene.camera
     half = N_RAYS // 2
-    pix = rng.choice(cam.width * cam.height, size=half, replace=False)
+    pix = rng.choice(cam.width * cam.height, size=half, replace=cam.width * cam.height < half)
     p_film = np.stack([pix % cam.width, pix // cam.width], -1) + rng.random((half, 2))
     o_c, d_c = generate_rays(cam, torch.as_tensor(p_film, dtype=torch.float32, device=device))
     v0 = scene.arrays.v0.cpu().numpy()
@@ -290,15 +299,64 @@ def make_rays(scene, device):
     return o.contiguous(), d.contiguous(), rng
 
 
-def k1_parity(scene, device):
-    """Phase 3: kernel vs plain version. Returns the kernel's JSON entry."""
-    import numpy as np
+def k1_check(label, args, tiles, plain=None):
+    """K1 on `tiles` against its plain version on args (o, d, tmin, tmax,
+    v0, e1, e2, ex0..ex2), closest and any hit: every id, t, u, v and flag
+    bit-equal. Returns (closest hits, occlusion, plain closest hits)."""
     import torch
 
     from akari_render_tpu_torch.accel import intersect as k1
     from akari_render_tpu_torch.core.math import RAY_TMAX
 
-    a = scene.arrays
+    hk = k1.intersect_tris(*args, tiles=tiles)
+    hp = plain if plain is not None else k1.intersect_tris_torch(*args)
+    ok_k = k1.intersect_tris(*args, any_hit=True, tiles=tiles)
+    ok_p = k1.intersect_tris_torch(*args, any_hit=True)
+    torch.cuda.synchronize()
+    id_mis = int((hk.tri_id != hp.tri_id).sum())
+    occ_mis = int((ok_k != ok_p).sum())
+    err = max(max_abs_diff(hk.t, hp.t), max_abs_diff(hk.bary, hp.bary))
+    print(f"K1 parity, {label}: {args[0].shape[0]} rays x {args[4].shape[0]} tris; hits "
+          f"{int(hp.valid.sum())}, occluded {int(ok_p.sum())}; id mismatches {id_mis}, occlusion "
+          f"mismatches {occ_mis}; max abs err (t, u, v) {err}", flush=True)
+    check(id_mis == 0 and occ_mis == 0 and torch.equal(hk.t, hp.t)
+          and torch.equal(hk.bary, hp.bary) and torch.equal(hk.valid, hp.valid),
+          f"K1 differs from its plain version ({label})")
+    check(bool(torch.all(hk.t[~hk.valid] == RAY_TMAX)), "K1 misses must report t = RAY_TMAX")
+    return hk, ok_k, hp
+
+
+def k1_bound(n_live, walked, stats, tiles, n: int, T: int):
+    """(bound ms, by, full-count ms) of one K1 launch: a widened box test
+    per live lane and tile reached (walked: tiles per block, n_live: live
+    lanes per block) and, with the counters (stats [B, 4], or None in a
+    render), a Moller-Trumbore test per (lane, slot) tested; against the
+    bytes (each ray's 44 B read and 16 B written, the tiles once). The full
+    count is every live lane against every triangle (the earlier bound)."""
+    ops = box_test_ops(walked, n_live)
+    if stats is not None:
+        ops += float(stats.double().sum(0)[2]) * (MT_FLOPS + 1)
+    nbytes = 60.0 * n + 4.0 * (tiles.tri.numel() + tiles.boxes.numel() + tiles.slots.numel())
+    b_ms, b_by = bound(ops, nbytes)
+    return b_ms, b_by, bound(float(n_live.double().sum()) * T * MT_FLOPS, 0.0)[0]
+
+
+def k1_parity(scene, device):
+    """Phase 3: K1 against its plain version on 2^18 rays, on rays aimed at
+    the triangles that define its tiles' boxes and through its sliver
+    triangles, and on blinds' soup, with its counters, the recounted bound
+    and CUDA event timings. Returns the kernel's JSON entry."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cull_rays import aimed_rays, sliver_rays, tile_clusters
+
+    from akari_render_tpu_torch.accel import intersect as k1
+    from akari_render_tpu_torch.core.math import RAY_TMAX
+    from akari_render_tpu_torch.scene import load_scene
+
+    a, tiles = scene.arrays, scene.tiles
     tris = (a.v0, a.e1, a.e2)
     o, d, rng = make_rays(scene, device)
     n, t_count = o.shape[0], a.v0.shape[0]
@@ -319,55 +377,80 @@ def k1_parity(scene, device):
     tmax_any = torch.where(cut, seg * 0.5, seg * 1.5)
     args = (o, d, tmin, tmax, *tris, ex0, ex1, ex2)
     args_any = (o, d, tmin, tmax_any, *tris, ex0, ex1, ex2)
+    plain_closest, plain_ms = timed(lambda: k1.intersect_tris_torch(*args))
+    k1_check("2^18 camera and interior rays", args, tiles, plain_closest)
+    k1_check("2^18 shadow segments", args_any, tiles)
 
-    hk = k1.intersect_tris(*args)
-    hp = k1.intersect_tris_torch(*args)
-    ok_k = k1.intersect_tris(*args_any, any_hit=True)
-    ok_p = k1.intersect_tris_torch(*args_any, any_hit=True)
-    torch.cuda.synchronize()
-    id_mis = int((hk.tri_id != hp.tri_id).sum())
-    occ_mis = int((ok_k != ok_p).sum())
-    same = (hk.tri_id == hp.tri_id) & hk.valid
+    # rays aimed at the triangles that define every tile's box (1e-6 to
+    # 1e-4 rad from a triangle's plane among them), cut and open, and rays
+    # through the hittable sliver triangles
+    view = tile_clusters(tiles)
+    oa, da, ta = [], [], []
+    for i, how in enumerate(("head_on", "grazing", "plane_grazing", "random")):
+        o_h, d_h, dist = aimed_rays(view, np.arange(tiles.slots.shape[0]), how, seed=30 + i)
+        oa.append(o_h)
+        da.append(d_h)
+        ta.append(np.where(np.arange(len(o_h)) % 2 == 0, dist * np.float32(1.0 - 1e-5), RAY_TMAX))
+    ids = torch.nonzero(k1.hittable_slivers(*tris)).squeeze(1).cpu().numpy()
+    o_s, d_s = sliver_rays(*(x.cpu().numpy() for x in tris), ids, 64, seed=34)
+    oa.append(o_s)
+    da.append(d_s)
+    ta.append(np.full(len(o_s), RAY_TMAX))
+    o_a, d_a = (torch.as_tensor(np.concatenate(x), device=device) for x in (oa, da))
+    t_a = torch.as_tensor(np.concatenate(ta), dtype=torch.float32, device=device)
+    hk, _, _ = k1_check("aimed at the tiles' box-defining triangles and through slivers",
+                        (o_a, d_a, torch.zeros_like(t_a), t_a, *tris), tiles)
+    on_sliver = hk.valid & k1.hittable_slivers(*tris)[hk.tri_id.clamp(min=0).long()]
+    print(f"  of those, hits on sliver triangles: {int(on_sliver.sum())}", flush=True)
 
-    def rel(x, y):
-        return float((torch.abs(x - y) / torch.clamp(torch.abs(y), min=1e-30))[same].max()) if bool(same.any()) else 0.0
+    # blinds: 28 triangles, one tile
+    blinds = load_scene(str(BLINDS), device=device)
+    o_b, d_b, _ = make_rays(blinds, device)
+    b_args = (o_b, d_b, tmin, tmax, blinds.arrays.v0, blinds.arrays.e1, blinds.arrays.e2)
+    blinds_plain, blinds_plain_ms = timed(lambda: k1.intersect_tris_torch(*b_args))
+    k1_check("blinds", b_args, blinds.tiles, blinds_plain)
 
-    def absd(x, y):
-        return float(torch.abs(x - y)[same].max()) if bool(same.any()) else 0.0
-
-    rel_t, rel_u, rel_v = rel(hk.t, hp.t), rel(hk.bary[:, 0], hp.bary[:, 0]), rel(hk.bary[:, 1], hp.bary[:, 1])
-    max_abs = max(absd(hk.t, hp.t), absd(hk.bary[:, 0], hp.bary[:, 0]), absd(hk.bary[:, 1], hp.bary[:, 1]))
-    miss_ok = bool(torch.all(hk.t[~hk.valid] == RAY_TMAX))
-    print(f"K1 parity: {n} rays x {t_count} tris; hits {int(hk.valid.sum())}, "
-          f"occluded {int(ok_k.sum())}; id mismatches {id_mis}, occlusion mismatches {occ_mis}; "
-          f"max rel err t {rel_t:.3g} u {rel_u:.3g} v {rel_v:.3g}; max abs err {max_abs:.3g}",
-          flush=True)
-    check(id_mis <= ID_MISMATCH_FRAC * n, f"K1 closest-hit ids differ on {id_mis} rays")
-    check(occ_mis <= ID_MISMATCH_FRAC * n, f"K1 any-hit flags differ on {occ_mis} rays")
-    check(max(rel_t, rel_u, rel_v) <= REL_TOL, "K1 t/u/v disagree with the plain version")
-    check(miss_ok, "K1 misses must report t = RAY_TMAX")
-
-    ms = cuda_ms(lambda: k1.intersect_tris(*args), 20)
-    plain_ms = cuda_ms(lambda: k1.intersect_tris_torch(*args), 3)
-    ms_any = cuda_ms(lambda: k1.intersect_tris(*args_any, any_hit=True), 20)
+    # counters of the closest-hit call, and times
+    B = -(-n // k1.BLOCK)
+    walked = torch.zeros(B, dtype=torch.int32, device=device)
+    stats = torch.zeros((B, 4), dtype=torch.int32, device=device)
+    counted = k1.intersect_tris(*args, tiles=tiles, walked=walked, stats=stats)
+    check(torch.equal(counted.tri_id, plain_closest.tri_id), "K1 with its counters differs")
+    live = torch.nn.functional.pad((tmax > tmin).int(), (0, B * k1.BLOCK - n)).reshape(B, -1).sum(1)
+    st = stats.double().sum(0)
+    lane_tiles = float((walked.double() * live.double()).sum())
+    ms = cuda_ms(lambda: k1.intersect_tris(*args, tiles=tiles), 20)
+    ms_any = cuda_ms(lambda: k1.intersect_tris(*args_any, any_hit=True, tiles=tiles), 20)
     plain_ms_any = cuda_ms(lambda: k1.intersect_tris_torch(*args_any, any_hit=True), 3)
-    # every ray is live: each tests every triangle; each ray reads 44 B
-    # (o, d, tmin, tmax, three ids) and writes 16 B, each triangle is 36 B
-    bound_ms, bound_by = bound(n * t_count * MT_FLOPS, n * 60 + t_count * 36)
+    blinds_ms = cuda_ms(lambda: k1.intersect_tris(*b_args, tiles=blinds.tiles), 20)
+    bound_ms, bound_by, full_ms = k1_bound(live, walked, stats, tiles, n, t_count)
+    b_live = torch.full((B,), k1.BLOCK, device=device)
+    blinds_bound = k1_bound(b_live, torch.ones(B, device=device), None, blinds.tiles, n,
+                            blinds.num_tris)
+    print(f"K1 counters, closest hit: {tiles.slots.shape[0]} tiles; live (lane, tile) pairs "
+          f"{int(lane_tiles)}, passed the box test {int(st[1])} ({st[1] / lane_tiles:.4f}); units "
+          f"of a queued lane x 32 slots {int(st[0])}; slots tested {int(st[2])} of the "
+          f"{int(live.sum()) * t_count} of the full count ({st[2] / (int(live.sum()) * t_count):.4f}),"
+          f" {int(st[3])} hit", flush=True)
     print(f"K1 times at {n} rays x {t_count} tris: closest {ms:.4f} ms (plain {plain_ms:.4f} ms), "
-          f"any hit {ms_any:.4f} ms (plain {plain_ms_any:.4f} ms); bound {bound_ms:.4f} ms "
-          f"({bound_by}: {n * t_count * MT_FLOPS:.4g} FP32 operations)", flush=True)
+          f"any hit {ms_any:.4f} ms (plain {plain_ms_any:.4f} ms); bound {bound_ms:.4f} ms by "
+          f"{bound_by}; the full count (every lane x every triangle) would take {full_ms:.4f} ms; "
+          f"blinds ({blinds.num_tris} tris) {blinds_ms:.4f} ms (plain {blinds_plain_ms:.4f} ms, "
+          f"bound {blinds_bound[0]:.4f} ms by {blinds_bound[1]})", flush=True)
     return {
-        "name": "K1 brute-force Moller-Trumbore (closest hit)",
+        "name": "K1 flat-tier Moller-Trumbore over box-tested tiles (closest hit)",
         "route": "cuda",
         "source": "akari_render_tpu_torch/csrc/intersect.cu",
         "replaces": "akari_render_tpu/accel/pallas_intersect.py:37",
-        "max_abs_err": max_abs,
+        "max_abs_err": 0.0,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "full_count_ms": full_ms,
+        "any_hit_ms": ms_any,
+        "blinds_ms": blinds_ms,
     }
 
 
@@ -415,8 +498,59 @@ def slice_correctness(device):
     check(mse_port <= MSE_RATIO * mse_jax, "64^2 MSE against the JAX ground truth too high")
 
 
+class timed_k1:
+    """For a block, time every K1 launch of the scene layer with CUDA
+    events (around the wrapper) and keep each launch's tiles walked per
+    block and live lanes, for its bound (no counters in a render: box tests
+    and bytes). summary() as timed_walks'."""
+
+    def __enter__(self):
+        import torch
+
+        from akari_render_tpu_torch import scene as scene_mod
+        from akari_render_tpu_torch.accel import intersect as k1
+
+        self.real, self.records = scene_mod.intersect_tris, []
+
+        def wrapped(o, d, tmin, tmax, v0, e1, e2, *rest, tiles=None, **kw):
+            n = o.shape[0]
+            B = -(-n // k1.BLOCK)
+            walked = torch.zeros(B, dtype=torch.int32, device=o.device)
+            live = torch.nn.functional.pad((tmax > tmin).int(), (0, B * k1.BLOCK - n))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(o, d, tmin, tmax, v0, e1, e2, *rest, tiles=tiles, walked=walked, **kw)
+            end.record()
+            self.records.append((start, end, walked, live.reshape(B, -1).sum(1), tiles, n,
+                                 v0.shape[0]))
+            return out
+
+        scene_mod.intersect_tris = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from akari_render_tpu_torch import scene as scene_mod
+
+        scene_mod.intersect_tris = self.real
+
+    def summary(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        ms, bnd, full = [], [], []
+        for start, end, walked, live, tiles, n, T in self.records:
+            ms.append(start.elapsed_time(end))
+            b_ms, _, f_ms = k1_bound(live, walked, None, tiles, n, T)
+            bnd.append(b_ms)
+            full.append(f_ms)
+        return {"launches": len(ms), "ms": sum(ms) / len(ms), "ms_min": min(ms),
+                "ms_max": max(ms), "bound_ms": sum(bnd) / len(bnd),
+                "full_count_ms": sum(full) / len(full)}
+
+
 def full_width(device):
-    """Phase 5: matbox 512^2 through the CLI, launches counted."""
+    """Phase 5: matbox 512^2 through the CLI, launches counted and every K1
+    launch timed. Returns (launches, the timings' summary)."""
     import numpy as np
 
     from akari_render_tpu_torch.accel import intersect as k1
@@ -427,12 +561,13 @@ def full_width(device):
     stats_path = out.with_suffix(".stats.json")
     for p in (out, stats_path):
         p.unlink(missing_ok=True)
-    k1.launches = 0
-    t0 = time.perf_counter()
-    stats = cli_main(["-s", str(SCENE), "-m", str(METHOD), "--spp", str(FULL_SPP),
-                      "-o", str(out), "--save-stats", "--device", device])
-    wall = time.perf_counter() - t0
-    launches = k1.launches
+    with timed_k1() as timing:
+        k1.launches = 0
+        t0 = time.perf_counter()
+        stats = cli_main(["-s", str(SCENE), "-m", str(METHOD), "--spp", str(FULL_SPP),
+                          "-o", str(out), "--save-stats", "--device", device])
+        wall = time.perf_counter() - t0
+        launches = k1.launches
     check(launches > 0, "the main path launched K1 no time")
     check(out.exists() and stats_path.exists(), "EXR or stats JSON missing")
     img = read_exr(out)
@@ -442,7 +577,13 @@ def full_width(device):
     print(f"slice 512^2 {FULL_SPP}spp d12: render {stats['total_time']:.3f} s "
           f"({mpaths:.4f} Mpaths/s), CLI wall {wall:.3f} s, K1 launches {launches}, "
           f"image mean {img.mean(axis=(0, 1))}", flush=True)
-    return launches
+    summary = timing.summary()
+    check(summary["launches"] == launches, f"K1: {summary['launches']} launches timed of {launches}")
+    print(f"K1 at this render's own shapes (CUDA events around each of its {launches} launches): "
+          f"mean {summary['ms']:.4f} ms, least {summary['ms_min']:.4f}, most "
+          f"{summary['ms_max']:.4f}; mean bound (box tests and bytes) {summary['bound_ms']:.4f} ms;"
+          f" the full count would take {summary['full_count_ms']:.4f} ms", flush=True)
+    return launches, summary
 
 
 def max_abs_diff(a, b) -> float:
@@ -545,6 +686,106 @@ def explain_disagreements(o, d, tmin, tmax, hk, hp, bad, scene, sg, soup, info):
     return same, gap, edge
 
 
+def k3_check(label, got, want):
+    """K3 with the walk order against its plain version (refine_all_torch,
+    walk_order): e_init bit-equal, worder and went equal up to each block's
+    kcnt, kcnt equal."""
+    import torch
+
+    (e_init, worder, went, kcnt), (e_p, worder_p, went_p, kcnt_p) = got, want
+    live = torch.arange(e_init.shape[1], device=e_init.device)[None, :] < kcnt_p[:, None].long()
+    ok = (torch.equal(e_init, e_p) and torch.equal(kcnt, kcnt_p)
+          and torch.equal(worder[live], worder_p[live]) and torch.equal(went[live], went_p[live]))
+    print(f"K3 parity, {label}: {e_init.shape[0]} blocks x {e_init.shape[1]} clusters, e_init "
+          f"finite {float(torch.isfinite(e_p).float().mean()):.4f}, walk length mean "
+          f"{float(kcnt_p.float().mean()):.1f} (max {int(kcnt_p.max())}); e_init, kcnt and the "
+          f"walk's prefix bit-equal: {ok}", flush=True)
+    check(ok, f"K3 differs from refine_all_torch + walk_order ({label})")
+
+
+def k3_work(e_con, kcnt, counts):
+    """What one K3 launch's bound needs, as device tensors (no host read):
+    (B, K, its counters summed [2], the walk's length, the 256-cluster
+    tiles K2 leaves)."""
+    import torch
+
+    from akari_render_tpu_torch.accel import pairs
+
+    B, K = e_con.shape
+    nt = -(-K // pairs.RALL_TILE)
+    con = torch.nn.functional.pad(e_con, (0, nt * pairs.RALL_TILE - K), value=float("inf"))
+    live_tiles = torch.any(con.reshape(B, nt, pairs.RALL_TILE) < float("inf"), 2).sum()
+    return B, K, counts.double().sum(0), kcnt.double().sum(), live_tiles
+
+
+def k3_bound(B, K, counts, walk, live_tiles):
+    """(bound ms, by, full-count ms) of one K3 launch (k3_work's
+    arguments): K2's chain (36 operations) per (cluster, warp) summary test
+    and a slab test (12) per lane of a unit run, from its counters, against
+    the bytes (e_con read, e_init written, the lanes' 8 floats, the boxes,
+    the walk's prefix). The full count: 12 per lane x cluster of the
+    256-cluster tiles K2 leaves (what the earlier kernel ran)."""
+    from akari_render_tpu_torch.accel import pairs
+
+    nbytes = 4.0 * (2 * B * K + 8 * B * pairs.BLOCK + 6 * K + B) + 8.0 * float(walk)
+    b_ms, b_by = bound(36.0 * float(counts[0]) + 12.0 * 32 * float(counts[1]), nbytes)
+    return b_ms, b_by, bound(12.0 * float(live_tiles) * pairs.BLOCK * pairs.RALL_TILE, 0.0)[0]
+
+
+def k3_render_sample(scene, device):
+    """One sample of classroom at 1920x1080 (phase 9's main path, outside
+    the CLI) with every K3 launch timed by CUDA events and the sort half's
+    PyTorch chain (walk_order on the launch's e_init) timed beside it; the
+    first two launches (camera rays, then their shadow rays) held against
+    the plain version, bit-equal. Returns the means."""
+    import torch
+
+    from akari_render_tpu_torch.accel import pairs
+    from akari_render_tpu_torch.config import RenderTask
+    from akari_render_tpu_torch.core.filters import filter_from_config
+    from akari_render_tpu_torch.integrators.common import PTSettings
+    from akari_render_tpu_torch.integrators.pt import render_sample
+
+    task = RenderTask.from_file(CLASSROOM_METHOD)
+    m = task.method
+    settings = PTSettings(max_depth=m.max_depth, rr_depth=m.rr_depth, use_nee=m.use_nee,
+                          clamp_indirect=m.clamp_indirect)
+    real, rec = pairs.refine_walk, []
+
+    def wrapped(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        counts = torch.zeros((a[4].shape[0], 2), dtype=torch.int32, device=a[4].device)
+        ev[0].record()
+        out = real(*a, counts=counts, **kw)
+        ev[1].record()
+        pairs.walk_order(out[0])
+        ev[2].record()
+        if len(rec) < 2:
+            k3_check(f"launch {len(rec)} of a 1080p sample", out, pairs.refine_walk_torch(*a))
+        rec.append((ev, k3_work(a[4], out[3], counts)))
+        return out
+
+    pairs.refine_walk = wrapped
+    try:
+        render_sample(scene, settings, filter_from_config(task.filter_config), 0, task.seed,
+                      task.sampler)
+    finally:
+        pairs.refine_walk = real
+    torch.cuda.synchronize()
+    k3 = [e[0].elapsed_time(e[1]) for e, _ in rec]
+    chain = [e[1].elapsed_time(e[2]) for e, _ in rec]
+    bounds = [k3_bound(*w)[0] for _, w in rec]
+    out = {"launches": len(rec), "ms": sum(k3) / len(k3), "ms_min": min(k3), "ms_max": max(k3),
+           "library_ms": sum(chain) / len(chain), "bound_ms": sum(bounds) / len(bounds)}
+    per = "; ".join(f"{t:.3f} ({int(w[2][0])}, {int(w[2][1])}, {int(w[3]) / w[0]:.0f})"
+                    for t, (_, w) in zip(k3, rec))
+    print(f"K3 in one 1080p sample ({len(rec)} launches): mean {out['ms']:.4f} ms (least "
+          f"{out['ms_min']:.4f}, most {out['ms_max']:.4f}; mean bound {out['bound_ms']:.4f}); "
+          f"walk_order's argsort chain on the same e_init, mean {out['library_ms']:.4f} ms a "
+          f"launch; each launch's ms (summary tests, units run, mean walk): {per}", flush=True)
+    return out
+
+
 def classroom_rays(scene, cl, device):
     """2^18 rays over classroom: a quarter 1080p camera rays, a quarter
     from interior points in random directions, half shadow segments between
@@ -622,10 +863,14 @@ def pairs_parity(device):
 
     e_con = pairs.cull_einit(s.summ, cb6)
     e_con_p = pairs.cull_einit_torch(s.summ, cb6)
-    e_init = pairs.refine_all(cb6, s.o_soa, s.inv_soa, s.lim, e_con)
-    e_init_p, plain_ms = timed(lambda: pairs.refine_all_torch(cb6, s.o_soa, s.inv_soa, s.lim, e_con))
+    k3_args = (cb6, s.o_soa, s.inv_soa, s.lim, e_con)
+    k3_counts = torch.zeros((B, 2), dtype=torch.int32, device=device)
+    e_init, *k3_order = pairs.refine_walk(*k3_args, counts=k3_counts)
+    k3_plain, plain_ms = timed(lambda: pairs.refine_walk_torch(*k3_args))
     plain_ms = {"K3": plain_ms}
-    order = pairs.walk_order(e_init)
+    k3_check("phase 7's rays", (e_init, *k3_order), k3_plain)
+    check(torch.equal(pairs.refine_walk(*k3_args)[0], e_init), "K3 with its counters differs")
+    order = k3_plain[1:]  # whole rows: the plain walks read past kcnt
     walks = {}
     for mode, sr, any_hit in (("any hit", s, True), ("any_hit_mask", s_mask, False),
                               ("closest", s, False)):
@@ -635,7 +880,7 @@ def pairs_parity(device):
         want, plain_ms["K4"] = timed(lambda: pairs.sweep_walk_torch(*args))
         walks[mode] = (got, want)  # closest last: K4's plain time is its walk's
     torch.cuda.synchronize()
-    errs = {"K2": max_abs_diff(e_con, e_con_p), "K3": max_abs_diff(e_init, e_init_p),
+    errs = {"K2": max_abs_diff(e_con, e_con_p), "K3": max_abs_diff(e_init, k3_plain[0]),
             "K4": max(max_abs_diff(*w) for w in walks.values())}
     kcnt = order[2].float()
     print(f"pair parity at {n} rays ({B} blocks) x {K} clusters: e_con finite "
@@ -644,7 +889,6 @@ def pairs_parity(device):
           f"{float(kcnt.mean()):.1f}, max {int(kcnt.max())}); max abs err K2 {errs['K2']} "
           f"K3 {errs['K3']} K4 {errs['K4']}", flush=True)
     check(torch.equal(e_con, e_con_p), "K2 e_con differs from its plain version")
-    check(torch.equal(e_init, e_init_p), "K3 e_init differs from its plain version")
     for mode, (wk, wp) in walks.items():
         check(torch.equal(wk, wp), f"K4 walk ({mode}) differs from its plain version")
     hits = {m: int((w[0][1] >= 0).sum()) for m, w in walks.items()}
@@ -694,32 +938,37 @@ def pairs_parity(device):
     ms = {
         "K2": (cuda_ms(lambda: pairs.cull_einit(s.summ, cb6), 20),
                cuda_ms(lambda: pairs.cull_einit_torch(s.summ, cb6), 3)),
-        "K3": (cuda_ms(lambda: pairs.refine_all(cb6, s.o_soa, s.inv_soa, s.lim, e_con), 20),
-               plain_ms["K3"]),
+        "K3": (cuda_ms(lambda: pairs.refine_walk(*k3_args), 20), plain_ms["K3"]),
         "K4": (cuda_ms(lambda: pairs.sweep_walk(*walk_args, boxes=boxes), 5), plain_ms["K4"]),
         "K6": (cuda_ms(lambda: pairs.sweep(*k6_args), 5), plain_ms["K6"]),
     }
-    # bounds: K2 writes e_con (36 FP32 operations per element); K3 runs 12
-    # per lane x cluster on the tiles K2 left live; K4 and K6 box-test each
+    # bounds: K2 writes e_con (36 FP32 operations per element); K3 (k3_bound)
+    # runs K2's chain per (cluster, warp) summary tested and 12 per lane of a
+    # unit run, from its counters (its full count: 12 per lane x cluster of
+    # the 256-cluster tiles K2 leaves); K4 and K6 box-test each
     # live lane against each candidate tested (23), transform the ray of a
     # lane queued for it (33) and test it against the slots the box test
     # leaves it (MT_FLOPS + 1 each): needed_ops, from the counters; they
     # read each lane's 16 floats and write its 4. full_ms: the same with
     # every live lane against every slot (the count before the box test)
-    nt = -(-K // pairs.RALL_TILE)
-    con = torch.nn.functional.pad(e_con, (0, nt * pairs.RALL_TILE - K), value=float("inf"))
-    live_tiles = int(torch.any(con.reshape(B, nt, pairs.RALL_TILE) < float("inf"), 2).sum())
     table_bytes = cl.tri.numel() * 4 + (cl.xf.numel() * 4 if cl.xf is not None else 0)
+    k3_b = k3_bound(*k3_work(e_con, k3_order[2], k3_counts))
     bounds = {
         "K2": bound(36.0 * B * K, 4.0 * (B * K + 16 * B + 6 * K)),
-        "K3": bound(12.0 * live_tiles * pairs.BLOCK * pairs.RALL_TILE,
-                    4.0 * (2 * B * K + 8 * n + 6 * K)),
+        "K3": k3_b[:2],
         "K4": bound(needed_ops(walked, live_lanes, k4_stats, C),
                     80.0 * n + table_bytes + 8.0 * float(walked.sum())),
         "K6": bound(needed_ops(valid.sum(1), live_lanes, k6_stats, C), 80.0 * n + table_bytes),
     }
-    full_ms = {"K4": bound(full_count_ops(walked, live_lanes, C), 0.0)[0],
+    full_ms = {"K3": k3_b[2], "K4": bound(full_count_ops(walked, live_lanes, C), 0.0)[0],
                "K6": bound(full_count_ops(valid.sum(1), live_lanes, C), 0.0)[0]}
+    library_ms = {"K3": cuda_ms(lambda: pairs.walk_order(e_init), 20)}
+    kc = k3_counts.double().sum(0)
+    print(f"K3 counters: (cluster, warp) summary tests {int(kc[0])} ({kc[0] / (B * K * 16):.4f} "
+          f"of every cluster x warp), units of 32 lanes' slab tests run {int(kc[1])} "
+          f"({kc[1] / max(kc[0], 1):.4f} of the tests); walk length mean "
+          f"{float(k3_order[2].float().mean()):.1f}; the sort half's PyTorch chain (walk_order: "
+          f"stable argsort, gather, count) {library_ms['K3']:.4f} ms", flush=True)
     print("pair kernel times at classroom's shapes (closest-hit walk for K4): " + ", ".join(
         f"{k} {a:.4f} ms (plain {b:.4f} ms, bound {bounds[k][0]:.4f} ms by {bounds[k][1]})"
         for k, (a, b) in ms.items()) + f"; K4 tested {int(walked.sum())} candidates "
@@ -769,8 +1018,11 @@ def pairs_parity(device):
                    "source": "akari_render_tpu_torch/csrc/pairs.cu",
                    "replaces": f"akari_render_tpu/accel/pairs.py:{names[k][1]}",
                    "launches": 0, "max_abs_err": errs[k], "ms": ms[k][0], "plain_ms": ms[k][1],
-                   "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None}
+                   "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                   "library_ms": library_ms.get(k)}
                for k in names}
+    entries["K3"]["name"] = "K3 pair-sweep per-ray refine with the walk order"
+    entries["K3"]["render_sample"] = k3_render_sample(scene, device)
     for k, v in full_ms.items():
         entries[k]["full_count_ms"] = v
     return entries, {"scene": scene, "cl": cl, "rays": (o, d, tmin, tmax), "ex": (ex0, ex1),
@@ -795,24 +1047,36 @@ class windowed_rounds:
 
 
 class timed_walks:
-    """For a block, time every launch of the pair sweep's walk (K4) and of
-    the wide walk (K7) with CUDA events (around the wrapper: its argument
-    checks and the copy of `best` are inside), and keep what each launch's
-    bound needs: the candidates, or nodes and leaves, each block reached,
-    and its live lanes. summary() gives, per kernel, the launches, the
-    mean, least and most milliseconds, the mean bound and the mean time
-    the full count would take. No counters run inside a render, so this
-    bound counts the bytes, K7's node steps and the box tests (a box test
-    per live lane and candidate reached) and leaves out the slots inside
-    the boxes: it lies under the kernels' line's kind of bound by their
-    share."""
+    """For a block, time every launch of the pair sweep's refine and walk
+    order (K3), its walk (K4) and of the wide walk (K7) with CUDA events
+    (around the wrapper: its argument checks and the copy of `best` are
+    inside), and keep what each launch's bound needs: K3's counters, the
+    candidates, or nodes and leaves, each block reached, and its live
+    lanes. summary() gives, per kernel, the launches, the mean, least and
+    most milliseconds, the mean bound and the mean time the full count
+    would take. K3's counters cost one store a block; K4's and K7's do not
+    run inside a render, so their bound counts the bytes, K7's node steps
+    and the box tests (a box test per live lane and candidate reached) and
+    leaves out the slots inside the boxes: it lies under the kernels'
+    line's kind of bound by their share."""
 
     def __enter__(self):
         import torch
 
         from akari_render_tpu_torch.accel import pairs, wide
 
-        self.real, self.records = (pairs.sweep_walk, wide.wide_walk), []
+        self.real = (pairs.sweep_walk, wide.wide_walk, pairs.refine_walk)
+        self.records, self.k3 = [], []
+
+        def refine_walk(*a, **kw):
+            counts = torch.zeros((a[4].shape[0], 2), dtype=torch.int32, device=a[4].device)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real[2](*a, counts=counts, **kw)
+            end.record()
+            # keep the bound's inputs, not the [B, K] e_con (the render's peak memory)
+            self.k3.append((start, end, k3_work(a[4], out[3], counts)))
+            return out
 
         def run(kernel, fn, args, kw, reached, lim, tables):
             B = reached.shape[0]
@@ -834,13 +1098,13 @@ class timed_walks:
             return run("K7", self.real[1], a, {**kw, "counts": counts}, counts, a[5],
                        (a[1], a[2], a[0]))
 
-        pairs.sweep_walk, wide.wide_walk = sweep_walk, wide_walk
+        pairs.sweep_walk, wide.wide_walk, pairs.refine_walk = sweep_walk, wide_walk, refine_walk
         return self
 
     def __exit__(self, *exc):
         from akari_render_tpu_torch.accel import pairs, wide
 
-        pairs.sweep_walk, wide.wide_walk = self.real
+        pairs.sweep_walk, wide.wide_walk, pairs.refine_walk = self.real
 
     def summary(self) -> dict:
         import torch
@@ -864,6 +1128,12 @@ class timed_walks:
             rec["ms"].append(start.elapsed_time(end))
             rec["bound_ms"].append(bound(ops, nbytes)[0])
             rec["full_count_ms"].append(bound(full, 0.0)[0])
+        for start, end, work in self.k3:
+            b_ms, _, f_ms = k3_bound(*work)
+            rec = out.setdefault("K3", {"ms": [], "bound_ms": [], "full_count_ms": []})
+            rec["ms"].append(start.elapsed_time(end))
+            rec["bound_ms"].append(b_ms)
+            rec["full_count_ms"].append(f_ms)
 
         def mean(x):
             return sum(x) / len(x)
@@ -954,10 +1224,12 @@ def classroom_full_width(device, traversal="pairs-static"):
     timings = walks.summary()
     for k, v in timings.items():
         check(v["launches"] == launches[k], f"{k}: {v['launches']} launches timed of {launches[k]}")
+        what = ("its counters and bytes" if k == "K3"
+                else "bytes, node steps and box tests")
         print(f"{k} at this render's own shapes (CUDA events around each of its {v['launches']} "
               f"launches): mean {v['ms']:.4f} ms, least {v['ms_min']:.4f}, most {v['ms_max']:.4f}; "
-              f"mean bound (bytes, node steps and box tests) {v['bound_ms']:.4f} ms; the full "
-              f"count would take {v['full_count_ms']:.4f} ms", flush=True)
+              f"mean bound ({what}) {v['bound_ms']:.4f} ms; the full count would take "
+              f"{v['full_count_ms']:.4f} ms", flush=True)
     return launches, timings
 
 
@@ -1547,11 +1819,19 @@ def build_all():
           f"{wide.build_seconds:.3f} s", flush=True)
     print(f"K8 build: nvcc {mk.build_seconds:.3f} s; K9 build: nvcc {fs.build_seconds:.3f} s "
           f"({wall:.3f} s for the five builds, in parallel)", flush=True)
-    for k, v in {**pairs.kernel_info(), **wide.kernel_info()}.items():
+    # K3 at classroom's 4,633 candidates, K8 and K9 at blinds' tables: the
+    # shapes of their main paths
+    scene, _, settings, filt = blinds_setup("cuda")
+    tb = mk.pass_tables(scene, settings, filt, 0)
+    info = {**k1.kernel_info(), **pairs.kernel_info(), **wide.kernel_info(),
+            **mk.kernel_info(tb), **fs.kernel_info(scene.shade_bake)}
+    for k in sorted(info):
+        v = info[k]
         print(f"{k} resources: {v['registers']} registers a thread, {v['static_smem']} + "
               f"{v['dynamic_smem']} B shared memory (static + dynamic), {v['local_bytes']} B local "
               f"memory, {v['threads']} threads a block, {v['blocks_per_sm']} blocks resident an SM",
               flush=True)
+    return info
 
 
 def main():
@@ -1569,7 +1849,7 @@ def main():
     device = "cuda"
     OUT.mkdir(parents=True, exist_ok=True)
 
-    build_all()
+    info = build_all()
     lap("phases 2, 6, 10 and 15 (build)")
     scene = load_scene(str(SCENE), device=device)
     entry = k1_parity(scene, device)
@@ -1577,7 +1857,7 @@ def main():
     lap("phase 3 (K1 parity)")
     slice_correctness(device)
     lap("phase 4 (matbox 64^2)")
-    entry["launches"] = full_width(device)
+    entry["launches"], entry["main_path"] = full_width(device)
     lap("phase 5 (matbox 512^2)")
 
     pair_entries, ctx = pairs_parity(device)
@@ -1590,6 +1870,7 @@ def main():
     launches, timings = classroom_full_width(device)
     for k in ("K2", "K3", "K4"):
         pair_entries[k]["launches"] = launches[k]
+    pair_entries["K3"]["main_path"] = timings["K3"]
     pair_entries["K4"]["main_path"] = timings["K4"]
     lap("phase 9 (classroom 1080p)")
     for traversal in ("wide", "pairs-windowed"):
@@ -1610,8 +1891,11 @@ def main():
         fused[k]["launches"] = c
     lap("phase 14 (blinds 256^2)")
 
-    print(json.dumps({"kernels": [entry, *pair_entries.values(), other["K5"], other["K7"],
-                                  fused["K8"], fused["K9"]]}))
+    kernels = [entry, *pair_entries.values(), other["K5"], other["K7"], fused["K8"], fused["K9"]]
+    for k in kernels:  # K6 is K4's kernel
+        res = info[k["name"].split()[0].replace("K6", "K4")]
+        k["registers"], k["blocks_per_sm"] = res["registers"], res["blocks_per_sm"]
+    print(json.dumps({"kernels": kernels}))
     print(gpu_query())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -155,8 +155,8 @@ def _checked_walk(cl, s, any_hit, max_steps):
     lanes' best carried along (so the box test sees limits as fresh as the
     kernel's), _check_candidate at every step."""
     cb6 = tp.cluster_bounds(cl)
-    e_init = tp.refine_all(cb6, s.o_soa, s.inv_soa, s.lim, tp.cull_einit(s.summ, cb6))
-    worder, went, kcnt = tp.walk_order(e_init)
+    _, worder, went, kcnt = tp.refine_walk(cb6, s.o_soa, s.inv_soa, s.lim,
+                                           tp.cull_einit(s.summ, cb6))
     cb6 = tp.candidate_test_boxes(cl, cb6)
     B = worder.shape[0]
 
@@ -272,8 +272,7 @@ def test_culled_walk_equals_plain_walk(instanced, mode):
     mask = torch.arange(o.shape[0]) % 2 == 1 if mode == "any_hit_mask" else None
     s = tp.sort_rays(cl, o, d, tmin, tmax, ex0, any_hit_mask=mask)
     cb6 = tp.cluster_bounds(cl)
-    e_init = tp.refine_all(cb6, s.o_soa, s.inv_soa, s.lim, tp.cull_einit(s.summ, cb6))
-    order = tp.walk_order(e_init)
+    order = tp.refine_walk(cb6, s.o_soa, s.inv_soa, s.lim, tp.cull_einit(s.summ, cb6))[1:]
     tail = (s.o_soa, s.d_soa, s.lim, s.ex, s.best0, mode == "any_hit")
     want = tp.sweep_walk_torch(*order, cl.tri_row, cl.tri, cl.xf, *tail)
     got = tp.sweep_walk_culled_torch(*order, cl.tri_row, cl.tri, cl.xf,
@@ -289,8 +288,7 @@ def test_culled_walk_equals_plain_walk_on_classroom(classroom):
     o, d, tmin, tmax = _scene_rays(sc, cl, 2 * L, seed=6)
     s = tp.sort_rays(cl, o[:L], d[:L], tmin[:L], tmax[:L])
     cb6 = tp.cluster_bounds(cl)
-    e_init = tp.refine_all(cb6, s.o_soa, s.inv_soa, s.lim, tp.cull_einit(s.summ, cb6))
-    order = tp.walk_order(e_init)
+    order = tp.refine_walk(cb6, s.o_soa, s.inv_soa, s.lim, tp.cull_einit(s.summ, cb6))[1:]
     tail = (s.o_soa, s.d_soa, s.lim, s.ex, s.best0, False)
     want = tp.sweep_walk_torch(*order, cl.tri_row, cl.tri, cl.xf, *tail)
     got = tp.sweep_walk_culled_torch(*order, cl.tri_row, cl.tri, cl.xf,

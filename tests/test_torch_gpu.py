@@ -26,7 +26,7 @@ from akari_render_tpu_torch.integrators import megakernel as mk
 from akari_render_tpu_torch.integrators.common import PTSettings
 from akari_render_tpu_torch.integrators.pt import render_pt
 from akari_render_tpu_torch.scene import load_scene
-from torch_cull_rays import aimed_rays, instanced_soup
+from torch_cull_rays import aimed_rays, instanced_soup, tile_clusters
 
 ROOT = Path(__file__).resolve().parents[1]
 SCENE = ROOT / "scenes/matbox/scene.json"
@@ -68,20 +68,64 @@ def _rays(scene, n, seed, device):
     return o, d, torch.zeros(n, device=device), t(tmax), *exs
 
 
+def _check_k1(args, tiles, min_hits):
+    """K1 (on `tiles`, and on the tiles it cuts itself) against its plain
+    version, closest and any hit, bit-equal, with counters that show the
+    box test skipping."""
+    n = args[0].shape[0]
+    nb = -(-n // k1.BLOCK)
+    before = k1.launches
+    hk = k1.intersect_tris(*args, tiles=tiles)
+    hp = k1.intersect_tris_torch(*args)
+    assert k1.launches == before + 1
+    assert int(hp.valid.sum()) > min_hits
+    for a, b in zip(hk, hp):
+        assert torch.equal(a, b)
+    for a, b in zip(k1.intersect_tris(*args), hp):
+        assert torch.equal(a, b)
+    walked = torch.zeros(nb, dtype=torch.int32, device=args[0].device)
+    stats = torch.zeros((nb, 4), dtype=torch.int32, device=args[0].device)
+    occ = k1.intersect_tris(*args, any_hit=True, tiles=tiles, walked=walked, stats=stats)
+    assert torch.equal(occ, k1.intersect_tris_torch(*args, any_hit=True))
+    assert bool((walked <= tiles.slots.shape[0]).all()) and int(stats[:, 3].sum()) >= int(occ.sum())
+    return stats
+
+
 def test_kernel_matches_plain_on_card(cuda):
+    """K1 on matbox's tiles against its plain version: camera rays and rays
+    from inside the box, with exclusion ids, cut and dead lanes."""
     scene = load_scene(str(SCENE), 64, 64, device=cuda)
     a = scene.arrays
     o, d, tmin, tmax, ex0, ex1, ex2 = _rays(scene, 1 << 16, 3, cuda)
-    args = (o, d, tmin, tmax, a.v0, a.e1, a.e2, ex0, ex1, ex2)
-    before = k1.launches
-    hk = k1.intersect_tris(*args)
-    hp = k1.intersect_tris_torch(*args)
-    assert k1.launches == before + 1
-    assert int(hk.valid.sum()) > 1 << 14
-    assert torch.equal(hk.tri_id, hp.tri_id)
-    assert torch.equal(hk.t, hp.t) and torch.equal(hk.bary, hp.bary)
-    assert torch.equal(k1.intersect_tris(*args, any_hit=True),
-                       k1.intersect_tris_torch(*args, any_hit=True))
+    stats = _check_k1((o, d, tmin, tmax, a.v0, a.e1, a.e2, ex0, ex1, ex2), scene.tiles, 1 << 14)
+    assert int(stats[:, 1].sum()) < 0.25 * (1 << 16) * scene.tiles.slots.shape[0]
+
+
+def test_k1_matches_plain_on_aimed_rays_and_blinds_on_card(cuda):
+    """K1 against its plain version on rays aimed at the triangles that
+    define matbox's tile boxes (head-on, grazing a box face, within 1e-6 to
+    1e-4 rad of a triangle's plane, and from random directions; every tile,
+    the sliver runs among them) with the t-limit open and cut at the
+    target, and on blinds' 28 triangles (one tile)."""
+    scene = load_scene(str(SCENE), 64, 64, device=cuda)
+    a, tiles = scene.arrays, scene.tiles
+    view = tile_clusters(tiles)
+    cands = np.arange(tiles.slots.shape[0])
+    os_, ds_, cut = [], [], []
+    for i, how in enumerate(("head_on", "grazing", "plane_grazing", "random")):
+        o, d, dist = aimed_rays(view, cands, how, seed=20 + i)
+        os_.append(o)
+        ds_.append(d)
+        cut.append(np.where(np.arange(len(o)) % 2 == 0, dist * np.float32(1.0 + 1e-5), RAY_TMAX))
+    o = torch.as_tensor(np.concatenate(os_), device=cuda)
+    d = torch.as_tensor(np.concatenate(ds_), device=cuda)
+    tmax = torch.as_tensor(np.concatenate(cut), dtype=torch.float32, device=cuda)
+    tmin = torch.zeros_like(tmax)
+    _check_k1((o, d, tmin, tmax, a.v0, a.e1, a.e2), tiles, o.shape[0] // 2)
+    blinds = load_scene(str(BLINDS), 64, 64, device=cuda)
+    assert blinds.tiles.slots.tolist() == [32]
+    b = blinds.arrays
+    _check_k1((*_rays(blinds, 1 << 15, 4, cuda)[:4], b.v0, b.e1, b.e2), blinds.tiles, 1 << 12)
 
 
 def test_slice_on_card_matches_cpu(cuda):
@@ -132,10 +176,10 @@ def test_pair_kernels_match_plain_on_card(cuda):
     boxes = pairs.candidate_test_boxes(cl, cb6)
     e_con = pairs.cull_einit(s.summ, cb6)
     assert torch.equal(e_con, pairs.cull_einit_torch(s.summ, cb6))
-    e_init = pairs.refine_all(cb6, s.o_soa, s.inv_soa, s.lim, e_con)
-    assert torch.equal(e_init, pairs.refine_all_torch(cb6, s.o_soa, s.inv_soa, s.lim, e_con))
+    e_init, *order = pairs.refine_walk(cb6, s.o_soa, s.inv_soa, s.lim, e_con)
+    _check_refine_walk((e_init, *order), pairs.refine_walk_torch(cb6, s.o_soa, s.inv_soa, s.lim,
+                                                                 e_con))
     assert torch.isfinite(e_init).any()
-    order = pairs.walk_order(e_init)
     for any_hit in (False, True):
         args = (*order, cl.tri_row, cl.tri, cl.xf, s.o_soa, s.d_soa, s.lim, s.ex, s.best0,
                 any_hit)
@@ -143,6 +187,29 @@ def test_pair_kernels_match_plain_on_card(cuda):
                            pairs.sweep_walk_torch(*args)), any_hit
     assert {k: pairs.launches[k] - before[k] for k in before} == {"K2": 1, "K3": 1, "K4": 2,
                                                                   "K5": 0, "K6": 0}
+
+
+def _check_refine_walk(got, want):
+    """K3 with the walk order against its plain version: e_init bit-equal,
+    the walk (worder, went) equal up to each row's kcnt, kcnt equal."""
+    (e_init, worder, went, kcnt), (e_p, worder_p, went_p, kcnt_p) = got, want
+    assert torch.equal(e_init, e_p) and torch.equal(kcnt, kcnt_p)
+    live = torch.arange(e_init.shape[1], device=e_init.device)[None, :] < kcnt[:, None].long()
+    assert torch.equal(worder[live], worder_p[live]) and torch.equal(went[live], went_p[live])
+
+
+def test_refine_walk_keys_in_device_memory_on_card(cuda):
+    """K3 with more clusters than its shared-memory key list holds (the
+    keys go to a scratch row in device memory) against its plain version."""
+    cl = _soup_clusters(seed=9, T=12400 * 8, C=8).to(cuda)
+    assert cl.num_clusters > pairs.build().akr_refine_walk_keys()
+    o, d, tmin, tmax, ex0, _ = _pair_rays(2 * pairs.BLOCK, 3, cuda)
+    s = pairs.sort_rays(cl, o * 0.6, d, tmin, tmax, ex0)
+    cb6 = pairs.cluster_bounds(cl)
+    e_con = pairs.cull_einit(s.summ, cb6)
+    got = pairs.refine_walk(cb6, s.o_soa, s.inv_soa, s.lim, e_con)
+    _check_refine_walk(got, pairs.refine_walk_torch(cb6, s.o_soa, s.inv_soa, s.lim, e_con))
+    assert int(got[3].max()) > 100
 
 
 def test_intersect_pairs_card_matches_cpu(cuda):
@@ -254,9 +321,9 @@ def _cull_case(device, seed=5):
     s = {dl: pairs.sort_rays(cl, o, d, tmin, tmax, ex0, any_hit_mask=mask if dl else None,
                              dead_last=dl) for dl in (True, False)}
     cb6 = pairs.cluster_bounds(cl)
-    e_init = pairs.refine_all(cb6, s[True].o_soa, s[True].inv_soa, s[True].lim,
-                              pairs.cull_einit(s[True].summ, cb6))
-    return cl, s, pairs.walk_order(e_init)
+    e_init = pairs.refine_walk(cb6, s[True].o_soa, s[True].inv_soa, s[True].lim,
+                               pairs.cull_einit(s[True].summ, cb6))[0]
+    return cl, s, pairs.walk_order(e_init)  # whole rows: the plain walks read past kcnt
 
 
 def test_redesigned_sweep_matches_plain_on_card(cuda):
@@ -353,15 +420,20 @@ def test_redesigned_wide_walk_matches_plain_on_card(cuda):
 
 
 def test_kernel_info_reports_resources(cuda):
-    """The compiler's registers and the resident blocks an SM of K2-K5 and
-    K7: the walks keep two 512-thread blocks resident and spill nothing."""
-    info = {**pairs.kernel_info(), **wide.kernel_info()}
-    assert set(info) == {"K2", "K3", "K4", "K5", "K7"}
+    """The compiler's registers and the resident blocks an SM of every
+    kernel (K8 and K9 at blinds' tables): the walks (K1, K4, K7) keep two
+    512-thread blocks resident; K4 and K7 spill nothing, K1 one word (8 B
+    of stack, ptxas -v)."""
+    scene = load_scene(str(BLINDS), 16, 16, device=cuda)
+    tb = mk.pass_tables(scene, PTSettings(max_depth=12), GaussianFilter(1.5), 0)
+    info = {**k1.kernel_info(), **pairs.kernel_info(), **wide.kernel_info(),
+            **mk.kernel_info(tb), **fs.kernel_info(scene.shade_bake)}
+    assert set(info) == {"K1", "K2", "K3", "K4", "K5", "K7", "K8", "K9"}
     for k, v in info.items():
         assert 0 < v["registers"] <= 255 and v["blocks_per_sm"] >= 1, (k, v)
-    for k in ("K4", "K7"):
+    for k in ("K1", "K4", "K7"):
         assert info[k]["threads"] == pairs.BLOCK and info[k]["blocks_per_sm"] >= 2, info[k]
-        assert info[k]["local_bytes"] == 0, info[k]
+        assert info[k]["local_bytes"] <= (8 if k == "K1" else 0), info[k]
 
 
 def test_failed_kernel_build_raises(cuda, tmp_path, monkeypatch):

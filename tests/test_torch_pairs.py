@@ -404,7 +404,7 @@ def test_walk_round_size_is_transparent(clusters):
     o, d, tmin, tmax = _rays()
     s = tp.sort_rays(tcl, t_(o), t_(d), t_(tmin), t_(tmax))
     cb6 = tp.cluster_bounds(tcl)
-    order = tp.walk_order(tp.refine_all(cb6, s.o_soa, s.inv_soa, s.lim, tp.cull_einit(s.summ, cb6)))
+    order = tp.refine_walk(cb6, s.o_soa, s.inv_soa, s.lim, tp.cull_einit(s.summ, cb6))[1:]
     args = (*order, tcl.tri_row, tcl.tri, tcl.xf, s.o_soa, s.d_soa, s.lim, s.ex, s.best0, False)
     one = tp.sweep_walk_torch(*args, maxc=tcl.num_clusters)
     many = tp.sweep_walk_torch(*args, maxc=3)

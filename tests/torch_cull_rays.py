@@ -1,7 +1,8 @@
-"""Rays aimed at the triangles that define a candidate's world box, and a
-small instanced candidate list to aim them at: shared by the CPU tests of
-the candidate test's skips (tests/test_torch_candidate_cull.py) and the
-card's tests (tests/test_torch_gpu.py). Imports no jax."""
+"""Rays aimed at the triangles that define a candidate's world box (or a
+K1 tile's) and at sliver triangles, and a small instanced candidate list
+to aim them at: shared by the CPU tests of the candidate test's skips
+(tests/test_torch_candidate_cull.py, tests/test_torch_flat_cull.py), the
+card's tests (tests/test_torch_gpu.py) and chip_smoke.py. Imports no jax."""
 import numpy as np
 import torch
 
@@ -131,3 +132,32 @@ def aimed_rays(cl, cands, how, seed):
     d = np.concatenate(ds_).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return o, d, np.concatenate(dist).astype(np.float32)
+
+
+def tile_clusters(tiles):
+    """K1's tiles (accel/intersect.py FlatTiles) as flat candidates of a
+    ClusterArrays (identity rows, the tiles' boxes), on the CPU: what
+    face_targets and aimed_rays take."""
+    nt = tiles.slots.shape[0]
+    ident = torch.zeros((nt, 16))
+    ident[:, 0] = ident[:, 5] = ident[:, 10] = 1.0
+    b = tiles.boxes.cpu()
+    return ClusterArrays(cbmin=b[0:3].T.contiguous(), cbmax=b[3:6].T.contiguous(),
+                         tri=tiles.tri.cpu(), order=torch.zeros((0,), dtype=torch.int32),
+                         xf=ident)
+
+
+def sliver_rays(v0, e1, e2, ids, per, seed):
+    """Rays through points of the triangles `ids` of a soup (numpy [T, 3]
+    arrays), from random directions, 0.01 to 10 units away: on a sliver
+    (zero-area) triangle Möller-Trumbore's determinant is rounding noise,
+    and a ray through the sliver's line meets it in rounding. Returns o, d
+    [len(ids) * per, 3] float32."""
+    rng = np.random.default_rng(seed)
+    a = np.repeat(v0[ids].astype(np.float64), per, axis=0)
+    s = rng.random((len(a), 2)) * [1.0, 0.01]
+    p = a + s[:, :1] * np.repeat(e1[ids], per, axis=0) + s[:, 1:] * np.repeat(e2[ids], per, axis=0)
+    d = rng.normal(size=p.shape)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = p - d * 10.0 ** rng.uniform(-2, 1, (len(p), 1))
+    return o.astype(np.float32), d.astype(np.float32)

@@ -125,8 +125,8 @@ def main():
     rows, want = [], None
     for name in ("as_built", "no_prefetch", "three_blocks", "as_built"):
         use_variant(name)
-        order = pairs.walk_order(pairs.refine_all(cb6, s.o_soa, s.inv_soa, s.lim,
-                                                  pairs.cull_einit(s.summ, cb6)))
+        order = pairs.refine_walk(cb6, s.o_soa, s.inv_soa, s.lim,
+                                  pairs.cull_einit(s.summ, cb6))[1:]
         got = [k4(False), k4(True), k7(False), k7(True)]
         torch.cuda.synchronize()
         if want is None:

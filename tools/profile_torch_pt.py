@@ -32,7 +32,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 # device kernel name fragments of the port's hand-written kernels
-KERNELS = {"K1": "mt_kernel", "K2": "cull_kernel", "K3": "refine_all_kernel",
+KERNELS = {"K1": "flat_kernel", "K2": "cull_kernel", "K3": "refine_walk_kernel",
            "K4": "sweep_kernel", "K5": "window_refine_kernel", "K7": "wide_walk_kernel",
            "K8": "megakernel", "K9": "fused_shade_kernel"}
 
