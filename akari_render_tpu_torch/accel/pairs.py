@@ -47,10 +47,12 @@ With AKR_PAIRS_STATIC=0 (read at every call) intersect_pairs takes the
 legacy windowed walk instead of steps 3 to 5: each block's walk order is
 the stable argsort of K2's conservative entries, and the host repeats
 rounds: gather the next WINDOW_MULT * MAXC members of every live block's
-order, K5 (`refine`: which of them can any lane's current [tmin, best t]
-slab interval reach?), keep the first MAXC that pass (members before the
-cut that fail are consumed without a test), and sweep those through the K4
-kernel. Every round ends in a host read of "is any block still live".
+order, K5 (`refine_window`, which reads the members by id: which of them
+can any lane's current [tmin, best t] slab interval reach?), keep the
+first MAXC that pass (members before the cut that fail are consumed without
+a test), and sweep those through the K4 kernel. Every round ends in a host
+read of "is any block still live". `refine_window_grouped_torch` is K5 step
+for step.
 
 Not ported, on purpose: AKR_WMULT (the window multiple stays WINDOW_MULT)
 and AKR_PALLAS_CULL (the XLA form of K2), which tune or A/B the TPU code
@@ -111,7 +113,7 @@ def build() -> ctypes.CDLL:
         lib.akr_cull.argtypes = [vp, vp, vp, ci, ci, vp]
         lib.akr_refine_walk.argtypes = [vp] * 11 + [ci, ci, ci, vp]
         lib.akr_refine_walk_keys.argtypes = []
-        lib.akr_refine_window.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.akr_refine_window.argtypes = [vp] * 8 + [ci] * 4 + [vp]
         lib.akr_sweep.argtypes = [vp] * 12 + [ci] * 7 + [vp, vp, vp]
         lib.akr_pairs_kernel_info.argtypes = [vp, ci, ci, ci]
         for f in (lib.akr_cull, lib.akr_refine_walk, lib.akr_refine_walk_keys,
@@ -320,6 +322,42 @@ def _ordered_bits(x):
     return torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u | 0x80000000)
 
 
+def _warp_lanes(o_soa, i_soa, lim):
+    """The lanes of each 32-lane warp of each block as K3's and K5's kernels
+    hold them (csrc/pairs.cu::load_lane_summary): (live [B, G, 32],
+    origins and inverse directions [B, G, 32, 3], tmin and t-limit
+    [B, G, 32] with a dead lane's at +inf and -inf, the warps' interval
+    summaries of their live lanes [B, G, 16] in K2's layout). A lane is
+    live when its tmin is at or below its t-limit."""
+    B, G = o_soa.shape[1] // BLOCK, BLOCK // 32
+    live = lim[0] <= lim[1]
+    lv = live.reshape(B, G, 32)
+    o = o_soa.T.reshape(B, G, 32, 3)
+    iv = i_soa.T.reshape(B, G, 32, 3)
+    tmin = torch.where(live, lim[0], INF).reshape(B, G, 32)
+    tlim = torch.where(live, lim[1], -INF).reshape(B, G, 32)
+    m = lv[..., None]
+    summ = torch.cat([torch.where(m, o, INF).amin(2), torch.where(m, o, -INF).amax(2),
+                      torch.where(m, iv, INF).amin(2), torch.where(m, iv, -INF).amax(2),
+                      tmin.amin(2)[..., None], tlim.amax(2)[..., None],
+                      torch.zeros((B, G, 2), device=o_soa.device)], dim=2)
+    return lv, o, iv, tmin, tlim, summ
+
+
+def _unit_slabs(cb6, c, o, iv, tmin, tlim):
+    """The slab tests of units: boxes cb6[:, c] against the 32 lanes of a
+    warp each (o, iv [U, 32, 3], tmin, tlim [U, 32]) -> near, far [U, 32]."""
+    near = torch.full(tmin.shape, -INF, device=cb6.device)
+    far = torch.full(tmin.shape, INF, device=cb6.device)
+    for a in range(3):
+        oa, ia = o[..., a], iv[..., a]
+        t0 = (cb6[a, c][:, None] - oa) * ia
+        t1 = (cb6[3 + a, c][:, None] - oa) * ia
+        near = torch.maximum(near, torch.minimum(t0, t1))
+        far = torch.minimum(far, torch.maximum(t0, t1))
+    return torch.maximum(near, tmin), torch.minimum(far, tlim)
+
+
 def refine_walk_grouped_torch(cb6, o_soa, i_soa, lim, e_con, tally=None):
     """The K3 kernel step for step in torch, for tests at small sizes: a
     lane whose tmin is not below its t-limit never passes; of the clusters
@@ -333,17 +371,7 @@ def refine_walk_grouped_torch(cb6, o_soa, i_soa, lim, e_con, tally=None):
     B, K = e_con.shape
     dev = cb6.device
     G = BLOCK // 32
-    live = lim[0] <= lim[1]
-    lv = live.reshape(B, G, 32)
-    o = o_soa.T.reshape(B, G, 32, 3)
-    iv = i_soa.T.reshape(B, G, 32, 3)
-    tmin = torch.where(live, lim[0], INF).reshape(B, G, 32)
-    tlim = torch.where(live, lim[1], -INF).reshape(B, G, 32)
-    m = lv[..., None]
-    summ = torch.cat([torch.where(m, o, INF).amin(2), torch.where(m, o, -INF).amax(2),
-                      torch.where(m, iv, INF).amin(2), torch.where(m, iv, -INF).amax(2),
-                      tmin.amin(2)[..., None], tlim.amax(2)[..., None],
-                      torch.zeros((B, G, 2), device=dev)], dim=2)
+    lv, o, iv, tmin, tlim, summ = _warp_lanes(o_soa, i_soa, lim)
     tested = lv.any(2)[..., None] & torch.isfinite(e_con)[:, None, :]
     unit = tested & torch.isfinite(cull_einit_torch(summ.reshape(B * G, 16), cb6)).reshape(B, G, K)
     if tally is not None:
@@ -354,16 +382,7 @@ def refine_walk_grouped_torch(cb6, o_soa, i_soa, lim, e_con, tally=None):
         g, c = torch.nonzero(unit[b], as_tuple=True)
         if g.numel() == 0:
             continue
-        near = torch.full((g.numel(), 32), -INF, device=dev)
-        far = torch.full((g.numel(), 32), INF, device=dev)
-        for a in range(3):
-            oa, ia = o[b, g, :, a], iv[b, g, :, a]
-            t0 = (cb6[a, c][:, None] - oa) * ia
-            t1 = (cb6[3 + a, c][:, None] - oa) * ia
-            near = torch.maximum(near, torch.minimum(t0, t1))
-            far = torch.minimum(far, torch.maximum(t0, t1))
-        near = torch.maximum(near, tmin[b, g])
-        far = torch.minimum(far, tlim[b, g])
+        near, far = _unit_slabs(cb6, c, o[b, g], iv[b, g], tmin[b, g], tlim[b, g])
         e_init[b].scatter_reduce_(0, c, torch.where(near <= far, near, INF).amin(1), "amin")
     ids = torch.arange(K, device=dev)[None, :]
     finite = torch.isfinite(e_init)
@@ -414,7 +433,8 @@ def refine_walk(cb6, o_soa, i_soa, lim, e_con, counts=None):
 
 # ----------------------------------------------------------------------- K5
 def refine_torch(wb, o_soa, i_soa, lim):
-    """Plain version of K5, the window refine of _refine_kernel: wb
+    """The window refine of _refine_kernel with its interface (K5's plain
+    version, refine_window_torch, gathers the window and calls it): wb
     [B, 6, W] gathered member boxes (min xyz | max xyz rows, W minor) ->
     [B, W] int32, 1 where any lane of the block has a [lim[0], lim[1]] slab
     interval that overlaps the member. Chunked over blocks."""
@@ -441,25 +461,83 @@ def refine_torch(wb, o_soa, i_soa, lim):
     return out
 
 
-def refine(wb, o_soa, i_soa, lim):
+def refine_window_torch(cb6, win_i, member_ok, o_soa, i_soa, lim):
+    """Plain version of K5 with the interface of the kernel: cb6 [6, K],
+    win_i [B, W] cluster ids, member_ok [B, W] bool, o_soa/i_soa [3, n],
+    lim [2, n], n = B * BLOCK -> [B, W] int32: the members' boxes gathered
+    as the JAX walk gathers its window ([B, 6, W]), refine_torch, and
+    member_ok. A block with no member set is 0 without slab math."""
+    B, W = win_i.shape
+    dev = cb6.device
+    out = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    rows = torch.nonzero(member_ok.any(dim=1)).squeeze(1)
+    if rows.numel():
+        lanes = (rows[:, None] * BLOCK + torch.arange(BLOCK, device=dev)[None, :]).reshape(-1)
+        wb = cb6[:, win_i[rows].long()].permute(1, 0, 2)
+        got = refine_torch(wb, o_soa[:, lanes], i_soa[:, lanes], lim[:, lanes])
+        out[rows] = torch.where(member_ok[rows], got, 0)
+    return out
+
+
+def refine_window_grouped_torch(cb6, win_i, member_ok, o_soa, i_soa, lim, tally=None):
+    """The K5 kernel step for step in torch, for tests at small sizes: of
+    the members whose member_ok is set, each is slab-tested only against
+    the warps of 32 lanes whose live lanes' interval summary K2's chain
+    passes (cull_einit_torch on the summaries); a member passes when a lane
+    of such a warp passes it. It must equal refine_window_torch. tally (a
+    dict, or None) gains the kernel's counters: "ok" (members with
+    member_ok), "tests" ((member, warp) summary tests) and "units" (those
+    that pass: the most units the kernel runs; it skips a member another
+    warp has passed already)."""
+    B, W = win_i.shape
+    G = BLOCK // 32
+    lv, o, iv, tmin, tlim, summ = _warp_lanes(o_soa, i_soa, lim)
+    tested = lv.any(2)[..., None] & member_ok[:, None, :]  # [B, G, W]
+    e = cull_einit_torch(summ.reshape(B * G, 16), cb6).reshape(B, G, -1)
+    unit = tested & torch.isfinite(torch.gather(e, 2, win_i.long()[:, None, :].expand(B, G, W)))
+    if tally is not None:
+        tally["ok"] = tally.get("ok", 0) + int(member_ok.sum())
+        tally["tests"] = tally.get("tests", 0) + int(tested.sum())
+        tally["units"] = tally.get("units", 0) + int(unit.sum())
+    out = torch.zeros((B, W), dtype=torch.int32, device=cb6.device)
+    for b in range(B):
+        g, w = torch.nonzero(unit[b], as_tuple=True)
+        if g.numel() == 0:
+            continue
+        near, far = _unit_slabs(cb6, win_i[b, w].long(), o[b, g], iv[b, g], tmin[b, g], tlim[b, g])
+        out[b].index_fill_(0, w[(near <= far).any(1)], 1)
+    return out
+
+
+def refine_window(cb6, win_i, member_ok, o_soa, i_soa, lim, counts=None):
     """K5 (replaces akari_render_tpu/accel/pairs.py::_refine_kernel, via
-    _refine; the interface of _refine): wb [B, 6, W], o_soa/i_soa [3, n],
-    lim [2, n] (tmin and the lane's current t-limit, -inf once occluded),
-    n = B * BLOCK -> [B, W] int32 any-lane-pass. W needs no padding."""
-    if _route("refine", wb):
-        return refine_torch(wb, o_soa, i_soa, lim)
-    dev = wb.device
-    B, W, n = wb.shape[0], wb.shape[2], o_soa.shape[1]
+    _refine, and the gather of the window's boxes in front of it): cb6
+    [6, K], win_i [B, W] int32 cluster ids (in [0, K) where member_ok),
+    member_ok [B, W] bool, o_soa/i_soa [3, n], lim [2, n] (tmin and the
+    lane's current t-limit, -inf once occluded), n = B * BLOCK -> [B, W]
+    int32: 1 where member_ok and any lane's slab interval overlaps the
+    member's box, as refine_window_torch gives it. counts (int32 [B, 3], or
+    None; the kernel only) receives each block's members with member_ok,
+    (member, warp) summary tests and units of 32 lanes' slab tests run."""
+    if _route("refine_window", cb6):
+        return refine_window_torch(cb6, win_i, member_ok, o_soa, i_soa, lim)
+    dev = cb6.device
+    K, n = cb6.shape[1], o_soa.shape[1]
+    B, W = win_i.shape
     if n != B * BLOCK:
-        raise ValueError("refine: lanes must be B * BLOCK")
-    wb = _check("refine wb", wb, dev, torch.float32, (B, 6, W))
-    o_soa = _check("refine o", o_soa, dev, torch.float32, (3, n))
-    i_soa = _check("refine inv_d", i_soa, dev, torch.float32, (3, n))
-    lim = _check("refine lim", lim, dev, torch.float32, (2, n))
+        raise ValueError("refine_window: lanes must be B * BLOCK")
+    cb6 = _check("refine_window cb6", cb6, dev, torch.float32, (6, K))
+    win_i = _check("refine_window win_i", win_i, dev, torch.int32, (B, W))
+    member_ok = _check("refine_window member_ok", member_ok, dev, torch.bool, (B, W))
+    o_soa = _check("refine_window o", o_soa, dev, torch.float32, (3, n))
+    i_soa = _check("refine_window inv_d", i_soa, dev, torch.float32, (3, n))
+    lim = _check("refine_window lim", lim, dev, torch.float32, (2, n))
+    if counts is not None:
+        counts = _check("refine_window counts", counts, dev, torch.int32, (B, 3))
     out = torch.empty((B, W), dtype=torch.int32, device=dev)
     if B * W:
-        _launch("akr_refine_window", _ptr(wb), _ptr(o_soa), _ptr(i_soa), _ptr(lim), _ptr(out),
-                B, W, BLOCK)
+        _launch("akr_refine_window", _ptr(cb6), _ptr(win_i), _ptr(member_ok), _ptr(o_soa),
+                _ptr(i_soa), _ptr(lim), _ptr(out), _ptr(counts), B, K, W, BLOCK)
         launches["K5"] += 1
     return out
 
@@ -947,7 +1025,7 @@ def windowed_walk(cl: ClusterArrays, s: SortedRays, e_con, any_hit: bool, maxc: 
     """The legacy windowed walk of intersect_pairs (AKR_PAIRS_STATIC=0) over
     K2's conservative entries e_con [B, K] -> best [4, n_pad]. Per round and
     live block: the next W = WINDOW_MULT * maxc members of its order, K5 on
-    their boxes against the lanes' current limits, the first maxc passing
+    their ids against the lanes' current limits, the first maxc passing
     members swept through the K4 kernel (their entries ascend, so its break
     at the horizon equals the TPU sweep's per-candidate skip), and the
     cursor moved past the last one swept, or past the window when all that
@@ -983,12 +1061,11 @@ def windowed_walk(cl: ClusterArrays, s: SortedRays, e_con, any_hit: bool, maxc: 
         idx = cursor[:, None] + posW[None, :]
         idx_c = torch.clamp(idx, max=K - 1)
         win_i = torch.gather(worder, 1, idx_c)  # [B, W] candidate ids
-        win_e = torch.where((idx < kcnt64[:, None]) & live[:, None],
-                            torch.gather(went, 1, idx_c), INF)
-        wb = cb6[:, win_i.long()].permute(1, 0, 2).contiguous()  # [B, 6, W]
+        member_ok = (idx < kcnt64[:, None]) & live[:, None]  # where the entry is finite
+        win_e = torch.where(member_ok, torch.gather(went, 1, idx_c), INF)
         lane_t1 = torch.where(best[1] >= 0.0, -INF, best[0]) if any_hit else best[0]
-        passed = refine(wb, s.o_soa, s.inv_soa, torch.stack([s.lim[0], lane_t1]))
-        nonzero = (passed > 0) & torch.isfinite(win_e)
+        nonzero = refine_window(cb6, win_i, member_ok, s.o_soa, s.inv_soa,
+                                torch.stack([s.lim[0], lane_t1])) > 0
 
         # the first maxc passing members are swept; failing members before
         # the cut are consumed without a test (no lane can hit them)

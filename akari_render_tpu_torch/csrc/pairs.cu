@@ -153,10 +153,74 @@ __device__ __forceinline__ void warp_append(bool p, T v, T* list, int* count) {
   if (p) list[pos] = v;
 }
 
-// One lane's slab entry into the chunk's cluster `cl` (refine_all_torch's
-// op order), as ordered bits, kNoEntry where it misses.
-__device__ __forceinline__ unsigned lane_entry(const float* s_box, int cl, const float* v) {
-  float near = -kInf, far = kInf;
+// This thread's lane of a ray block in registers, v = (o xyz, inverse
+// direction xyz, tmin, t-limit), and its warp's interval summary of the
+// live lanes in s_summ[warp * 16, +16) (K2's layout; [14] is 1 when the
+// warp has a live lane), written by the warp's lane 0. A lane whose tmin is
+// not at or below its t-limit (NaN limits among them) never passes a slab
+// test: its limits become +inf and -inf (near >= +inf > -inf >= far), and it
+// is left out of the summary. Returns whether the lane is live. The rays
+// must be finite (sort_rays makes them so). Shared by K3 and K5.
+__device__ __forceinline__ bool load_lane_summary(const float* __restrict__ o,
+                                                  const float* __restrict__ inv,
+                                                  const float* __restrict__ lim, int n, int64_t l,
+                                                  float* v, float* s_summ) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v[0] = o[l];
+  v[1] = o[n + l];
+  v[2] = o[2 * int64_t(n) + l];
+  v[3] = inv[l];
+  v[4] = inv[n + l];
+  v[5] = inv[2 * int64_t(n) + l];
+  v[6] = lim[l];
+  v[7] = lim[n + l];
+  const bool live = v[6] <= v[7];
+  if (!live) {
+    v[6] = kInf;
+    v[7] = -kInf;
+  }
+  float sm[14];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    sm[a] = live ? v[a] : kInf;
+    sm[3 + a] = live ? v[a] : -kInf;
+    sm[6 + a] = live ? v[3 + a] : kInf;
+    sm[9 + a] = live ? v[3 + a] : -kInf;
+  }
+  sm[12] = v[6];
+  sm[13] = v[7];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < 14; ++i) {
+      const float x = __shfl_xor_sync(akr::kFullWarp, sm[i], off);
+      sm[i] = (i < 3 || (i >= 6 && i < 9) || i == 12) ? fminf(sm[i], x) : fmaxf(sm[i], x);
+    }
+  }
+  const bool any_live = __any_sync(akr::kFullWarp, live);
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 14; ++i) s_summ[warp * 16 + i] = sm[i];
+    s_summ[warp * 16 + 14] = any_live ? 1.f : 0.f;
+  }
+  return live;
+}
+
+// The warps of the block with a live lane, as bits (after the barrier that
+// follows load_lane_summary).
+__device__ __forceinline__ unsigned live_warp_bits(const float* s_summ) {
+  unsigned bits = 0;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) bits |= (s_summ[g * 16 + 14] > 0.f ? 1u : 0u) << g;
+  return bits;
+}
+
+// One lane's slab test against the staged box `cl` of a [6][kRefineThreads]
+// chunk (refine_all_torch's and refine_torch's op order): whether its
+// [tmin, t-limit] interval overlaps the box, and its entry `near`.
+__device__ __forceinline__ bool lane_slab(const float* s_box, int cl, const float* v, float& near) {
+  near = -kInf;
+  float far = kInf;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float t0 = (s_box[a * kRefineThreads + cl] - v[a]) * v[3 + a];
@@ -166,7 +230,14 @@ __device__ __forceinline__ unsigned lane_entry(const float* s_box, int cl, const
   }
   near = fmaxf(near, v[6]);
   far = fminf(far, v[7]);
-  return near <= far ? akr::ordered_bits(near) : kNoEntry;
+  return near <= far;
+}
+
+// One lane's slab entry into the chunk's cluster `cl`, as ordered bits,
+// kNoEntry where it misses.
+__device__ __forceinline__ unsigned lane_entry(const float* s_box, int cl, const float* v) {
+  float near;
+  return lane_slab(s_box, cl, v, near) ? akr::ordered_bits(near) : kNoEntry;
 }
 
 __global__ void __launch_bounds__(kRefineThreads, 2)
@@ -188,47 +259,12 @@ refine_walk_kernel(const float* __restrict__ cb6, const float* __restrict__ o,
       g_keys ? g_keys + row
              : reinterpret_cast<unsigned long long*>(smem + refine_keys_offset(K));
 
-  // this thread's lane, and each warp's summary of its live lanes (K2's
-  // layout)
-  const int64_t l = int64_t(b) * kRefineThreads + tid;
-  float v[8] = {o[l], o[n + l], o[2 * int64_t(n) + l], inv[l], inv[n + l],
-                inv[2 * int64_t(n) + l], lim[l], lim[n + l]};
-  const bool live = v[6] <= v[7];
-  if (!live) {  // never passes: near >= +inf > -inf >= far
-    v[6] = kInf;
-    v[7] = -kInf;
-  }
-  {
-    float sm[14];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      sm[a] = live ? v[a] : kInf;
-      sm[3 + a] = live ? v[a] : -kInf;
-      sm[6 + a] = live ? v[3 + a] : kInf;
-      sm[9 + a] = live ? v[3 + a] : -kInf;
-    }
-    sm[12] = v[6];
-    sm[13] = v[7];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int i = 0; i < 14; ++i) {
-        const float x = __shfl_xor_sync(akr::kFullWarp, sm[i], off);
-        sm[i] = (i < 3 || (i >= 6 && i < 9) || i == 12) ? fminf(sm[i], x) : fmaxf(sm[i], x);
-      }
-    }
-    const bool any_live = __any_sync(akr::kFullWarp, live);
-    if (lane == 0) {
-#pragma unroll
-      for (int i = 0; i < 14; ++i) s_summ[warp * 16 + i] = sm[i];
-      s_summ[warp * 16 + 14] = any_live ? 1.f : 0.f;
-    }
-    if (tid < 4) s_count[tid] = 0;
-  }
+  // this thread's lane, and each warp's summary of its live lanes
+  float v[8];
+  load_lane_summary(o, inv, lim, n, int64_t(b) * kRefineThreads + tid, v, s_summ);
+  if (tid < 4) s_count[tid] = 0;
   __syncthreads();
-  unsigned live_warps = 0;
-#pragma unroll
-  for (int g = 0; g < kGroups; ++g) live_warps |= (s_summ[g * 16 + 14] > 0.f ? 1u : 0u) << g;
+  const unsigned live_warps = live_warp_bits(s_summ);
   const bool warp_live = (live_warps >> warp) & 1u;
   int n_tests = 0, n_units = 0;  // this warp's tally for `counts` (lane 0's)
 
@@ -350,61 +386,131 @@ size_t refine_walk_smem(int K) {
 }
 
 // ---------------------------------------------------------------------- K5
-// Replaces akari_render_tpu/accel/pairs.py::_refine_kernel (via _refine).
-// For one (ray block, tile of kRefineTile window members): 1 where any lane
-// of the block has a [tmin, t1] slab interval that overlaps the member's
-// box, else 0. wb is [B, 6, W] (min xyz | max xyz rows, W minor); lim row 1
+// Replaces akari_render_tpu/accel/pairs.py::_refine_kernel (via _refine),
+// with the gather of the window's boxes that feeds it: for one ray block
+// and each member of its window (a cluster id, win_i[b, w]) whose
+// member_ok is set, 1 where any lane's [tmin, t-limit] slab interval
+// overlaps the cluster's box, else 0; 0 where member_ok is clear. lim row 1
 // is the lane's current limit (its best t, -inf once occluded).
 //
-// Bound: FP32 ALU, 12 operations per lane x member until a lane passes
-// (the output is 0 or 1, so a member's loop ends at its first passing
-// lane), and the [B, 6, W] read. Design: the block's 512 lanes staged once
-// in shared memory (16 KB), one thread per window member reading each lane
-// as a broadcast, an OR over the lanes.
-constexpr int kRefineTile = 256;
-
-__global__ void __launch_bounds__(kRefineTile)
-window_refine_kernel(const float* __restrict__ wb, const float* __restrict__ o,
+// Bound: FP32 ALU, a slab test (12 operations) per lane and member that no
+// exact skip removes, and the ids, flags and output ([B, W]) with the
+// lanes' 8 floats. Run in full that is every lane against every member
+// that no lane passes (85 % of a window's members on classroom) in every
+// block, live or not, and the earlier kernel (one thread a member, the
+// block's lanes one after another, from a [B, 6, W] gather made before it)
+// did just that. What the design does:
+// 1. Members by id. A block reads its members' flags first and returns at
+//    once when none is set: the blocks that the walk has finished (most of
+//    them after the first rounds) cost one row of flags. The boxes of a
+//    chunk of 512 members are gathered from cb6 (4,633 x 6 floats, held in
+//    L2) into shared memory; no [B, 6, W] array exists.
+// 2. K3's exact skip. Each of the block's 16 warps holds its 32 lanes in
+//    registers and an interval summary of its live lanes
+//    (load_lane_summary). A warp tests its summary against the chunk's
+//    members (a lane a member) with K2's chain (interval_entry: a lane that
+//    passes a box passes it on the summary, by monotone rounding), and runs
+//    its lanes' slab tests only on the members that pass, two at a time.
+// 3. The first lane that passes ends a member. A member's flag is one bit
+//    of a word a warp of members in shared memory, set by atomicOr; a warp
+//    drops the members other warps have passed before it tests them. OR is
+//    exact and commutes, so the result does not depend on the warps' order;
+//    the counters of units run do.
+// kStats adds each block's counters into counts[b]: members with member_ok,
+// (member, warp) summary tests, units of 32 slab tests run.
+template <bool kStats>
+__global__ void __launch_bounds__(kRefineThreads, 2)
+window_refine_kernel(const float* __restrict__ cb6, const int32_t* __restrict__ win_i,
+                     const uint8_t* __restrict__ member_ok, const float* __restrict__ o,
                      const float* __restrict__ inv, const float* __restrict__ lim,
-                     int32_t* __restrict__ out, int W, int n, int block_lanes) {
-  extern __shared__ float s_lane[];  // [8][block_lanes]: o xyz, inv xyz, tmin, t1
-  const int b = blockIdx.y;
-  const int w = blockIdx.x * kRefineTile + threadIdx.x;
-  const int64_t lane0 = int64_t(b) * block_lanes;
-  for (int i = threadIdx.x; i < block_lanes; i += kRefineTile) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      s_lane[a * block_lanes + i] = o[a * int64_t(n) + lane0 + i];
-      s_lane[(3 + a) * block_lanes + i] = inv[a * int64_t(n) + lane0 + i];
-    }
-    s_lane[6 * block_lanes + i] = lim[lane0 + i];
-    s_lane[7 * block_lanes + i] = lim[int64_t(n) + lane0 + i];
+                     int32_t* __restrict__ out, int32_t* __restrict__ counts, int K, int W,
+                     int n) {
+  __shared__ float s_summ[16 * kGroups];
+  __shared__ float s_box[6 * kRefineThreads];
+  __shared__ unsigned s_cand[kGroups];    // the chunk's members with member_ok, a word a warp
+  __shared__ unsigned s_passed[kGroups];  // ... that a lane passes
+  __shared__ int s_count[3];
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t row = int64_t(b) * W;
+
+  bool any = false;
+  for (int w = tid; w < W; w += kRefineThreads) any |= member_ok[row + w] != 0;
+  if (!__syncthreads_or(any)) {  // a block the walk has finished, or one with no member left
+    for (int w = tid; w < W; w += kRefineThreads) out[row + w] = 0;
+    if (kStats && tid < 3) counts[3 * int64_t(b) + tid] = 0;
+    return;
   }
+  float v[8];
+  load_lane_summary(o, inv, lim, n, int64_t(b) * kRefineThreads + tid, v, s_summ);
+  if (kStats && tid < 3) s_count[tid] = 0;
   __syncthreads();
-  if (w >= W) return;
-  float bmin[3], bmax[3];
+  const bool warp_live = (live_warp_bits(s_summ) >> warp) & 1u;
+  int n_ok = 0, n_tests = 0, n_units = 0;  // this warp's tally (lane 0's)
+  const volatile unsigned* passed_now = s_passed;
+
+  for (int c0 = 0; c0 < W; c0 += kRefineThreads) {
+    const int w = c0 + tid;
+    const bool ok = w < W && member_ok[row + w] != 0;
+    const unsigned word = __ballot_sync(akr::kFullWarp, ok);
+    if (ok) {
+      const int id = win_i[row + w];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    bmin[a] = wb[(int64_t(b) * 6 + a) * W + w];
-    bmax[a] = wb[(int64_t(b) * 6 + 3 + a) * W + w];
-  }
-  int pass = 0;
-  for (int l = 0; l < block_lanes && !pass; ++l) {
-    float near = -kInf, far = kInf;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float oa = s_lane[a * block_lanes + l];
-      const float ia = s_lane[(3 + a) * block_lanes + l];
-      const float t0 = (bmin[a] - oa) * ia;
-      const float t1 = (bmax[a] - oa) * ia;
-      near = fmaxf(near, fminf(t0, t1));
-      far = fminf(far, fmaxf(t0, t1));
+      for (int a = 0; a < 6; ++a) s_box[a * kRefineThreads + tid] = cb6[int64_t(a) * K + id];
     }
-    near = fmaxf(near, s_lane[6 * block_lanes + l]);
-    far = fminf(far, s_lane[7 * block_lanes + l]);
-    pass = near <= far;
+    if (lane == 0) {
+      s_cand[warp] = word;
+      s_passed[warp] = 0u;
+    }
+    n_ok += __popc(word);
+    __syncthreads();
+    if (warp_live) {
+      for (int r = 0; r < kGroups; ++r) {
+        const unsigned cw = s_cand[r];
+        if (!cw) continue;
+        bool p = false;
+        if ((cw >> lane) & 1u) {
+          const int m = r * 32 + lane;
+          float bmin[3], bmax[3];
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            bmin[a] = s_box[a * kRefineThreads + m];
+            bmax[a] = s_box[(3 + a) * kRefineThreads + m];
+          }
+          p = interval_entry(s_summ + warp * 16, bmin, bmax) < kInf;
+        }
+        unsigned pass = __ballot_sync(akr::kFullWarp, p);
+        n_tests += __popc(cw);
+        while (true) {
+          // lane 0's read of the members passed so far, the same in every lane
+          pass &= ~__shfl_sync(akr::kFullWarp, unsigned(passed_now[r]), 0);
+          if (!pass) break;
+          const int m0 = __ffs(pass) - 1;
+          pass &= pass - 1u;
+          const int m1 = pass ? __ffs(pass) - 1 : m0;  // two at a time: independent chains
+          pass &= pass - 1u;
+          float near;
+          const bool h0 = __any_sync(akr::kFullWarp, lane_slab(s_box, r * 32 + m0, v, near));
+          const bool h1 = __any_sync(akr::kFullWarp, lane_slab(s_box, r * 32 + m1, v, near));
+          n_units += m1 != m0 ? 2 : 1;
+          if (lane == 0 && (h0 || h1))
+            atomicOr(s_passed + r, (h0 ? 1u << m0 : 0u) | (h1 ? 1u << m1 : 0u));
+        }
+      }
+    }
+    // every flag of the chunk is set; a warp's words are written again only
+    // by its own lane 0, in the next chunk, after its lanes read them here
+    __syncthreads();
+    if (w < W) out[row + w] = ok ? int32_t((s_passed[warp] >> lane) & 1u) : 0;
   }
-  out[int64_t(b) * W + w] = pass;
+  if (kStats) {
+    if (lane == 0) {
+      atomicAdd(s_count, n_ok);
+      atomicAdd(s_count + 1, n_tests);
+      atomicAdd(s_count + 2, n_units);
+    }
+    __syncthreads();
+    if (tid < 3) counts[3 * int64_t(b) + tid] = s_count[tid];
+  }
 }
 
 // ---------------------------------------------------------------------- K4
@@ -563,16 +669,20 @@ extern "C" int akr_refine_walk(const float* cb6, const float* o, const float* in
 // The clusters above which akr_refine_walk takes a global key scratch.
 extern "C" int akr_refine_walk_keys() { return kKeysSmem; }
 
-// K5: wb [B, 6, W], o / inv [3, n], lim [2, n] -> out [B, W] int32,
-// n = B * block_lanes.
-extern "C" int akr_refine_window(const float* wb, const float* o, const float* inv,
-                                 const float* lim, int32_t* out, int B, int W, int block_lanes,
+// K5: cb6 [6, K], win_i [B, W] int32 (cluster ids; read where member_ok),
+// member_ok [B, W] bool, o / inv [3, n], lim [2, n] -> out [B, W] int32,
+// n = B * block_lanes (512). counts (or null: the kernel without counters):
+// [B, 3] int32, each block's members with member_ok, (member, warp)
+// summary tests and units of 32 slab tests run.
+extern "C" int akr_refine_window(const float* cb6, const int32_t* win_i, const uint8_t* member_ok,
+                                 const float* o, const float* inv, const float* lim, int32_t* out,
+                                 int32_t* counts, int B, int K, int W, int block_lanes,
                                  void* stream) {
   if (B <= 0 || W <= 0) return 0;
-  const dim3 grid((W + kRefineTile - 1) / kRefineTile, B);
-  const size_t smem = size_t(8) * block_lanes * sizeof(float);
-  window_refine_kernel<<<grid, kRefineTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      wb, o, inv, lim, out, W, B * block_lanes, block_lanes);
+  if (block_lanes != kRefineThreads) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = counts ? window_refine_kernel<true> : window_refine_kernel<false>;
+  kernel<<<B, kRefineThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      cb6, win_i, member_ok, o, inv, lim, out, counts, K, W, B * block_lanes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -613,12 +723,11 @@ extern "C" int akr_sweep(const int32_t* worder, const float* went, const int32_t
 // candidate, block_lanes lanes a block and, for K3, K clusters: out is a
 // host array [4][6] (akr::kernel_info's layout).
 extern "C" int akr_pairs_kernel_info(int32_t* out, int C, int block_lanes, int K) {
-  const size_t refine_smem = size_t(8) * block_lanes * sizeof(float);
   cudaError_t err = akr::kernel_info(cull_kernel, kCullThreads, 0, out);
   if (err == cudaSuccess)
     err = akr::kernel_info(refine_walk_kernel, kRefineThreads, refine_walk_smem(K), out + 6);
   if (err == cudaSuccess)
-    err = akr::kernel_info(window_refine_kernel, kRefineTile, refine_smem, out + 12);
+    err = akr::kernel_info(window_refine_kernel<false>, kRefineThreads, 0, out + 12);
   if (err == cudaSuccess)
     err = akr::kernel_info(sweep_kernel<false>, block_lanes, sweep_smem(C, block_lanes),
                            out + 18);

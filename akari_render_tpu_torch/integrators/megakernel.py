@@ -4,7 +4,11 @@ akari_render_tpu/integrators/megakernel.py).
 One thread per pixel carries its paths through camera generation, every
 bounce, next-event estimation and film accumulation, for all samples of a
 pass, with the scene's tables in shared memory (csrc/megakernel.cu). It is
-the reference renderer's own CUDA design (pt.rs:1075-1103).
+the reference renderer's own CUDA design (pt.rs:1075-1103). The kernel
+regenerates paths: a lane whose path ends starts its next sample in the
+next iteration of one loop, so a warp runs as long as its busiest lane's
+pass, not as its longest path of each sample; the samples of a pixel are
+still taken and summed in order, so the result is the plain version's.
 
 Scope, as in the JAX package (`megakernel_eligible`): flat-tier scenes of at
 most 512 triangles, constant emission, at least one light, NEE on, the
@@ -246,11 +250,26 @@ def _fetch_si(attr, tri, b0, b1):
     return (p, ng, ns, r[:, 12], r[:, 38].to(torch.int64), r[:, 39].to(torch.int64), r[:, 40])
 
 
-def megakernel_pass_torch(tb: PassTables, s0: int, spp: int, rays=None):
+def _warp_max(x):
+    """Each warp's (32 consecutive pixels, as the kernel's blocks of 128
+    threads hold them) largest entry of x [npix]."""
+    pad = -x.shape[0] % 32
+    if pad:
+        x = torch.cat([x, torch.zeros(pad, dtype=x.dtype, device=x.device)])
+    return x.reshape(-1, 32).amax(dim=1)
+
+
+def megakernel_pass_torch(tb: PassTables, s0: int, spp: int, rays=None, simt=None):
     """The plain version of K8: `spp` samples of every pixel, starting at
     sample index s0 -> [4, npix] (RGB sums and filter-weight sums). `rays`
     (an int64 [2] tensor, or None) gains the closest-hit and shadow rays
-    traced, the count the kernel's FP32 bound is computed from."""
+    traced, the count the kernel's FP32 bound is computed from. `simt` (an
+    int64 [5] tensor, or None) gains what the kernel's SIMT counters count,
+    from each path's closest-hit rays (its loop iterations): the iterations
+    the kernel's warps run (each warp's busiest lane's sum over samples), the
+    iterations their lanes use, and the iterations the warps would run with
+    the samples in lockstep (the sum over samples of a warp's longest path);
+    simt[3] and simt[4] take the most one warp runs in either schedule."""
     dev = tb.attr.device
     npix = tb.npix
     cam = [float(x) for x in tb.cam.cpu().tolist()]
@@ -262,6 +281,8 @@ def megakernel_pass_torch(tb: PassTables, s0: int, spp: int, rays=None):
     radius = float(np.float32(tb.filter_radius))
     acc = torch.zeros((4, npix), dtype=torch.float32, device=dev)
     n_rays = torch.zeros(2, dtype=torch.int64, device=dev)
+    lane_iters = torch.zeros(npix, dtype=torch.int64, device=dev)
+    lockstep = torch.zeros((npix + 31) // 32, dtype=torch.int64, device=dev)  # per warp
     L = tb.lsel.shape[1]
     none = torch.full((npix,), -1, dtype=torch.int64, device=dev)
 
@@ -293,6 +314,7 @@ def megakernel_pass_torch(tb: PassTables, s0: int, spp: int, rays=None):
         base = [torch.zeros(npix, device=dev) for _ in range(3)]
         active = torch.ones(npix, dtype=torch.bool, device=dev)
         prev_pdf = torch.zeros(npix, device=dev)
+        path_len = torch.zeros(npix, dtype=torch.int64, device=dev)
 
         def add_emission(depth, hit, o, d, active):
             t, tri, b0, b1, got = hit
@@ -314,6 +336,7 @@ def megakernel_pass_torch(tb: PassTables, s0: int, spp: int, rays=None):
         def trace(o, d, excl, active):
             if rays is not None:
                 n_rays[0] += active.sum()
+            path_len.add_(active.to(torch.int64))
             return _mt_sweep(tb.attr, *o, *d, torch.where(active, RAY_TMAX, -1.0), excl, none,
                              False)
 
@@ -413,8 +436,14 @@ def megakernel_pass_torch(tb: PassTables, s0: int, spp: int, rays=None):
                 v = base[i] + torch.clamp(v - base[i], max=tb.clamp_indirect)
             acc[i] += torch.where(torch.isfinite(v), v, 0.0)
         acc[3] += 1.0
+        lane_iters += path_len
+        lockstep += _warp_max(path_len)
     if rays is not None:
         rays += n_rays
+    if simt is not None:
+        ran = _warp_max(lane_iters)
+        simt[:3] += torch.stack([ran.sum(), lane_iters.sum(), lockstep.sum()])
+        simt[3:] = torch.maximum(simt[3:], torch.stack([ran.max(), lockstep.max()]))
     return acc
 
 
@@ -434,7 +463,7 @@ def build() -> ctypes.CDLL:
             [vp, ci, vp, ci, vp, vp, ci, vp, ci, vp, vp]  # tables, camera
             + [ci, ci, ci, ci, cu]  # width, npix, s0, spp, scramble
             + [ci, ci, cf, ci, cf, cf, ci, ci]  # depth, rr, clamp, gauss, radius, sigma, spec, metal
-            + [vp, vp, vp])  # out, rays, stream
+            + [vp, vp, vp, vp])  # out, rays, simt, stream
         lib.akr_megakernel.restype = ci
         lib.akr_megakernel_kernel_info.argtypes = [vp] + [ci] * 6
         lib.akr_megakernel_kernel_info.restype = ci
@@ -454,14 +483,16 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(0)
 
 
-def megakernel_pass(tb: PassTables, s0: int, spp: int, rays=None):
+def megakernel_pass(tb: PassTables, s0: int, spp: int, rays=None, simt=None):
     """K8 (replaces akari_render_tpu/integrators/megakernel.py::kernel, via
     run_pass): one pass of `spp` samples per pixel -> [4, npix]. CPU tables
-    take the plain version; CUDA tables launch the kernel or raise."""
+    take the plain version; CUDA tables launch the kernel or raise. rays
+    and simt as megakernel_pass_torch takes them (the kernel counts simt
+    itself, as it runs)."""
     global launches
     dev = tb.attr.device
     if dev.type == "cpu":
-        return megakernel_pass_torch(tb, s0, spp, rays)
+        return megakernel_pass_torch(tb, s0, spp, rays, simt)
     if dev.type != "cuda":
         raise ValueError(f"megakernel_pass: unsupported device {dev}")
     T, M, L, S = tb.attr.shape[0], tb.ce.shape[0], tb.lsel.shape[1], tb.ltab.shape[1]
@@ -474,8 +505,11 @@ def megakernel_pass(tb: PassTables, s0: int, spp: int, rays=None):
             raise ValueError(f"megakernel_pass: {name} must be contiguous float32 {shape} on {dev}")
     if T > MAX_TRIS or L < 1:
         raise ValueError("megakernel_pass: needs 1 to 512 triangles and a light")
-    if rays is not None and (rays.device != dev or rays.dtype != torch.int64 or rays.numel() != 2):
-        raise ValueError("megakernel_pass: rays must be an int64 [2] tensor on the device")
+    for name, x, n in (("rays", rays, 2), ("simt", simt, 5)):
+        if x is not None and (x.device != dev or x.dtype != torch.int64 or x.numel() != n
+                              or not x.is_contiguous()):
+            raise ValueError(f"megakernel_pass: {name} must be a contiguous int64 [{n}] tensor "
+                             "on the device")
     out = torch.empty((4, tb.npix), dtype=torch.float32, device=dev)
     lib = build()
     with torch.cuda.device(dev):
@@ -485,7 +519,8 @@ def megakernel_pass(tb: PassTables, s0: int, spp: int, rays=None):
             _ptr(tb.mat), _ptr(tb.cam), tb.width, tb.npix, s0, spp, tb.scramble,
             tb.max_depth, tb.rr_depth, tb.clamp_indirect, int(tb.gaussian),
             float(np.float32(tb.filter_radius)), float(np.float32(tb.filter_radius / 3.0)),
-            int(tb.has_spec), int(tb.has_metal), _ptr(out), _ptr(rays), ctypes.c_void_p(stream))
+            int(tb.has_spec), int(tb.has_metal), _ptr(out), _ptr(rays), _ptr(simt),
+            ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     launches += 1

@@ -43,10 +43,12 @@ Phases (any failure exits non-zero; nothing is caught):
 11. K9 parity: the live lanes of the first bounce of a path-B sample of
    blinds 256x256 (the main path's inputs), and 2^18 lanes of seeded
    blinds shade inputs, kernel against its plain version, with CUDA event
-   timings at both;
+   timings and the profiler's device time at both;
 12. K8 parity: blinds 256x256, 16 spp, d12 (one pass of the main path),
-   the kernel pass against its plain version per pixel and on the rays
-   each traced, with the time of each;
+   the kernel pass against its plain version, bit-equal per pixel and on
+   the rays each traced, with the time of each, and its warps' SIMT efficiency with
+   path regeneration and with the samples in lockstep (its counters, held
+   against the plain version's count);
 13. fused-tier correctness: blinds 64x64, 16 spp, d12 through the CLI with
    AKR_MEGAKERNEL=1 (path A) and with AKR_PALLAS_SHADE=1 (path B), each
    held against the committed JAX image of its tier
@@ -69,24 +71,33 @@ Phases (any failure exits non-zero; nothing is caught):
    bit-equal; the wide walk and the windowed
    walk against the static pair sweep (valid and t bit-equal; ids equal
    except on exact t ties, counted); K5 on the first round's window of that
-   windowed traversal against its plain version, bit-equal; CUDA event
-   timings and bounds, K7's counters and its time split between node steps
+   windowed traversal and on every round of the first three windowed
+   traversals of a classroom 1080p sample (camera rays, their shadow rays,
+   the first bounce) against its plain version, bit-equal, with
+   its counters; CUDA event timings (and the profiler's device time for
+   K5) and bounds, K7's counters and its time split between node steps
    and leaves (clock cycles inside the kernel, and a walk with the leaf
    test off);
 17. the other traversals' correctness: classroom 96x96, 16 spp, d12 through
    the CLI with AKR_WIDE=1 and with AKR_PAIRS_STATIC=0, each held to phase
    8's gates and against phase 8's image;
 18. the other traversals at full width: classroom 1920x1080, 1 spp, d12
-   through the CLI under each switch, with every kernel's launches counted
-   and the windowed walk's rounds, beside phase 9's default route.
+   through the CLI under each switch, with every kernel's launches counted,
+   every K5 and K7 launch timed and the windowed walk's rounds, beside
+   phase 9's default route.
 
 Each phase prints the seconds since the start when it ends. After the
 build it prints what the compiler gave every kernel (registers a thread,
 shared memory; K3 at classroom's 4,633 clusters, K8 and K9 at blinds'
 tables) and the blocks an SM keeps resident. Phases 5, 9 and 18 time
-every K1, K3, K4 and K7 launch of their renders with CUDA events and
-compute a bound of each from its own work (K3 from its counters; no other
-counters run in a render: bytes, node steps and box tests).
+every K1, K3, K4, K5 and K7 launch of their renders with CUDA events and
+compute a bound of each from its own work (K3 and K5 from their counters;
+no other counters run in a render: bytes, node steps and box tests). A
+kernel whose CUDA-event time a call is under SHORT_MS (K2, K9, K5 at
+2^18 rays, K1 on blinds) is also timed by the profiler's device records
+(device_ms): events around such a call measure how fast the host issues
+it, and the JSON line's `ms` is then the device time, `event_ms` the
+events'.
 
 Phase 7 also runs K6 (the K4 kernel with the early-out off, `pairs.sweep`)
 at classroom's shapes against its plain version; no main path calls it.
@@ -146,10 +157,6 @@ BLINDS_METHOD = ROOT / "scenes" / "blinds" / "pt.json"
 # and the fraction of lanes whose valid flag may differ
 K9_REL = 1e-5
 K9_VALID_FRAC = 1e-5
-# phase-12 tolerances: per pixel rtol / atol; a rounding flip of a path
-# decision may put at most K8_PIX_FRAC of the pixels outside them, with the
-# channel means then within K8_MEAN_REL
-K8_RTOL, K8_ATOL, K8_PIX_FRAC, K8_MEAN_REL = 1e-3, 2e-3, 0.01, 1e-3
 # the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32 outside
 # the tensor cores, and HBM bandwidth
 FP32_PEAK = 67e12
@@ -200,6 +207,79 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# a kernel whose CUDA-event time a call is below this is also timed by the
+# profiler's device records (device_ms): events around such a call measure
+# how fast the host issues it
+SHORT_MS = 0.1
+
+
+# the kernels pad_profiler_window launches
+PAD_LAUNCHES = 1024
+
+
+def pad_profiler_window():
+    """Launch PAD_LAUNCHES tiny kernels and wait: the first (and, in
+    device_events_per_call, the last) work of a profiler window. This torch
+    build loses a window's first and last device records (measured on the
+    card, phase 14's windows: 11-15 of the first in every window after the
+    earlier phases' windows, 17-203 of the last in some; before the pads 13
+    of 20 launches once, and a marker kernel), so the records that matter
+    lie between such pads."""
+    import torch
+
+    x = torch.empty(1, device="cuda")  # no kernel: only the adds are recorded
+    for _ in range(PAD_LAUNCHES):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device milliseconds of one launch of the kernel whose name holds
+    `kernel`, from torch.profiler's device records of runs of `reps` calls
+    of fn (one launch each): the kernel's own time. CUDA events around a
+    call of a short kernel measure the host instead (the wrapper's checks,
+    allocations and ctypes call). Each window starts padded
+    (pad_profiler_window); should records still be lost, windows are
+    repeated, up to five, until `reps` launches are recorded, and the mean
+    is over the launches recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    durs = []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad_profiler_window()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durs += [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA and kernel in e.name()]
+        if len(durs) >= reps:
+            break
+    check(len(durs) >= reps // 2,
+          f"the profiler recorded {len(durs)} launches of {kernel} in up to {5 * reps} calls")
+    return sum(durs) / len(durs) / 1e6
+
+
+def event_and_device_ms(fn, reps: int, kernel: str) -> dict:
+    """{"event_ms": CUDA events around `reps` calls, a call; "device_ms":
+    device_ms where the event time is below SHORT_MS, else None; "ms": the
+    device time where measured, else the event time}."""
+    ev = cuda_ms(fn, reps)
+    dev = device_ms(fn, reps, kernel) if ev < SHORT_MS else None
+    return {"ms": dev if dev is not None else ev, "event_ms": ev, "device_ms": dev}
+
+
+def times_text(t: dict) -> str:
+    """An event_and_device_ms result in words."""
+    if t["device_ms"] is None:
+        return f"{t['event_ms']:.4f} ms (CUDA events)"
+    return (f"{t['device_ms']:.4f} ms device time (profiler; CUDA events around the calls, the "
+            f"host's issue rate: {t['event_ms']:.4f} ms)")
 
 
 def timed(fn):
@@ -422,7 +502,8 @@ def k1_parity(scene, device):
     ms = cuda_ms(lambda: k1.intersect_tris(*args, tiles=tiles), 20)
     ms_any = cuda_ms(lambda: k1.intersect_tris(*args_any, any_hit=True, tiles=tiles), 20)
     plain_ms_any = cuda_ms(lambda: k1.intersect_tris_torch(*args_any, any_hit=True), 3)
-    blinds_ms = cuda_ms(lambda: k1.intersect_tris(*b_args, tiles=blinds.tiles), 20)
+    blinds_t = event_and_device_ms(lambda: k1.intersect_tris(*b_args, tiles=blinds.tiles), 20,
+                                   "flat_kernel")
     bound_ms, bound_by, full_ms = k1_bound(live, walked, stats, tiles, n, t_count)
     b_live = torch.full((B,), k1.BLOCK, device=device)
     blinds_bound = k1_bound(b_live, torch.ones(B, device=device), None, blinds.tiles, n,
@@ -435,8 +516,8 @@ def k1_parity(scene, device):
     print(f"K1 times at {n} rays x {t_count} tris: closest {ms:.4f} ms (plain {plain_ms:.4f} ms), "
           f"any hit {ms_any:.4f} ms (plain {plain_ms_any:.4f} ms); bound {bound_ms:.4f} ms by "
           f"{bound_by}; the full count (every lane x every triangle) would take {full_ms:.4f} ms; "
-          f"blinds ({blinds.num_tris} tris) {blinds_ms:.4f} ms (plain {blinds_plain_ms:.4f} ms, "
-          f"bound {blinds_bound[0]:.4f} ms by {blinds_bound[1]})", flush=True)
+          f"blinds ({blinds.num_tris} tris) {times_text(blinds_t)} (plain {blinds_plain_ms:.4f} "
+          f"ms, bound {blinds_bound[0]:.4f} ms by {blinds_bound[1]})", flush=True)
     return {
         "name": "K1 flat-tier Moller-Trumbore over box-tested tiles (closest hit)",
         "route": "cuda",
@@ -450,7 +531,8 @@ def k1_parity(scene, device):
         "library_ms": None,
         "full_count_ms": full_ms,
         "any_hit_ms": ms_any,
-        "blinds_ms": blinds_ms,
+        "blinds_ms": blinds_t["ms"],
+        "blinds_event_ms": blinds_t["event_ms"],
     }
 
 
@@ -786,6 +868,109 @@ def k3_render_sample(scene, device):
     return out
 
 
+def k5_work(args, counts, passed):
+    """What one K5 launch's bound needs, as device tensors (no host read):
+    (B, W, its counters summed [3]: members set, (member, warp) summary
+    tests, units run; the blocks with a member set; the full count's slab
+    tests: one for a member a lane passes, one per live lane for a member
+    set that none passes)."""
+    from akari_render_tpu_torch.accel import pairs
+
+    _, win_i, ok, _, _, lim = args
+    B, W = win_i.shape
+    live = (lim[0] <= lim[1]).reshape(B, pairs.BLOCK).sum(1).double()
+    fails = (ok & (passed == 0)).sum(1).double()
+    full = passed.double().sum() + (fails * live).sum()
+    return B, W, counts.double().sum(0), (counts[:, 0] > 0).sum(), full
+
+
+def k5_bound(B, W, counts, blocks, full):
+    """(bound ms, by, full-count ms) of one K5 launch (k5_work's
+    arguments): K2's chain (36 operations) per (member, warp) summary test
+    and a slab test (12) per lane of a unit run, from its counters, against
+    the bytes (every member's flag and result, 5 B; the id and box of each
+    member set, 28 B; the 8 floats of the lanes of each block with a member
+    set). The full count: 12 per slab test of k5_work's (every live lane
+    against every member set, each member's lanes in turn up to the first
+    that passes: no summary skip)."""
+    from akari_render_tpu_torch.accel import pairs
+
+    nbytes = 5.0 * B * W + 28.0 * float(counts[0]) + 32.0 * pairs.BLOCK * float(blocks)
+    b_ms, b_by = bound(36.0 * float(counts[1]) + 12.0 * 32 * float(counts[2]), nbytes)
+    return b_ms, b_by, bound(12.0 * float(full), 0.0)[0]
+
+
+class _TraversalDone(Exception):
+    """Ends a render after its first traversals (k5_render_traversal)."""
+
+
+def k5_render_traversal(scene, device, traversals: int = 3):
+    """Every round of the first `traversals` traversals of one classroom
+    1080p sample by the windowed walk (phase 18's route, outside the CLI:
+    the camera rays, their shadow rays by any hit, the first bounce's
+    rays): K5 with its counters, timed by CUDA events, against its plain
+    version on the same window, bit-equal. Returns the rounds' numbers."""
+    import torch
+
+    from akari_render_tpu_torch.accel import pairs
+    from akari_render_tpu_torch.config import RenderTask
+    from akari_render_tpu_torch.core.filters import filter_from_config
+    from akari_render_tpu_torch.integrators.common import PTSettings
+    from akari_render_tpu_torch.integrators.pt import render_sample
+
+    task = RenderTask.from_file(CLASSROOM_METHOD)
+    m = task.method
+    settings = PTSettings(max_depth=m.max_depth, rr_depth=m.rr_depth, use_nee=m.use_nee,
+                          clamp_indirect=m.clamp_indirect)
+    real_k5, real_walk, rec, walks = pairs.refine_window, pairs.windowed_walk, [], []
+
+    def k5(*a):
+        counts = torch.zeros((a[1].shape[0], 3), dtype=torch.int32, device=a[1].device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_k5(*a, counts=counts)
+        ev[1].record()
+        want = pairs.refine_window_torch(*a)
+        check(torch.equal(out, want),
+              f"K5 differs from its plain version in round {len(rec)} of a 1080p traversal")
+        rec.append((ev, k5_work(a, counts, out), int(out.sum())))
+        return out
+
+    def walk(*a, **kw):
+        out = real_walk(*a, **kw)
+        walks.append(len(rec))
+        if len(walks) == traversals:
+            raise _TraversalDone
+        return out
+
+    pairs.refine_window, pairs.windowed_walk = k5, walk
+    try:
+        with env_switch(AKR_PAIRS_STATIC="0"):
+            render_sample(scene, settings, filter_from_config(task.filter_config), 0, task.seed,
+                          task.sampler)
+        fail(f"the windowed 1080p sample made fewer than {traversals} traversals")
+    except _TraversalDone:
+        pass
+    finally:
+        pairs.refine_window, pairs.windowed_walk = real_k5, real_walk
+    torch.cuda.synchronize()
+    ms = [e[0].elapsed_time(e[1]) for e, _, _ in rec]
+    bounds = [k5_bound(*w) for _, w, _ in rec]
+    per = "; ".join(f"{t:.4f} ({int(w[3])} blocks, {int(w[2][0])} members set, {n} passed, "
+                    f"{int(w[2][1])} summary tests, {int(w[2][2])} units; bound {b[0]:.4f})"
+                    for t, (_, w, n), b in zip(ms, rec, bounds))
+    out = {"rounds": len(rec), "ms": sum(ms) / len(ms), "ms_min": min(ms), "ms_max": max(ms),
+           "bound_ms": sum(b[0] for b in bounds) / len(bounds),
+           "full_count_ms": sum(b[2] for b in bounds) / len(bounds)}
+    print(f"K5 on every round of the first {traversals} windowed traversals of a 1080p sample "
+          f"({len(rec)} rounds; the traversals end after rounds {walks}), bit-equal to its plain "
+          f"version on each: mean {out['ms']:.4f} ms (least "
+          f"{out['ms_min']:.4f}, most {out['ms_max']:.4f}; mean bound {out['bound_ms']:.4f}, "
+          f"full count {out['full_count_ms']:.4f}); each round's ms (live blocks, members set, "
+          f"passed, summary tests, units run; bound): {per}", flush=True)
+    return out
+
+
 def classroom_rays(scene, cl, device):
     """2^18 rays over classroom: a quarter 1080p camera rays, a quarter
     from interior points in random directions, half shadow segments between
@@ -935,9 +1120,9 @@ def pairs_parity(device):
     check(torch.equal(k6, k6_p), "K6 differs from its plain version")
 
     # the plain K3, K4 and K6 times are those of their parity calls above
+    k2_t = event_and_device_ms(lambda: pairs.cull_einit(s.summ, cb6), 20, "cull_kernel")
     ms = {
-        "K2": (cuda_ms(lambda: pairs.cull_einit(s.summ, cb6), 20),
-               cuda_ms(lambda: pairs.cull_einit_torch(s.summ, cb6), 3)),
+        "K2": (k2_t["ms"], cuda_ms(lambda: pairs.cull_einit_torch(s.summ, cb6), 3)),
         "K3": (cuda_ms(lambda: pairs.refine_walk(*k3_args), 20), plain_ms["K3"]),
         "K4": (cuda_ms(lambda: pairs.sweep_walk(*walk_args, boxes=boxes), 5), plain_ms["K4"]),
         "K6": (cuda_ms(lambda: pairs.sweep(*k6_args), 5), plain_ms["K6"]),
@@ -969,6 +1154,7 @@ def pairs_parity(device):
           f"({kc[1] / max(kc[0], 1):.4f} of the tests); walk length mean "
           f"{float(k3_order[2].float().mean()):.1f}; the sort half's PyTorch chain (walk_order: "
           f"stable argsort, gather, count) {library_ms['K3']:.4f} ms", flush=True)
+    print(f"K2 at classroom's shapes: {times_text(k2_t)}", flush=True)
     print("pair kernel times at classroom's shapes (closest-hit walk for K4): " + ", ".join(
         f"{k} {a:.4f} ms (plain {b:.4f} ms, bound {bounds[k][0]:.4f} ms by {bounds[k][1]})"
         for k, (a, b) in ms.items()) + f"; K4 tested {int(walked.sum())} candidates "
@@ -1022,6 +1208,7 @@ def pairs_parity(device):
                    "library_ms": library_ms.get(k)}
                for k in names}
     entries["K3"]["name"] = "K3 pair-sweep per-ray refine with the walk order"
+    entries["K2"]["event_ms"] = k2_t["event_ms"]
     entries["K3"]["render_sample"] = k3_render_sample(scene, device)
     for k, v in full_ms.items():
         entries[k]["full_count_ms"] = v
@@ -1048,13 +1235,14 @@ class windowed_rounds:
 
 class timed_walks:
     """For a block, time every launch of the pair sweep's refine and walk
-    order (K3), its walk (K4) and of the wide walk (K7) with CUDA events
-    (around the wrapper: its argument checks and the copy of `best` are
-    inside), and keep what each launch's bound needs: K3's counters, the
-    candidates, or nodes and leaves, each block reached, and its live
-    lanes. summary() gives, per kernel, the launches, the mean, least and
-    most milliseconds, the mean bound and the mean time the full count
-    would take. K3's counters cost one store a block; K4's and K7's do not
+    order (K3), its walk (K4), the windowed walk's window refine (K5) and
+    of the wide walk (K7) with CUDA events (around the wrapper: its argument
+    checks and the copy of `best` are inside), and keep what each launch's
+    bound needs: K3's and K5's counters, the candidates, or nodes and
+    leaves, each block reached, and its live lanes. summary() gives, per
+    kernel, the launches, the mean, least and most milliseconds, the mean
+    bound and the mean time the full count would take. K3's and K5's
+    counters cost a few stores a block; K4's and K7's do not
     run inside a render, so their bound counts the bytes, K7's node steps
     and the box tests (a box test per live lane and candidate reached) and
     leaves out the slots inside the boxes: it lies under the kernels'
@@ -1065,8 +1253,8 @@ class timed_walks:
 
         from akari_render_tpu_torch.accel import pairs, wide
 
-        self.real = (pairs.sweep_walk, wide.wide_walk, pairs.refine_walk)
-        self.records, self.k3 = [], []
+        self.real = (pairs.sweep_walk, wide.wide_walk, pairs.refine_walk, pairs.refine_window)
+        self.records, self.k3, self.k5 = [], [], []
 
         def refine_walk(*a, **kw):
             counts = torch.zeros((a[4].shape[0], 2), dtype=torch.int32, device=a[4].device)
@@ -1076,6 +1264,15 @@ class timed_walks:
             end.record()
             # keep the bound's inputs, not the [B, K] e_con (the render's peak memory)
             self.k3.append((start, end, k3_work(a[4], out[3], counts)))
+            return out
+
+        def refine_window(*a, **kw):
+            counts = torch.zeros((a[1].shape[0], 3), dtype=torch.int32, device=a[1].device)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real[3](*a, counts=counts, **kw)
+            end.record()
+            self.k5.append((start, end, k5_work(a, counts, out)))
             return out
 
         def run(kernel, fn, args, kw, reached, lim, tables):
@@ -1098,13 +1295,14 @@ class timed_walks:
             return run("K7", self.real[1], a, {**kw, "counts": counts}, counts, a[5],
                        (a[1], a[2], a[0]))
 
-        pairs.sweep_walk, wide.wide_walk, pairs.refine_walk = sweep_walk, wide_walk, refine_walk
+        pairs.sweep_walk, wide.wide_walk, pairs.refine_walk, pairs.refine_window = (
+            sweep_walk, wide_walk, refine_walk, refine_window)
         return self
 
     def __exit__(self, *exc):
         from akari_render_tpu_torch.accel import pairs, wide
 
-        pairs.sweep_walk, wide.wide_walk, pairs.refine_walk = self.real
+        pairs.sweep_walk, wide.wide_walk, pairs.refine_walk, pairs.refine_window = self.real
 
     def summary(self) -> dict:
         import torch
@@ -1128,12 +1326,13 @@ class timed_walks:
             rec["ms"].append(start.elapsed_time(end))
             rec["bound_ms"].append(bound(ops, nbytes)[0])
             rec["full_count_ms"].append(bound(full, 0.0)[0])
-        for start, end, work in self.k3:
-            b_ms, _, f_ms = k3_bound(*work)
-            rec = out.setdefault("K3", {"ms": [], "bound_ms": [], "full_count_ms": []})
-            rec["ms"].append(start.elapsed_time(end))
-            rec["bound_ms"].append(b_ms)
-            rec["full_count_ms"].append(f_ms)
+        for kernel, runs, bound_fn in (("K3", self.k3, k3_bound), ("K5", self.k5, k5_bound)):
+            for start, end, work in runs:
+                b_ms, _, f_ms = bound_fn(*work)
+                rec = out.setdefault(kernel, {"ms": [], "bound_ms": [], "full_count_ms": []})
+                rec["ms"].append(start.elapsed_time(end))
+                rec["bound_ms"].append(b_ms)
+                rec["full_count_ms"].append(f_ms)
 
         def mean(x):
             return sum(x) / len(x)
@@ -1186,8 +1385,9 @@ def classroom_correctness(device, traversal="pairs-static", base=None):
 
 def classroom_full_width(device, traversal="pairs-static"):
     """Phases 9 and 18: classroom 1920x1080 1 spp d12 through the CLI with
-    `traversal`, every kernel's launches counted around it and every K4 and
-    K7 launch timed. Returns the launch counts and timed_walks' summary."""
+    `traversal`, every kernel's launches counted around it and every K3,
+    K4, K5 and K7 launch timed. Returns the launch counts and timed_walks'
+    summary."""
     import numpy as np
     import torch
 
@@ -1224,7 +1424,7 @@ def classroom_full_width(device, traversal="pairs-static"):
     timings = walks.summary()
     for k, v in timings.items():
         check(v["launches"] == launches[k], f"{k}: {v['launches']} launches timed of {launches[k]}")
-        what = ("its counters and bytes" if k == "K3"
+        what = ("its counters and bytes" if k in ("K3", "K5")
                 else "bytes, node steps and box tests")
         print(f"{k} at this render's own shapes (CUDA events around each of its {v['launches']} "
               f"launches): mean {v['ms']:.4f} ms, least {v['ms_min']:.4f}, most {v['ms_max']:.4f}; "
@@ -1317,43 +1517,46 @@ def other_traversals_parity(ctx, device):
 
     # K5 on the first round's window of the windowed traversal of phase 7's
     # sorted blocks (exclusion ids do not reach it)
-    s7, calls, real_refine = ctx["sorted"], [], pairs.refine
+    s7, calls, real_k5 = ctx["sorted"], [], pairs.refine_window
 
     def capture(*args):
         if not calls:
             calls.append(tuple(a.clone() for a in args))
-        return real_refine(*args)
+        return real_k5(*args)
 
-    pairs.refine = capture
+    pairs.refine_window = capture
     try:
         pairs.windowed_walk(cl, s7, ctx["e_con"], False)
     finally:
-        pairs.refine = real_refine
+        pairs.refine_window = real_k5
     check(len(calls) == 1, "the windowed walk made no K5 call")
     k5_args = calls[0]
-    wb = k5_args[0]
-    W = wb.shape[2]
-    passed = pairs.refine(*k5_args)
-    passed_p, plain_ms_k5 = timed(lambda: pairs.refine_torch(*k5_args))
+    W = k5_args[1].shape[1]
+    k5_counts = torch.zeros((B, 3), dtype=torch.int32, device=device)
+    passed = pairs.refine_window(*k5_args, counts=k5_counts)
+    passed_p, plain_ms_k5 = timed(lambda: pairs.refine_window_torch(*k5_args))
     err_k5 = max_abs_diff(passed.float(), passed_p.float())
-    print(f"K5 parity on the first window of the windowed walk ({tuple(wb.shape)}): members "
-          f"that pass {float(passed.float().mean()):.4f}; max abs err {err_k5}", flush=True)
-    check(tuple(wb.shape) == (B, 6, pairs.MAXC * pairs.WINDOW_MULT), "K5's window shape")
+    kc = k5_counts.double().sum(0)
+    print(f"K5 parity on the first window of the windowed walk ({B} blocks x {W} members, "
+          f"{int(kc[0])} set): members that pass {int(passed.sum())}; (member, warp) summary "
+          f"tests {int(kc[1])}, units of 32 slab tests run {int(kc[2])}; max abs err {err_k5}",
+          flush=True)
+    check(W == pairs.MAXC * pairs.WINDOW_MULT, "K5's window shape")
     check(torch.equal(passed, passed_p), "K5 differs from its plain version")
+    check(torch.equal(pairs.refine_window(*k5_args), passed), "K5 with its counters differs")
+    k5_rounds = k5_render_traversal(ctx["scene"], device)
 
     ms_k7 = cuda_ms(lambda: wide.wide_walk(*walk_args(False), boxes=boxes), 5)
     ms_k7_any = cuda_ms(lambda: wide.wide_walk(*walk_args(True), boxes=boxes), 5)
     k7_stats = k7_probe(walk_args, boxes, got, got_any, counts, counts_any, ms_k7, device)
-    ms_k5 = cuda_ms(lambda: pairs.refine(*k5_args), 20)
+    k5_t = event_and_device_ms(lambda: pairs.refine_window(*k5_args), 20, "window_refine_kernel")
     # bounds. K7: per live lane 8 slab tests (12 operations each) a node
     # expanded and, a leaf tested, what the candidate test needs
     # (needed_ops, from the closest-hit walk's counters); the full count
     # takes every live lane against every slot of every leaf tested
     # instead; it reads each lane's 16 floats, the node table and the
     # triangle and transform tables once, and writes 4 floats a lane. K5:
-    # one slab test for a member that passes (the lane that passes), one
-    # per live lane for a member that fails; it reads the window and the
-    # lanes' 8 floats and writes an int a member.
+    # k5_bound, from its counters.
     live_w = (sw.lim[1] > sw.lim[0]).reshape(B, pairs.BLOCK).sum(1).double()
     table_bytes = (cl.tri.numel() + cl.wide.numel()
                    + (cl.xf.numel() if cl.xf is not None else 0)) * 4
@@ -1361,23 +1564,21 @@ def other_traversals_parity(ctx, device):
     ops_k7 = ops_nodes + needed_ops(counts[:, 1], live_w, k7_stats, C)
     b_k7 = bound(ops_k7, 80.0 * n + table_bytes)
     full_ms_k7 = bound(ops_nodes + full_count_ops(counts[:, 1], live_w, C), 0.0)[0]
-    live_7 = (k5_args[3][1] > k5_args[3][0]).reshape(B, pairs.BLOCK).sum(1).double()
-    ops_k5 = 12.0 * float(torch.where(passed > 0, 1.0, live_7[:, None]).sum())
-    b_k5 = bound(ops_k5, 4.0 * (7 * B * W + 8 * n))
+    b_k5 = k5_bound(*k5_work(k5_args, k5_counts, passed))
     print(f"K7 at classroom's shapes: closest hit {ms_k7:.4f} ms (plain {plain_ms:.4f} ms, bound "
           f"{b_k7[0]:.4f} ms by {b_k7[1]}: {ops_k7:.4g} FP32 operations, {ops_nodes:.4g} of them "
           f"in node steps; the full count would take {full_ms_k7:.4f} ms), any hit {ms_k7_any:.4f} "
           f"ms (plain, one leaf a round, on a quarter of the blocks {plain_ms_any:.4f} ms); K5 "
-          f"{ms_k5:.4f} ms (plain "
-          f"{plain_ms_k5:.4f} ms, bound {b_k5[0]:.4f} ms by {b_k5[1]}: {ops_k5:.4g} FP32 "
-          f"operations)", flush=True)
+          f"{times_text(k5_t)} (plain {plain_ms_k5:.4f} ms, bound {b_k5[0]:.4f} ms by "
+          f"{b_k5[1]}; the full count would take {b_k5[2]:.4f} ms)", flush=True)
     common = {"route": "cuda", "launches": 0, "library_ms": None}
     return {
         "K5": {"name": "K5 windowed walk's window refine",
                "source": "akari_render_tpu_torch/csrc/pairs.cu",
                "replaces": "akari_render_tpu/accel/pairs.py:267", "max_abs_err": err_k5,
-               "ms": ms_k5, "plain_ms": plain_ms_k5, "bound_ms": b_k5[0], "bound_by": b_k5[1],
-               **common},
+               "ms": k5_t["ms"], "event_ms": k5_t["event_ms"], "plain_ms": plain_ms_k5,
+               "bound_ms": b_k5[0], "bound_by": b_k5[1], "full_count_ms": b_k5[2],
+               "render_traversal": k5_rounds, **common},
         "K7": {"name": "K7 wide-BVH walk (with the leaf test)",
                "source": "akari_render_tpu_torch/csrc/wide.cu",
                "replaces": "akari_render_tpu/accel/wide.py:187", "max_abs_err": err_k7,
@@ -1500,19 +1701,19 @@ def k9_check(label: str, args) -> dict:
         max_abs = max(max_abs, max_abs_diff(g, w))
         diff = torch.where(g == w, 0.0, torch.abs(g - w) / torch.clamp(torch.abs(w), min=1e-30))
         max_rel = max(max_rel, float(torch.nan_to_num(diff, nan=float("inf")).max()))
-    ms = cuda_ms(lambda: fs.fused_shade(*args), 20)
+    t = event_and_device_ms(lambda: fs.fused_shade(*args), 20, "fused_shade_kernel")
     plain_ms = cuda_ms(lambda: fs.fused_shade_torch(*args), 3)
     # 26 values in (104 B) and 13 floats plus a bool out (53 B) per lane,
     # the material table once
     bound_ms, bound_by = bound(0.0, lanes * 157.0 + args[0][0].numel() * 4)
     print(f"K9 parity on {label} ({lanes} lanes): valid "
           f"{float(want['valid'].float().mean()):.4f}, valid mismatches {valid_mis}, max rel err "
-          f"{max_rel:.3g}, max abs err {max_abs:.3g}; kernel {ms:.4f} ms (plain {plain_ms:.4f} "
+          f"{max_rel:.3g}, max abs err {max_abs:.3g}; kernel {times_text(t)} (plain {plain_ms:.4f} "
           f"ms, bound {bound_ms:.4f} ms by {bound_by})", flush=True)
     check(valid_mis <= K9_VALID_FRAC * lanes, f"K9 valid differs on {valid_mis} lanes")
     check(max_rel <= K9_REL, f"K9 disagrees with its plain version on {label}")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    return {"max_abs_err": max_abs, "ms": t["ms"], "event_ms": t["event_ms"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def k9_parity(device):
@@ -1550,8 +1751,13 @@ def k9_parity(device):
 
 def k8_parity(device):
     """Phase 12: one K8 pass of the main path (blinds 256^2, 16 spp, d12)
-    against its plain version per pixel and on the rays each traced, with
-    the time of each. Returns the kernel's JSON entry."""
+    against its plain version, bit-equal per pixel and on the rays each
+    traced, with
+    the time of each, and the SIMT efficiency of its warps' loop (the
+    kernel's counters, which must equal the plain version's count from its
+    paths): as it runs, with path regeneration, and as it would run with
+    the samples in lockstep, the loop of the kernel before regeneration.
+    Returns the kernel's JSON entry."""
     import torch
 
     from akari_render_tpu_torch.integrators import megakernel as mk
@@ -1561,24 +1767,29 @@ def k8_parity(device):
           "blinds must be megakernel-eligible")
     tb = mk.pass_tables(scene, settings, filt, task.seed)
     spp = task.method.spp_per_pass
-    rk = torch.zeros(2, dtype=torch.int64, device=device)
-    rp = torch.zeros(2, dtype=torch.int64, device=device)
-    got = mk.megakernel_pass(tb, 0, spp, rk)
-    want, plain_ms = timed(lambda: mk.megakernel_pass_torch(tb, 0, spp, rp))
-    diff = torch.abs(got - want)
-    bad = (diff > K8_ATOL + K8_RTOL * torch.abs(want)).any(0)
-    bad_frac = float(bad.float().mean())
-    mean_rel = float((torch.abs(got[:3].mean(1) - want[:3].mean(1))
-                      / torch.abs(want[:3].mean(1))).max())
+    rk, rp = (torch.zeros(2, dtype=torch.int64, device=device) for _ in range(2))
+    sk, sp = (torch.zeros(5, dtype=torch.int64, device=device) for _ in range(2))
+    got = mk.megakernel_pass(tb, 0, spp, rk, sk)
+    want, plain_ms = timed(lambda: mk.megakernel_pass_torch(tb, 0, spp, rp, sp))
     max_abs = max_abs_diff(got, want)
-    print(f"K8 parity at {tb.width}^2 {spp} spp d{tb.max_depth}: pixels outside rtol {K8_RTOL} "
-          f"atol {K8_ATOL}: {int(bad.sum())} ({bad_frac:.3g}), channel means within "
-          f"{mean_rel:.3g}, max abs err {max_abs:.3g}; rays traced kernel {rk.tolist()} plain "
-          f"{rp.tolist()} (closest, shadow)", flush=True)
+    n_diff = int((got != want).any(0).sum())
+    print(f"K8 parity at {tb.width}^2 {spp} spp d{tb.max_depth}: pixels that differ from the "
+          f"plain version {n_diff}, max abs err {max_abs:.3g}; rays traced kernel {rk.tolist()} "
+          f"plain {rp.tolist()} (closest, shadow)", flush=True)
+    ran, used, lockstep, most, most_lockstep = sk.tolist()
+    simt = {"iterations_ran": ran, "lane_iterations": used, "lockstep_iterations": lockstep,
+            "efficiency": used / (32 * ran), "lockstep_efficiency": used / (32 * lockstep),
+            "slowest_warp": most, "slowest_warp_lockstep": most_lockstep}
+    print(f"K8 SIMT efficiency (lane iterations used / 32 x warp iterations run; one iteration a "
+          f"closest-hit ray): {simt['efficiency']:.4f} with path regeneration ({ran} warp "
+          f"iterations, the slowest warp {most}), {simt['lockstep_efficiency']:.4f} with the "
+          f"samples in lockstep ({lockstep}, the slowest warp {most_lockstep}); {used} lane "
+          f"iterations; kernel counters {sk.tolist()}, plain {sp.tolist()}", flush=True)
     check(bool(torch.isfinite(got).all()), "K8 output not finite")
-    check(bad_frac == 0.0 or (bad_frac <= K8_PIX_FRAC and mean_rel <= K8_MEAN_REL),
-          "K8 disagrees with its plain version")
+    check(torch.equal(got, want), "K8 differs from its plain version (bit for bit, per pixel)")
     check(torch.equal(rk, rp), "K8 and its plain version traced different numbers of rays")
+    check(torch.equal(sk, sp), "K8's SIMT counters differ from the plain version's count")
+    check(torch.equal(mk.megakernel_pass(tb, 0, spp), got), "K8 with its counters differs")
 
     ms = cuda_ms(lambda: mk.megakernel_pass(tb, 0, spp), 10)
     n_rays = int(rk.sum())
@@ -1594,7 +1805,7 @@ def k8_parity(device):
             "source": "akari_render_tpu_torch/csrc/megakernel.cu",
             "replaces": "akari_render_tpu/integrators/megakernel.py:445",
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "simt": simt}
 
 
 class env_switch:
@@ -1682,41 +1893,58 @@ def read_launches() -> dict:
             "K9": fs.launches, **common.counts}
 
 
-def device_events_per_call(calls: dict) -> dict:
+def device_events_per_call(calls: dict, windows: int = 6) -> dict:
     """Device events (kernels, copies, fills) of one call of each fn in
     `calls` (name -> fn, each called once before, as a warm-up), by
-    torch.profiler in one window, where a marker kernel (spin_kernel)
-    opens each call's span. One window: this torch build drops the first
-    device events of a window that follows earlier large windows
-    (measured on the card)."""
+    torch.profiler, where a marker kernel (spin_kernel) opens each call's
+    span and one more closes the last. A window is padded at both ends
+    (pad_profiler_window), since this torch build loses records at a
+    window's ends, and is whole when each pad kept records and every marker
+    was recorded: the loss stayed inside the pads. Windows are repeated, up
+    to `windows`, until two whole ones agree on every call's count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def marker():
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
 
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn in calls.values():
-            torch.cuda._sleep(1_000_000)
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    # the raw kineto records: prof.events() would first build the
-    # profiler's Python event tree over every record
-    events = sorted((e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
-                    if e.device_type() == torch.autograd.DeviceType.CUDA)
-    print(f"profiler window {t1 - t0:.1f} s, {len(events)} device records read in "
-          f"{time.perf_counter() - t1:.1f} s", flush=True)
-    counts = []
-    for _, name in events:
-        if "spin_kernel" in name:
-            counts.append(0)
-        elif counts:
-            counts[-1] += 1
-    check(len(counts) == len(calls), "the profiler lost a marker kernel")
-    return dict(zip(calls, counts))
+    seen = []
+    for w in range(windows):
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad_profiler_window()
+            for fn in calls.values():
+                marker()
+                fn()
+                torch.cuda.synchronize()
+            marker()
+            pad_profiler_window()
+        t1 = time.perf_counter()
+        # the raw kineto records: prof.events() would first build the
+        # profiler's Python event tree over every record
+        events = sorted((e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == torch.autograd.DeviceType.CUDA)
+        head, counts = 0, []
+        for _, name in events:
+            if "spin_kernel" in name:
+                counts.append(0)
+            elif counts:
+                counts[-1] += 1
+            else:
+                head += 1
+        whole = head > 0 and len(counts) == len(calls) + 1 and counts[-1] > 0
+        print(f"profiler window {w}: {t1 - t0:.1f} s, {len(events)} device records read in "
+              f"{time.perf_counter() - t1:.1f} s; {head} records before the first marker, "
+              f"{counts} after each; whole: {whole}", flush=True)
+        if whole:
+            if counts[:-1] in seen:
+                return dict(zip(calls, counts))
+            seen.append(counts[:-1])
+    fail(f"the profiler recorded no two whole windows that agree in {windows}")
 
 
 def blinds_full_width(device):
@@ -1878,7 +2106,8 @@ def main():
     lap("phase 17 (classroom 96^2, wide and windowed)")
     launches, timings = classroom_full_width(device, "wide")
     other["K7"]["launches"], other["K7"]["main_path"] = launches["K7"], timings["K7"]
-    other["K5"]["launches"] = classroom_full_width(device, "pairs-windowed")[0]["K5"]
+    launches, timings = classroom_full_width(device, "pairs-windowed")
+    other["K5"]["launches"], other["K5"]["main_path"] = launches["K5"], timings["K5"]
     lap("phase 18 (classroom 1080p, wide and windowed)")
 
     fused = {"K9": k9_parity(device)}

@@ -230,24 +230,38 @@ def test_intersect_pairs_card_matches_cpu(cuda):
 
 
 def test_window_refine_kernel_matches_plain_on_card(cuda):
-    """K5 against its plain version on the card: windows of 160 gathered
-    member boxes (not a multiple of the kernel's tile) against the sorted
-    blocks, with occluded lanes (limit -inf), bit-equal."""
+    """K5 against its plain version on the card, bit-equal: windows of 160
+    member ids (not a multiple of the kernel's chunk) against the sorted
+    blocks, with occluded lanes (limit -inf), every member set, then a
+    third of them masked and a block with none; its counters against the
+    twin's tally."""
     cl = _soup_clusters(C=16).to(cuda)
     o, d, tmin, tmax, ex0, _ = _pair_rays(1 << 13, 7, cuda)
     s = pairs.sort_rays(cl, o, d, tmin, tmax, ex0)
     B, W = s.summ.shape[0], 160
     rng = np.random.default_rng(3)
-    win = torch.as_tensor(rng.integers(0, cl.num_clusters, (B, W)), device=cuda)
-    wb = pairs.cluster_bounds(cl)[:, win].permute(1, 0, 2).contiguous()
+    cb6 = pairs.cluster_bounds(cl)
+    win_i = torch.as_tensor(rng.integers(0, cl.num_clusters, (B, W)), dtype=torch.int32,
+                            device=cuda)
     t1 = torch.where(torch.as_tensor(rng.random(s.lim.shape[1]) < 0.2, device=cuda),
                      -float("inf"), s.lim[1])
     lim = torch.stack([s.lim[0], t1])
-    before = pairs.launches["K5"]
-    got = pairs.refine(wb, s.o_soa, s.inv_soa, lim)
-    assert pairs.launches["K5"] == before + 1
-    assert torch.equal(got, pairs.refine_torch(wb, s.o_soa, s.inv_soa, lim))
-    assert 0.02 < float(got.float().mean()) < 0.98
+    masked = torch.as_tensor(rng.random((B, W)) > 0.33, device=cuda)
+    masked[1] = False
+    for ok in (torch.ones((B, W), dtype=torch.bool, device=cuda), masked):
+        args = (cb6, win_i, ok, s.o_soa, s.inv_soa, lim)
+        before = pairs.launches["K5"]
+        counts = torch.zeros((B, 3), dtype=torch.int32, device=cuda)
+        got = pairs.refine_window(*args, counts=counts)
+        assert pairs.launches["K5"] == before + 1
+        want = pairs.refine_window_torch(*args)
+        assert torch.equal(got, want) and torch.equal(pairs.refine_window(*args), want)
+        assert 0.02 < float(want.float().mean()) < 0.98 and not bool(want[~ok].any())
+        tally = {}
+        assert torch.equal(pairs.refine_window_grouped_torch(*args, tally=tally), want)
+        c = counts.sum(0).tolist()
+        assert c[:2] == [tally["ok"], tally["tests"]]
+        assert int(want.sum()) <= c[2] <= tally["units"]
 
 
 def test_wide_walk_kernel_matches_plain_on_card(cuda):
@@ -518,18 +532,22 @@ def test_fused_shade_kernel_matches_plain_on_card(cuda):
 
 
 def test_megakernel_matches_plain_on_card(cuda):
-    """One K8 pass against its plain version on the card at 32^2, 4 spp,
-    d12: the same rays traced, every pixel within rtol 1e-3, atol 2e-3."""
-    scene = load_scene(str(BLINDS), 32, 32, device=cuda)
+    """One K8 pass (path regeneration) against its plain version on the
+    card at 30^2 (the last warp partial), 4 spp, d12: every pixel
+    bit-equal, the same rays traced and the same SIMT counts, the
+    regenerating loop's iterations below the lockstep loop's."""
+    scene = load_scene(str(BLINDS), 30, 30, device=cuda)
     tb = mk.pass_tables(scene, PTSettings(max_depth=12), GaussianFilter(1.5), 0)
-    rk = torch.zeros(2, dtype=torch.int64, device=cuda)
-    rp = torch.zeros(2, dtype=torch.int64, device=cuda)
+    rk, rp = (torch.zeros(2, dtype=torch.int64, device=cuda) for _ in range(2))
+    sk, sp = (torch.zeros(5, dtype=torch.int64, device=cuda) for _ in range(2))
     before = mk.launches
-    got = mk.megakernel_pass(tb, 0, 4, rk)
-    want = mk.megakernel_pass_torch(tb, 0, 4, rp)
+    got = mk.megakernel_pass(tb, 0, 4, rk, sk)
+    want = mk.megakernel_pass_torch(tb, 0, 4, rp, sp)
     assert mk.launches == before + 1
-    assert torch.equal(rk, rp) and int(rk[0]) >= 4 * 32 * 32
-    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+    assert torch.equal(rk, rp) and int(rk[0]) >= 4 * 30 * 30
+    assert torch.equal(sk, sp) and int(sk[0]) < int(sk[2]) and int(sk[1]) == int(rk[0])
+    assert torch.equal(got, want)
+    assert torch.equal(mk.megakernel_pass(tb, 0, 4), got)
 
 
 def test_fused_paths_on_card_match_cpu(cuda, monkeypatch):

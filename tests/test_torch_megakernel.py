@@ -136,6 +136,25 @@ def test_plain_pass_counts_rays(table):
     assert torch.equal(whole[3], torch.full((64,), 3.0))
 
 
+def test_plain_pass_counts_simt(table):
+    """The plain version's SIMT counters: the lanes' iterations are the
+    closest-hit rays; the warps' iterations with path regeneration lie
+    between the busiest lane's and those of the samples in lockstep; at one
+    sample a pass the two schedules are the same."""
+    ts = load_scene(str(BLINDS), 12, 12, device="cpu", ggx_table=table)
+    tb = tmk.pass_tables(ts, PTSettings(max_depth=12, rr_depth=2), GaussianFilter(1.5), 0)
+    rays = torch.zeros(2, dtype=torch.int64)
+    simt = torch.zeros(5, dtype=torch.int64)
+    tmk.megakernel_pass(tb, 0, 4, rays, simt)
+    ran, used, lockstep, most, most_lockstep = simt.tolist()
+    assert used == int(rays[0]) and used >= 4 * 144
+    assert used <= 32 * ran and ran < lockstep  # 144 pixels: five warps, the last partial
+    assert ran <= 5 * most and most <= most_lockstep <= lockstep
+    one = torch.zeros(5, dtype=torch.int64)
+    tmk.megakernel_pass(tb, 0, 1, simt=one)
+    assert int(one[0]) == int(one[2]) and int(one[3]) == int(one[4]) and int(one[1]) >= 144
+
+
 def test_routing_env_gate(table, monkeypatch):
     """AKR_MEGAKERNEL=1 routes an eligible render through the megakernel
     (the same image as a direct render_pt_megakernel); an ineligible scene

@@ -209,8 +209,13 @@ def test_k5_plain_matches_pallas(monkeypatch):
     assert 20 < int(got[0, :-70].sum()) < W - 70  # some real members pass, some fail
     monkeypatch.setattr(tp, "CHUNK_ELEMS", tp.BLOCK * W)
     assert torch.equal(tp.refine_torch(*(t_(a) for a in args)), got)
+    # the same window by id: each member a column of cb6, every member set
+    cb6 = t_(wb.transpose(1, 0, 2).reshape(6, B * W))
+    win_i = torch.arange(B * W, dtype=torch.int32).reshape(B, W)
+    ok = torch.ones((B, W), dtype=torch.bool)
     before = dict(tp.launches)
-    assert torch.equal(tp.refine(*(t_(a) for a in args)), got)  # CPU: the plain version
+    lanes = (t_(o.T.copy()), t_(inv.T.copy()), t_(lim))
+    assert torch.equal(tp.refine_window(cb6, win_i, ok, *lanes), got)  # CPU: the plain version
     assert tp.launches == before
 
 

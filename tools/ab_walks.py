@@ -1,9 +1,15 @@
 """Time the flat tier's K1 (matbox and blinds, chip_smoke.py's 2^18 rays),
 the cluster tier's refine with its walk order (K3: in a parent without the
 fused kernel, refine_all then walk_order) and its walks (K4 and K7, closest
-and any hit) at chip_smoke.py's 2^18 classroom rays in two or more
-checkouts of this repo, within one run on one card: the way to compare a
-change with its parent.
+and any hit) at chip_smoke.py's 2^18 classroom rays, the windowed walk's
+window refine (K5: the first window of those rays' windowed walk, and the
+first window of a classroom 1080p sample's first traversal; a parent whose
+K5 took the gathered [B, 6, W] window, `refine`, gets that) and the path
+megakernel (K8: a blinds 256^2, 16-spp pass) in two or more checkouts of
+this repo, within one run on one card: the way to compare a change with
+its parent. K5 is also timed by its device records (torch.profiler), and
+each checkout reports K5's and K8's registers, local memory and resident
+blocks.
 
     python tools/ab_walks.py PARENT . . PARENT [--reps 20]
 
@@ -29,6 +35,7 @@ import chip_smoke
 from akari_render_tpu_torch.accel import intersect as k1
 from akari_render_tpu_torch.accel import pairs, wide
 from akari_render_tpu_torch.core.math import RAY_TMAX, disable_tf32
+from akari_render_tpu_torch.integrators import megakernel as mk
 from akari_render_tpu_torch.scene import load_scene
 
 disable_tf32()
@@ -100,14 +107,84 @@ def k7(any_hit):
                           any_hit, **kw)
 
 
-row = {"root": root}
+k5_name = "refine_window" if hasattr(pairs, "refine_window") else "refine"
+k5_fn = getattr(pairs, k5_name)
+
+
+class Captured(Exception):
+    pass
+
+
+def first_k5_call(run):
+    # the arguments of the first K5 call that run() makes; the run ends there
+    calls = []
+
+    def capture(*a):
+        calls.append(tuple(x.clone() for x in a))
+        raise Captured
+
+    setattr(pairs, k5_name, capture)
+    try:
+        run()
+    except Captured:
+        pass
+    finally:
+        setattr(pairs, k5_name, k5_fn)
+    return calls[0]
+
+
+def sample_1080p():
+    from akari_render_tpu_torch.config import RenderTask
+    from akari_render_tpu_torch.core.filters import filter_from_config
+    from akari_render_tpu_torch.integrators.common import PTSettings
+    from akari_render_tpu_torch.integrators.pt import render_sample
+
+    task = RenderTask.from_file(chip_smoke.CLASSROOM_METHOD)
+    m = task.method
+    st = PTSettings(max_depth=m.max_depth, rr_depth=m.rr_depth, use_nee=m.use_nee,
+                    clamp_indirect=m.clamp_indirect)
+    with chip_smoke.env_switch(AKR_PAIRS_STATIC="0"):
+        render_sample(scene, st, filter_from_config(task.filter_config), 0, task.seed,
+                      task.sampler)
+
+
+k5_args = first_k5_call(lambda: pairs.windowed_walk(cl, s, k3_args[4], False))
+k5_1080 = first_k5_call(sample_1080p)
+blinds, task, settings, filt = chip_smoke.blinds_setup("cuda")
+tb = mk.pass_tables(blinds, settings, filt, task.seed)
+spp = task.method.spp_per_pass
+
+
+# chip_smoke.device_ms's way, without its retries (a parent's chip_smoke has none)
+def device_ms(fn, n, kernel):
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA and kernel in e.name()]
+    return sum(durs) / max(len(durs), 1) / 1e6
+
+
+row = {"root": root, "K5": k5_name,
+       "K5_info": pairs.kernel_info()["K5"], "K8_info": mk.kernel_info(tb)["K8"]}
 for _ in range(2):
     for name, fn in (("K1_ms", lambda: k1_call("matbox", False)),
                      ("K1_any_ms", lambda: k1_call("matbox", True)),
                      ("K1_blinds_ms", lambda: k1_call("blinds", False)), ("K3_ms", k3),
                      ("K4_ms", lambda: k4(False)), ("K4_any_ms", lambda: k4(True)),
-                     ("K7_ms", lambda: k7(False)), ("K7_any_ms", lambda: k7(True))):
+                     ("K7_ms", lambda: k7(False)), ("K7_any_ms", lambda: k7(True)),
+                     ("K5_ms", lambda: k5_fn(*k5_args)),
+                     ("K5_1080p_ms", lambda: k5_fn(*k5_1080)),
+                     ("K8_ms", lambda: mk.megakernel_pass(tb, 0, spp))):
         row.setdefault(name, []).append(round(chip_smoke.cuda_ms(fn, reps), 4))
+    for name, fn in (("K5_device_ms", lambda: k5_fn(*k5_args)),
+                     ("K5_1080p_device_ms", lambda: k5_fn(*k5_1080))):
+        row.setdefault(name, []).append(round(device_ms(fn, reps, "window_refine_kernel"), 4))
 print(json.dumps(row), flush=True)
 """
 

@@ -1,8 +1,9 @@
 """Time the cluster tier's walks (K4, the pair sweep's candidate walk, and
 K7, the wide-BVH walk) on chip_smoke.py's 2^18 classroom rays, as built and
-with single steps of their design taken out, to show what each step pays.
+with single steps of their design taken out, to show what each step pays;
+with --k8, the path megakernel K8 (a blinds 256^2, 16-spp pass) instead.
 
-    python tools/bench_candidate_test.py [--reps 10] [--render] [--out build/bench_candidate_test.json]
+    python tools/bench_candidate_test.py [--reps 10] [--render] [--k8] [--out build/bench_candidate_test.json]
 
 Needs one NVIDIA GPU and nvcc. A variant is the package's csrc/ copied to
 build/variants/<name>/ with a few lines replaced (each replacement must
@@ -12,9 +13,12 @@ find its text, so a variant cannot silently measure the unchanged source):
 - no_prefetch: K4 waits for the next candidate's copy right after starting
   it, and K7 never starts the next leaf's copy early;
 - three_blocks: __launch_bounds__(512, 3), which caps the walks at 40
-  registers a thread for a third resident block an SM.
+  registers a thread for a third resident block an SM;
+- k8_six_blocks (with --k8, against as_built before and after it):
+  __launch_bounds__(128, 6) on K8, which caps it at 80 registers a thread
+  for six resident blocks of 128 an SM.
 
-Every variant must give as_built's `best`, bit for bit. With --render each
+Every variant must give as_built's `best` (K8: its pass), bit for bit. With --render each
 variant also renders classroom 1920x1080, 1 spp by the static pair sweep and
 by the wide walk, and the K4 and K7 launches of those renders are timed.
 Prints one line per variant and writes them, with the card's name and power
@@ -33,7 +37,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (the repo root's: its rays, timers and switches)
 
-PAIRS, WIDE = "pairs.cu", "wide.cu"
+PAIRS, WIDE, MEGA = "pairs.cu", "wide.cu", "megakernel.cu"
 VARIANTS = {
     "as_built": [],
     "no_prefetch": [
@@ -45,13 +49,18 @@ VARIANTS = {
         (PAIRS, "__launch_bounds__(akr::kMaxLanes, 2)", "__launch_bounds__(akr::kMaxLanes, 3)"),
         (WIDE, "__launch_bounds__(kMaxLanes, 2)", "__launch_bounds__(kMaxLanes, 3)"),
     ],
+    "k8_six_blocks": [
+        (MEGA, "__launch_bounds__(kThreads)\nmegakernel(",
+         "__launch_bounds__(kThreads, 6)\nmegakernel("),
+    ],
 }
 
 
 def use_variant(name: str):
-    """Point the K2-K7 wrappers at a patched copy of csrc/ and drop their
+    """Point the K2-K8 wrappers at a patched copy of csrc/ and drop their
     loaded libraries."""
     from akari_render_tpu_torch.accel import nvcc, pairs, wide
+    from akari_render_tpu_torch.integrators import megakernel as mk
 
     src = ROOT / "akari_render_tpu_torch" / "csrc"
     dst = ROOT / "build" / "variants" / name
@@ -63,8 +72,8 @@ def use_variant(name: str):
             raise SystemExit(f"variant {name}: {fname} holds {text.count(old)} times: {old!r}")
         (dst / fname).write_text(text.replace(old, new))
     nvcc.CSRC = dst  # the build key covers the headers there
-    pairs.SOURCE, wide.SOURCE = dst / PAIRS, dst / WIDE
-    pairs._lib = wide._lib = None
+    pairs.SOURCE, wide.SOURCE, mk.SOURCE = dst / PAIRS, dst / WIDE, dst / MEGA
+    pairs._lib = wide._lib = mk._lib = None
 
 
 def render_1080p(device) -> dict:
@@ -87,13 +96,48 @@ def render_1080p(device) -> dict:
     return out
 
 
+def bench_k8(reps: int, out: Path):
+    """K8 as built and with __launch_bounds__(128, 6): a blinds 256^2,
+    16-spp pass each, its time, registers, local memory and resident
+    blocks."""
+    import torch
+
+    from akari_render_tpu_torch.integrators import megakernel as mk
+
+    scene, task, settings, filt = chip_smoke.blinds_setup("cuda")
+    tb = mk.pass_tables(scene, settings, filt, task.seed)
+    spp = task.method.spp_per_pass
+    card = chip_smoke.gpu_query()
+    rows, want = [], None
+    for name in ("as_built", "k8_six_blocks", "as_built"):
+        use_variant(name)
+        got = mk.megakernel_pass(tb, 0, spp)
+        torch.cuda.synchronize()
+        if want is None:
+            want = got
+        if not torch.equal(got, want):
+            raise SystemExit(f"variant {name} changed a pixel")
+        info = mk.kernel_info(tb)["K8"]
+        row = {"variant": name, "K8_ms": chip_smoke.cuda_ms(lambda: mk.megakernel_pass(tb, 0, spp),
+                                                              reps),
+               **{f"K8_{f}": info[f] for f in ("registers", "local_bytes", "blocks_per_sm")}}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    print(card)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"card": card, "rows": rows}, indent=1) + "\n")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--render", action="store_true",
                     help="also render classroom 1080p per variant and time its K4 / K7 launches")
+    ap.add_argument("--k8", action="store_true", help="time K8's variants instead of K4's and K7's")
     ap.add_argument("--out", default=str(ROOT / "build" / "bench_candidate_test.json"))
     args = ap.parse_args()
+    if args.k8:
+        return bench_k8(args.reps, Path(args.out))
 
     import torch
 

@@ -19,7 +19,14 @@ the middle rows and of bounce rays from their hits): the clusters per
 block that K2 leaves, the (cluster, 32-lane warp) summary tests and those
 that pass, against the lane x cluster work of the earlier kernel.
 
-    python tools/cull_shares.py [--rays 8192]
+K5 (the same rays through the windowed walk, every round's window through
+`pairs.refine_window_grouped_torch`): the share of the members set that
+some lane passes, of the (member, warp) pairs tested that pass the warp
+summary, and of the blocks with a member set in each round, against the
+earlier kernel's work (every member of every block, each member's lanes in
+turn up to the first that passes).
+
+    python tools/cull_shares.py [--rays 8192] [--only k1|k3|k5]
 """
 from __future__ import annotations
 
@@ -124,7 +131,10 @@ def k1_shares(n_rays: int):
               flush=True)
 
 
-def k3_shares(n_rays: int):
+def classroom_rays(n_rays: int):
+    """(classroom scene, its unified list, tmin, [(label, (o, d, tmax))]):
+    `n_rays` camera rays from the middle rows of the 1920x1080 film, and as
+    many bounce rays from their hits (directions on the camera's side)."""
     import numpy as np
     import torch
 
@@ -136,7 +146,6 @@ def k3_shares(n_rays: int):
 
     sc = load_scene(str(chip_smoke.CLASSROOM), device="cpu")
     cl = sc.arrays.unified
-    K = cl.num_clusters
     rng = np.random.default_rng(11)
     cam = sc.camera
     pix = np.arange(n_rays) + (cam.width * cam.height) // 2 - n_rays // 2
@@ -148,10 +157,19 @@ def k3_shares(n_rays: int):
     d_b = torch.as_tensor(rng.normal(size=(n_rays, 3)), dtype=torch.float32)
     d_b /= d_b.norm(dim=1, keepdim=True)
     d_b = torch.where(((d_b * d_c).sum(1) > 0)[:, None], -d_b, d_b)
+    return sc, cl, tmin, [("camera rays", (o_c, d_c, torch.full((n_rays,), RAY_TMAX))),
+                          ("bounce rays", (hit_p, d_b, torch.where(h.valid, RAY_TMAX, -1.0)))]
+
+
+def k3_shares(n_rays: int):
+    import torch
+
+    from akari_render_tpu_torch.accel import pairs
+
+    _, cl, tmin, rays = classroom_rays(n_rays)
+    K = cl.num_clusters
     cb6 = pairs.cluster_bounds(cl)
-    for label, (o, d, tmax) in (
-            ("camera rays", (o_c, d_c, torch.full((n_rays,), RAY_TMAX))),
-            ("bounce rays", (hit_p, d_b, torch.where(h.valid, RAY_TMAX, -1.0)))):
+    for label, (o, d, tmax) in rays:
         s = pairs.sort_rays(cl, o, d, tmin, tmax)
         B = s.summ.shape[0]
         e_con = pairs.cull_einit_torch(s.summ, cb6)
@@ -171,15 +189,56 @@ def k3_shares(n_rays: int):
               f"({tally['units'] * 32 / full:.4f})", flush=True)
 
 
+def k5_shares(n_rays: int):
+    import torch
+
+    from akari_render_tpu_torch.accel import pairs
+
+    _, cl, tmin, rays = classroom_rays(n_rays)
+    cb6 = pairs.cluster_bounds(cl)
+    real = pairs.refine_window
+    for label, (o, d, tmax) in rays:
+        s = pairs.sort_rays(cl, o, d, tmin, tmax)
+        B = s.summ.shape[0]
+        tally, live_blocks, earlier = {}, [], [0.0]
+
+        def refine_window(cb6_, win_i, ok, o_soa, i_soa, lim):
+            got = pairs.refine_window_grouped_torch(cb6_, win_i, ok, o_soa, i_soa, lim, tally)
+            live = (lim[0] <= lim[1]).reshape(B, pairs.BLOCK).sum(1)
+            every = torch.ones_like(ok)  # the earlier kernel: every member of every block
+            passed = pairs.refine_window_torch(cb6_, win_i, every, o_soa, i_soa, lim)
+            earlier[0] += float(passed.sum() + ((passed == 0).sum(1) * live).sum())
+            live_blocks.append(int(ok.any(1).sum()))
+            tally["passed"] = tally.get("passed", 0) + int(got.sum())
+            return got
+
+        pairs.refine_window = refine_window
+        try:
+            pairs.windowed_walk(cl, s, pairs.cull_einit_torch(s.summ, cb6), False)
+        finally:
+            pairs.refine_window = real
+        shares = ", ".join(f"{x / B:.3f}" for x in live_blocks)
+        print(f"K5, classroom 1080p {label}, {B} blocks, window {pairs.MAXC * pairs.WINDOW_MULT}: "
+              f"{len(live_blocks)} rounds; members set {tally['ok']}, passed by a lane "
+              f"{tally['passed']} ({tally['passed'] / max(tally['ok'], 1):.4f}); (member, warp) "
+              f"summary tests {tally['tests']}, passed {tally['units']} "
+              f"({tally['units'] / max(tally['tests'], 1):.4f}); lane x member slab tests left "
+              f"{tally['units'] * 32} of the earlier kernel's {earlier[0]:.4g} "
+              f"({tally['units'] * 32 / earlier[0]:.4f}); blocks with a member set, each round: "
+              f"{shares}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rays", type=int, default=8192)
+    ap.add_argument("--only", choices=("k1", "k3", "k5"))
     args = ap.parse_args()
     import torch
 
     torch.set_num_threads(8)
-    k1_shares(args.rays)
-    k3_shares(args.rays)
+    for name, fn in (("k1", k1_shares), ("k3", k3_shares), ("k5", k5_shares)):
+        if args.only in (None, name):
+            fn(args.rays)
 
 
 if __name__ == "__main__":
