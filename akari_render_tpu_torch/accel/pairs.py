@@ -9,7 +9,11 @@ static-refine walk and its legacy windowed walk, and the kernels K2 to K6).
 2. K2, the conservative cull (`cull_einit`): each block's interval summary
    (origin box, inverse-direction interval, min tmin, max t-limit) against
    every cluster AABB, by interval arithmetic -> e_con [B, K], +inf where
-   rejected.
+   rejected. The kernel culls a dead block's row whole and, where a block's
+   inverse-direction interval lies on one side of zero on every axis,
+   takes each end of an axis's interval product from 4 products, not 8,
+   with the same bits (`cull_row_cases`; `cull_einit_cased_torch` is the
+   kernel step for step).
 3. K3, the per-ray refine: every lane's own slab test against every
    cluster, skipping tiles that K2 rejected in full -> e_init [B, K], each
    cluster's minimum passing-lane entry (`refine_all_torch`).
@@ -221,8 +225,8 @@ def sort_keys(o, d, lo, hi, mode: str | None = None):
 # ----------------------------------------------------------------------- K2
 def cull_einit_torch(summ, cb6):
     """Plain version of K2: the conservative block-interval cull of
-    _cull_kernel, the same 36-op chain in the same order, chunked over
-    blocks. summ [B, 16] (olo|ohi|ilo|ihi|bt0|bt1|pad), cb6 [6, K] ->
+    _cull_kernel, the same 88-operation chain in the same order, chunked
+    over blocks. summ [B, 16] (olo|ohi|ilo|ihi|bt0|bt1|pad), cb6 [6, K] ->
     [B, K] entry, +inf where rejected."""
     B, K = summ.shape[0], cb6.shape[1]
     out = torch.empty((B, K), dtype=torch.float32, device=summ.device)
@@ -250,6 +254,72 @@ def cull_einit_torch(summ, cb6):
         entry = torch.maximum(entry, sm[:, 12:13])  # block min tmin
         exit_ = torch.minimum(exit_, sm[:, 13:14])  # block max t-limit (horizon)
         out[s:s + rows] = torch.where(entry <= exit_, entry, INF)
+    return out
+
+
+def cull_row_cases(summ):
+    """K2's cases of each block summary (csrc/pairs.cu::cull_kernel): (dead
+    [B], the block's min tmin above its max t-limit, so that every cluster
+    is culled; cased [B], a live block whose inverse-direction interval
+    is finite and lies strictly on one side of zero on every axis, and
+    whose origin and inverse-direction intervals are ordered)."""
+    olo, ohi, il, ih = summ[:, 0:3], summ[:, 3:6], summ[:, 6:9], summ[:, 9:12]
+    dead = summ[:, 12] > summ[:, 13]
+    cased = (~dead & ((il > 0.0) | (ih < 0.0)).all(1) & (il <= ih).all(1)
+             & (torch.isfinite(il) & torch.isfinite(ih)).all(1) & (olo <= ohi).all(1))
+    return dead, cased
+
+
+def cull_einit_cased_torch(summ, cb6, tally=None):
+    """The K2 kernel step for step in torch: cull_einit_torch with the
+    kernel's exact short cuts, which must give the same bits.
+    - A dead block (cull_row_cases) culls every cluster: entry >= min tmin
+      > max t-limit >= exit.
+    - On a cased block, against a cluster whose box has min <= max on each
+      axis, an axis's entry (the least of the chain's 8 products) is the
+      least of the 4 products of n0lo = bmin - ohi and n1hi = bmax - olo
+      with the inverse direction's ends, and its exit the largest: with the
+      inverse direction of one sign a product is monotone in n. Rounding is
+      monotone too, so the values are the chain's; a nonzero value has one
+      bit pattern, so the bits are the chain's wherever both are nonzero on
+      every axis. Elsewhere, and on every other block or cluster, the full
+      chain.
+    tally (a dict, or None) gains "dead", "cased" and "full" (elements of
+    each kind of row) and "fallback" (elements of cased rows that took the
+    full chain)."""
+    B, K = summ.shape[0], cb6.shape[1]
+    dead, cased = cull_row_cases(summ)
+    box_ok = (cb6[:3] <= cb6[3:]).all(0)  # [K]
+    out = cull_einit_torch(summ, cb6)
+    use = torch.zeros((B, K), dtype=torch.bool, device=summ.device)
+    fast = torch.full((B, K), INF, device=summ.device)
+    rows = max(1, CHUNK_ELEMS // max(K, 1))
+    for s in range(0, B, rows):
+        sm = summ[s:s + rows]
+        entry = torch.full((sm.shape[0], K), -INF, device=summ.device)
+        exit_ = torch.full((sm.shape[0], K), INF, device=summ.device)
+        ok = torch.ones((sm.shape[0], K), dtype=torch.bool, device=summ.device)
+        for a in range(3):
+            n0lo = cb6[a][None, :] - sm[:, 3 + a:4 + a]
+            n1hi = cb6[3 + a][None, :] - sm[:, a:a + 1]
+            il, ih = sm[:, 6 + a:7 + a], sm[:, 9 + a:10 + a]
+            p1, p2, p3, p4 = n0lo * il, n0lo * ih, n1hi * il, n1hi * ih
+            lo = torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4))
+            hi = torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4))
+            ok &= (torch.abs(lo) > 0.0) & (torch.abs(hi) > 0.0)
+            entry = torch.maximum(entry, lo)
+            exit_ = torch.minimum(exit_, hi)
+        entry = torch.maximum(entry, sm[:, 12:13])
+        exit_ = torch.minimum(exit_, sm[:, 13:14])
+        fast[s:s + rows] = torch.where(entry <= exit_, entry, INF)
+        use[s:s + rows] = cased[s:s + rows, None] & box_ok[None, :] & ok
+    out = torch.where(dead[:, None], INF, torch.where(use, fast, out))
+    if tally is not None:
+        n_cased = int(cased.sum()) * K
+        for key, v in (("dead", int(dead.sum()) * K), ("cased", n_cased),
+                       ("full", (B - int(dead.sum()) - int(cased.sum())) * K),
+                       ("fallback", n_cased - int(use.sum()))):
+            tally[key] = tally.get(key, 0) + v
     return out
 
 

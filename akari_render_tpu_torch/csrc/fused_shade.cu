@@ -7,17 +7,39 @@
 // albedo (reduced_closure.cuh; the plain version is
 // integrators/fused_shade.py::fused_shade_torch).
 //
-// Bound: bytes. Each lane reads 26 values (frame t/b/n, ng, wo, the light
-// direction and radiance as [N, 3] rows, the light pdf, three uniforms and
-// an int32 material id: 104 B) and writes 13 floats and a bool (53 B), for
-// a few hundred FP32 operations: far below the card's 67 TFLOP/s at
-// 3.35 TB/s. Design: one thread per lane reads its inputs where the bounce
-// loop left them (no staging copy into a row-stacked array, which would
-// move more bytes than the kernel itself), the [M, 32] material table sits
-// in shared memory, and has_spec / has_metal are template parameters, so a
-// scene without a specular layer or metal compiles those lobes out.
+// Bound: bytes. A live lane reads 26 values (frame t/b/n, ng, wo, the
+// light direction and radiance as [N, 3] rows, the light pdf, three
+// uniforms and a material id: 104 B) and writes 13 floats and a bool
+// (53 B); a dead lane writes its 53 B of zeros; each lane's live flag is
+// 1 B. The closure is ~690 FP32 operations a live lane (chip_smoke.py's
+// K9_LIVE_FLOPS), under the bytes at the card's 67 TFLOP/s : 3.35 TB/s.
+// A bounce's wavefront is 2^16 lanes, 2,048 warps, all resident at once,
+// so a launch costs its own latency and one pass over those bytes. What the
+// design does:
+// 1. One masked launch over the whole wavefront. The bounce loop hands
+//    the kernel its rows as they lie, with the live mask: no compaction,
+//    no gathers and no scatters around the kernel (the TPU kernel, too,
+//    ran over every lane). A warp with no live lane only writes its zeros.
+//    Each [N, 3] input is read where it lies, with its row stride (the
+//    flat tier's ng is a strided view of the attribute rows): the wrapper
+//    copies nothing.
+// 2. One thread a lane in blocks of kThreads, several an SM; the [M, 32]
+//    material table read through the read-only cache, with no per-block
+//    copy or barrier.
+// Measured and dropped (PERF.md §6): staging each warp's [32, 3] spans
+// through shared memory with 16-byte loads and stores (slower: it adds a
+// round trip before the closure and after it), the table in shared
+// memory, blocks of 64 or 256 lanes (no faster), 8 resident blocks by
+// __launch_bounds__ (64 registers, but it spills: slower), and two warps a
+// group of 32 lanes, one for the NEE part of the closure and one for the
+// sample part (no faster: the chain through one lane's closure is not what
+// sets the time).
+// The arithmetic is reduced_closure.cuh's, op for op (-fmad=false), as in
+// K8; has_spec / has_metal are template parameters, so a scene without a
+// specular layer or metal compiles those lobes out.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "kernel_info.cuh"
 #include "reduced_closure.cuh"
@@ -26,8 +48,26 @@ namespace {
 
 using akr::V3;
 
-__device__ __forceinline__ V3 ld3(const float* p, int64_t i) {
-  return {p[3 * i], p[3 * i + 1], p[3 * i + 2]};
+constexpr int kThreads = 128;  // lanes a block
+constexpr int kIn3 = 8;   // t, b, n, ng, wo, ls_wi, ls_li, u_bsdf
+constexpr int kOut3 = 4;  // direct, wi, f, albedo
+
+struct Args {
+  const float* tab;
+  const float* in3[kIn3];  // [N, 3] rows, row stride in3_stride floats, inner stride 1
+  int64_t in3_stride[kIn3];
+  const float* ls_pdf;
+  const int32_t* mat;  // [N]
+  const bool* live;  // [N], or null: every lane
+  float* out3[kOut3];  // [N, 3] contiguous
+  float* pdf;
+  bool* valid;
+  int N;
+};
+
+__device__ __forceinline__ V3 ld3(const Args& a, int q, int64_t i) {
+  const float* p = a.in3[q] + i * a.in3_stride[q];
+  return {__ldg(p), __ldg(p + 1), __ldg(p + 2)};
 }
 
 __device__ __forceinline__ void st3(float* p, int64_t i, V3 v) {
@@ -37,83 +77,70 @@ __device__ __forceinline__ void st3(float* p, int64_t i, V3 v) {
 }
 
 template <bool SPEC, bool METAL>
-__global__ void fused_shade_kernel(const float* __restrict__ tab, int M,
-                                   const float* __restrict__ t, const float* __restrict__ b,
-                                   const float* __restrict__ n, const float* __restrict__ ng,
-                                   const float* __restrict__ wo, const float* __restrict__ ls_wi,
-                                   const float* __restrict__ ls_li,
-                                   const float* __restrict__ ls_pdf,
-                                   const float* __restrict__ u_bsdf,
-                                   const int32_t* __restrict__ mat, float* __restrict__ direct,
-                                   float* __restrict__ wi, float* __restrict__ f,
-                                   float* __restrict__ pdf, bool* __restrict__ valid,
-                                   float* __restrict__ albedo, int N) {
-  extern __shared__ float s_tab[];
-  for (int i = threadIdx.x; i < M * akr::kMatCols; i += blockDim.x) s_tab[i] = tab[i];
-  __syncthreads();
-  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  const float* row = s_tab + int64_t(mat[i]) * akr::kMatCols;
-  const float* u = u_bsdf + 3 * i;
-  const akr::ShadeOut o = akr::reduced_shade<SPEC, METAL, true>(
-      row, ld3(t, i), ld3(b, i), ld3(n, i), ld3(ng, i), ld3(wo, i), ld3(ls_wi, i), ld3(ls_li, i),
-      ls_pdf[i], u[0], u[1], u[2]);
-  st3(direct, i, o.direct);
-  st3(wi, i, o.wi);
-  st3(f, i, o.f);
-  pdf[i] = o.pdf;
-  valid[i] = o.valid;
-  st3(albedo, i, o.albedo);
+__global__ void __launch_bounds__(kThreads) fused_shade_kernel(const Args a) {
+  const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= a.N) return;
+  akr::ShadeOut o{};
+  if (a.live == nullptr || a.live[i]) {
+    const int64_t m = a.mat[i];
+    const V3 u = ld3(a, 7, i);
+    o = akr::reduced_shade<SPEC, METAL, true>(a.tab + m * akr::kMatCols, ld3(a, 0, i),
+                                              ld3(a, 1, i), ld3(a, 2, i), ld3(a, 3, i),
+                                              ld3(a, 4, i), ld3(a, 5, i), ld3(a, 6, i),
+                                              __ldg(a.ls_pdf + i), u.x, u.y, u.z);
+  }
+  st3(a.out3[0], i, o.direct);
+  st3(a.out3[1], i, o.wi);
+  st3(a.out3[2], i, o.f);
+  st3(a.out3[3], i, o.albedo);
+  a.pdf[i] = o.pdf;
+  a.valid[i] = o.valid;
 }
 
-constexpr int kThreads = 256;
-
 template <bool SPEC, bool METAL>
-int launch(const float* tab, int M, const float* const* in, const int32_t* mat, float* direct,
-           float* wi, float* f, float* pdf, bool* valid, float* albedo, int N,
-           cudaStream_t stream) {
-  const size_t smem = size_t(M) * akr::kMatCols * sizeof(float);
-  auto kernel = fused_shade_kernel<SPEC, METAL>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const unsigned grid = unsigned((int64_t(N) + kThreads - 1) / kThreads);
-  kernel<<<grid, kThreads, smem, stream>>>(tab, M, in[0], in[1], in[2], in[3], in[4], in[5],
-                                            in[6], in[7], in[8], mat, direct, wi, f, pdf, valid,
-                                            albedo, N);
+int launch(const Args& a, cudaStream_t stream) {
+  const unsigned grid = unsigned((int64_t(a.N) + kThreads - 1) / kThreads);
+  fused_shade_kernel<SPEC, METAL><<<grid, kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// tab [M, 32]; t, b, n, ng, wo, ls_wi, ls_li [N, 3]; ls_pdf [N]; u_bsdf
-// [N, 3]; mat [N] int32 -> direct, wi, f [N, 3], pdf [N], valid [N] bool,
-// albedo [N, 3]. All device pointers; launches on `stream` and returns
-// cudaGetLastError().
+// tab [M, 32]; in3: t, b, n, ng, wo, ls_wi, ls_li, u_bsdf, each [N, 3]
+// with row stride in3_stride[q] floats (>= 3, inner stride 1); ls_pdf
+// [N]; mat [N] int32; live [N] bool or null (every
+// lane live) -> direct, wi, f, albedo [N, 3], pdf [N], valid [N] bool,
+// zeros on the lanes that are not live. All device pointers; launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int akr_fused_shade(const float* tab, int M, int has_spec, int has_metal,
-                               const float* t, const float* b, const float* n, const float* ng,
-                               const float* wo, const float* ls_wi, const float* ls_li,
-                               const float* ls_pdf, const float* u_bsdf, const int32_t* mat,
-                               float* direct, float* wi, float* f, float* pdf, bool* valid,
-                               float* albedo, int N, void* stream) {
+                               const float* const* in3, const int64_t* in3_stride,
+                               const float* ls_pdf, const int32_t* mat, const bool* live,
+                               float* const* out3, float* pdf, bool* valid, int N, void* stream) {
   if (N <= 0) return 0;
-  const float* in[9] = {t, b, n, ng, wo, ls_wi, ls_li, ls_pdf, u_bsdf};
+  Args a;
+  a.tab = tab;
+  for (int q = 0; q < kIn3; ++q) {
+    a.in3[q] = in3[q];
+    a.in3_stride[q] = in3_stride[q];
+  }
+  a.ls_pdf = ls_pdf;
+  a.mat = mat;
+  a.live = live;
+  for (int q = 0; q < kOut3; ++q) a.out3[q] = out3[q];
+  a.pdf = pdf;
+  a.valid = valid;
+  a.N = N;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (has_spec && has_metal)
-    return launch<true, true>(tab, M, in, mat, direct, wi, f, pdf, valid, albedo, N, s);
-  if (has_spec)
-    return launch<true, false>(tab, M, in, mat, direct, wi, f, pdf, valid, albedo, N, s);
-  if (has_metal)
-    return launch<false, true>(tab, M, in, mat, direct, wi, f, pdf, valid, albedo, N, s);
-  return launch<false, false>(tab, M, in, mat, direct, wi, f, pdf, valid, albedo, N, s);
+  if (has_spec && has_metal) return launch<true, true>(a, s);
+  if (has_spec) return launch<true, false>(a, s);
+  if (has_metal) return launch<false, true>(a, s);
+  return launch<false, false>(a, s);
 }
 
-// K9's resources at M materials (its shared memory) and its lobes: out is
-// a host array [6] (akr::kernel_info's layout).
+// K9's resources for its lobes: out is a host array [6] (akr::kernel_info's
+// layout; M, the table's rows, sets no shared memory).
 extern "C" int akr_fused_shade_kernel_info(int32_t* out, int M, int has_spec, int has_metal) {
-  const size_t smem = size_t(M) * akr::kMatCols * sizeof(float);
+  const size_t smem = 0;
   cudaError_t err;
   if (has_spec && has_metal)
     err = akr::kernel_info(fused_shade_kernel<true, true>, kThreads, smem, out);

@@ -22,16 +22,51 @@ using akr::kInf;
 // ---------------------------------------------------------------------- K2
 // Replaces akari_render_tpu/accel/pairs.py::_cull_kernel (via _cull_einit).
 // The conservative block-interval cull: each (block, cluster) element runs
-// the 36-op interval chain (origin box x inverse-direction interval against
-// the cluster's slabs, per axis), clamps entry by the block's min tmin and
-// exit by its max t-limit, and writes the entry or +inf.
+// the interval chain (origin box x inverse-direction interval against the
+// cluster's slabs, per axis), clamps entry by the block's min tmin and
+// exit by its max t-limit, and writes the entry or +inf. The chain is 88
+// FP32 operations (interval_entry: per axis 4 subtractions, 8 products,
+// 12 min/max for the two interval products and 4 for entry and exit; then
+// two clamps, the compare and the select).
 //
-// Bound: writing e_con, [B, K] f32 (75 MB at 1920x1080 with K = 4,633); the
-// ~40 flops per element are far below the card's rate for that traffic.
-// Design: one thread per element with neighbouring threads on neighbouring
-// clusters, so the output store and the cb6 loads coalesce; a block's 16
-// summary floats are the same for every thread of a row and come from L1.
-constexpr int kCullThreads = 256;
+// Bound: writing e_con, [B, K] f32 (75 MB at 1920x1080 with K = 4,633),
+// unless every element runs the full chain: 88 operations an element
+// against 4 bytes lie just above the card's 67 TFLOP/s : 3.35 TB/s. The
+// earlier kernel (one thread an element) issued ~150 instructions an
+// element (a 64-bit division, 6 box and 16 summary loads, the chain): it
+// was issue-bound at several times the bound. What the design does:
+// 1. Tiles. A CTA takes kCullBlocks ray blocks x kCullClusters clusters.
+//    The tile's summaries go into shared memory once (read back as
+//    broadcasts), each thread holds its cluster's box in registers and
+//    loops over the blocks, and each block's row of stores coalesces
+//    across the tile's clusters, two rows an iteration. No division.
+// 2. Cases, each exact (pairs.py::cull_einit_cased_torch is this kernel
+//    step for step in torch, held bit for bit against the chain):
+//    - a dead block (min tmin > max t-limit: entry >= min tmin > max
+//      t-limit >= exit) culls every cluster: its row is +inf, no chain;
+//    - a sign case: a block whose inverse-direction interval lies strictly
+//      on one side of zero on every axis (the summary is per block, so the
+//      branch is uniform), against a cluster whose box has min <= max on
+//      every axis. An axis's entry, the least of the chain's 8 products,
+//      is then the least of the 4 products of n0lo = bmin - ohi and n1hi =
+//      bmax - olo (the n farthest down and up) with the interval's ends,
+//      and its exit the largest of them: with the inverse direction of one
+//      sign a product is monotone in n. Rounding is monotone too, so the
+//      value is the chain's, and a nonzero value has one bit pattern: where
+//      both are nonzero on every axis the bits are the chain's (no product
+//      is NaN: the bounds and ends are ordered, the ends finite and
+//      nonzero).
+//      Elsewhere (a signed zero, an underflow) the element runs the full
+//      chain, out of line. That is 2 subtractions, 4 products, 6 min/max,
+//      2 zero tests, entry and exit per axis: 52 operations an element in
+//      place of 88, with no select or shared load inside the chain.
+//    - every other block (an axis that straddles zero) runs the chain.
+// K3 and K5 keep the chain (interval_entry) for their warp summaries.
+constexpr int kCullClusters = 128;  // a tile's clusters: one a thread
+constexpr int kCullBlocks = 16;     // a tile's ray blocks: each thread loops over them
+constexpr bool kCullCases = true;   // the dead-block and sign cases (else the chain everywhere)
+// a summary's flags, kept in its pad slot [15] in shared memory
+constexpr int kCullDead = 1, kCullCased = 2;
 
 // K2's chain for one interval summary s[16] (olo xyz | ohi xyz | ilo xyz |
 // ihi xyz | min tmin | max t-limit) against one box (bmin, bmax xyz): the
@@ -63,20 +98,88 @@ __device__ __forceinline__ float interval_entry(const float* __restrict__ s, con
   return entry <= exit_ ? entry : kInf;
 }
 
-__global__ void __launch_bounds__(kCullThreads)
+// The sign case of interval_entry (note 2 above) on a summary whose flags
+// say cased: returns false where it cannot vouch for the chain's bits.
+__device__ __forceinline__ bool cased_entry(const float* __restrict__ s, const float* bmin,
+                                            const float* bmax, float& e) {
+  float entry = -kInf, exit_ = kInf;
+  bool ok = true;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float il = s[6 + a], ih = s[9 + a];
+    const float n0lo = bmin[a] - s[3 + a], n1hi = bmax[a] - s[a];
+    const float p1 = n0lo * il, p2 = n0lo * ih, p3 = n1hi * il, p4 = n1hi * ih;
+    const float lo = fminf(fminf(p1, p2), fminf(p3, p4));
+    const float hi = fmaxf(fmaxf(p1, p2), fmaxf(p3, p4));
+    ok = ok && fabsf(lo) > 0.f && fabsf(hi) > 0.f;  // false for +-0
+    entry = fmaxf(entry, lo);
+    exit_ = fminf(exit_, hi);
+  }
+  entry = fmaxf(entry, s[12]);
+  exit_ = fminf(exit_, s[13]);
+  e = entry <= exit_ ? entry : kInf;
+  return ok;
+}
+
+// The full chain out of line, so that the rare element of a cased block
+// that needs it branches to it instead of predicating it everywhere.
+__device__ __noinline__ float interval_entry_call(const float* s, float x0, float y0, float z0,
+                                                  float x1, float y1, float z1) {
+  const float bmin[3] = {x0, y0, z0}, bmax[3] = {x1, y1, z1};
+  return interval_entry(s, bmin, bmax);
+}
+
+// A summary's flags (kCullDead, kCullCased): pairs.py::cull_row_cases.
+__device__ __forceinline__ int cull_flags(const float* s) {
+  if (s[12] > s[13]) return kCullDead;
+  bool cased = true;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float olo = s[a], ohi = s[3 + a], il = s[6 + a], ih = s[9 + a];
+    cased = cased && (il > 0.f || ih < 0.f) && il <= ih && fabsf(il) < kInf &&
+            fabsf(ih) < kInf && olo <= ohi;
+  }
+  return cased ? kCullCased : 0;
+}
+
+__global__ void __launch_bounds__(kCullClusters)
 cull_kernel(const float* __restrict__ summ, const float* __restrict__ cb6,
             float* __restrict__ out, int B, int K) {
-  const int64_t idx = int64_t(blockIdx.x) * kCullThreads + threadIdx.x;
-  if (idx >= int64_t(B) * K) return;
-  const int b = int(idx / K);
-  const int k = int(idx - int64_t(b) * K);
+  __shared__ __align__(16) float s_summ[kCullBlocks * 16];
+  const int k = blockIdx.x * kCullClusters + threadIdx.x;
+  const int b0 = blockIdx.y * kCullBlocks;
+  const int nb = min(kCullBlocks, B - b0);
+  for (int i = threadIdx.x; i < nb * 16; i += kCullClusters)
+    s_summ[i] = summ[int64_t(b0) * 16 + i];
+  __syncthreads();
+  if (threadIdx.x < nb)
+    s_summ[threadIdx.x * 16 + 15] = __int_as_float(cull_flags(s_summ + threadIdx.x * 16));
+  __syncthreads();
+  if (k >= K) return;
   float bmin[3], bmax[3];
+  bool box_ok = true;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     bmin[a] = cb6[int64_t(a) * K + k];
     bmax[a] = cb6[int64_t(3 + a) * K + k];
+    box_ok = box_ok && bmin[a] <= bmax[a];
   }
-  out[idx] = interval_entry(summ + int64_t(b) * 16, bmin, bmax);  // block summary
+  float* row = out + int64_t(b0) * K + k;
+#pragma unroll 2
+  for (int r = 0; r < nb; ++r, row += K) {
+    const float* s = s_summ + r * 16;
+    const int flags = __float_as_int(s[15]);
+    float e;
+    if (kCullCases && (flags & kCullDead)) {
+      e = kInf;
+    } else if (kCullCases && (flags & kCullCased) && box_ok) {
+      if (!cased_entry(s, bmin, bmax, e))
+        e = interval_entry_call(s, bmin[0], bmin[1], bmin[2], bmax[0], bmax[1], bmax[2]);
+    } else {
+      e = interval_entry(s, bmin, bmax);
+    }
+    *row = e;
+  }
 }
 
 // ---------------------------------------------------------------------- K3
@@ -87,7 +190,7 @@ cull_kernel(const float* __restrict__ summ, const float* __restrict__ cb6,
 // overlaps it (+inf if none), and the block's walk: the clusters of finite
 // entry in ascending (entry, id) order, their entries and their count.
 //
-// Bound: FP32 ALU, a slab test (~20 operations) per lane and cluster that
+// Bound: FP32 ALU, a slab test (27 operations) per lane and cluster that
 // no exact skip removes, and the [B, K] e_con read and e_init write. Run
 // in full that is every lane against every cluster of the tiles K2 leaves,
 // and the earlier kernel (one thread a cluster, every lane in turn) did
@@ -393,7 +496,7 @@ size_t refine_walk_smem(int K) {
 // overlaps the cluster's box, else 0; 0 where member_ok is clear. lim row 1
 // is the lane's current limit (its best t, -inf once occluded).
 //
-// Bound: FP32 ALU, a slab test (12 operations) per lane and member that no
+// Bound: FP32 ALU, a slab test (27 operations) per lane and member that no
 // exact skip removes, and the ids, flags and output ([B, W]) with the
 // lanes' 8 floats. Run in full that is every lane against every member
 // that no lane passes (85 % of a window's members on classroom) in every
@@ -632,11 +735,10 @@ size_t sweep_smem(int C, int lanes) {
 // K2: summ [B, 16], cb6 [6, K] -> out [B, K].
 extern "C" int akr_cull(const float* summ, const float* cb6, float* out, int B, int K,
                         void* stream) {
-  const int64_t total = int64_t(B) * K;
-  if (total <= 0) return 0;
-  const unsigned grid = unsigned((total + kCullThreads - 1) / kCullThreads);
-  cull_kernel<<<grid, kCullThreads, 0, static_cast<cudaStream_t>(stream)>>>(summ, cb6, out,
-                                                                              B, K);
+  if (B <= 0 || K <= 0) return 0;
+  const dim3 grid((K + kCullClusters - 1) / kCullClusters, (B + kCullBlocks - 1) / kCullBlocks);
+  cull_kernel<<<grid, kCullClusters, 0, static_cast<cudaStream_t>(stream)>>>(summ, cb6, out, B,
+                                                                               K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -723,7 +825,7 @@ extern "C" int akr_sweep(const int32_t* worder, const float* went, const int32_t
 // candidate, block_lanes lanes a block and, for K3, K clusters: out is a
 // host array [4][6] (akr::kernel_info's layout).
 extern "C" int akr_pairs_kernel_info(int32_t* out, int C, int block_lanes, int K) {
-  cudaError_t err = akr::kernel_info(cull_kernel, kCullThreads, 0, out);
+  cudaError_t err = akr::kernel_info(cull_kernel, kCullClusters, 0, out);
   if (err == cudaSuccess)
     err = akr::kernel_info(refine_walk_kernel, kRefineThreads, refine_walk_smem(K), out + 6);
   if (err == cudaSuccess)

@@ -14,8 +14,8 @@ still evaluates exactly its own kind's closure. Only live lanes are
 shaded; the JAX package shades dead lanes too and discards the results.
 With AKR_PALLAS_SHADE on (not "0"), a scene whose kinds all bake into the
 reduced principled closure (Scene.shade_bake), NEE on and force_diffuse
-off, the live lanes go through K9 (fused_shade.py) in one launch per
-bounce instead, as in the JAX package.
+off, the wavefront goes through K9 (fused_shade.py) in one launch per
+bounce instead, masked by the live lanes, as in the JAX package.
 
 Not ported: the fused shadow/next-bounce traversal (AKR_FUSE_RAYS), the
 split-compacted resume (depth_end/resume_state), per-depth taps (GPT) and
@@ -90,17 +90,10 @@ def uses_fused_shade(scene: Scene, settings: PTSettings) -> bool:
 
 def _fused_shade_live(bake, si, extra: dict, lanes):
     """fused_shade (K9) over the lanes where `lanes` is True; other lanes
-    get zeros, as from dispatch_shade."""
-    n = lanes.shape[0]
-    rows = torch.nonzero(lanes).squeeze(1)
-    t, b, ns = (f[rows] for f in si["frame"])
-    res = fused_shade(bake, t, b, ns, si["ng"][rows], *(extra[k][rows] for k in (
-        "wo", "ls_wi", "ls_li", "ls_pdf", "u_bsdf")), si["mat"][rows])
-    out = {}
-    for key, v in res.items():
-        out[key] = torch.zeros((n,) + v.shape[1:], dtype=v.dtype, device=v.device)
-        out[key][rows] = v
-    return out
+    get zeros, as from dispatch_shade. On the card it is one launch over
+    the wavefront's rows as they lie (no compaction, no host read)."""
+    return fused_shade(bake, *si["frame"], si["ng"], *(extra[k] for k in (
+        "wo", "ls_wi", "ls_li", "ls_pdf", "u_bsdf")), si["mat"], live=lanes)
 
 
 def _emission_at(scene: Scene, si, wo, lanes):

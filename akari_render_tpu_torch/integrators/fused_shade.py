@@ -11,9 +11,11 @@ sh dict of dispatch_shade: direct, wi, f, pdf, valid and albedo.
 `fused_shade` routes by device: CPU tensors take the plain version
 (`fused_shade_torch`, the kernel's per-lane math on [N] tensors), CUDA
 tensors launch the kernel or raise. The kernel reads each per-lane input
-where it lies ([N, 3] or [N]); the JAX package's stacking of 26 input rows
-into one array is not ported, nor its block knob AKR_PSHADE_BLOCK or the
-id-keyed bake cache (_BAKES, for jit traces).
+where it lies ([N, 3] or [N]) and, given the live mask, runs over the
+whole wavefront in one launch (zeros on the dead lanes), as the TPU kernel
+did; the JAX package's stacking of 26 input rows into one array is not
+ported, nor its block knob AKR_PSHADE_BLOCK or the id-keyed bake cache
+(_BAKES, for jit traces).
 
 Routing (integrators/common.py): AKR_PALLAS_SHADE other than "0", with a
 bake, NEE on, force_diffuse off, RGB transport.
@@ -50,11 +52,23 @@ def _split(x):
     return x[:, 0], x[:, 1], x[:, 2]
 
 
-def fused_shade_torch(bake, t, b, n, ng, wo, ls_wi, ls_li, ls_pdf, u_bsdf, mat):
+def fused_shade_torch(bake, t, b, n, ng, wo, ls_wi, ls_li, ls_pdf, u_bsdf, mat, live=None):
     """The plain version of K9. bake = (table [M, MAT_COLS], has_spec,
     has_metal); t, b, n (the shading frame), ng, wo, ls_wi, ls_li, u_bsdf
-    [N, 3]; ls_pdf [N]; mat [N] material ids. Returns dict(direct, wi, f
-    [N, 3], pdf [N], valid [N] bool, albedo [N, 3])."""
+    [N, 3]; ls_pdf [N]; mat [N] material ids; live [N] bool or None (every
+    lane). Returns dict(direct, wi, f [N, 3], pdf [N], valid [N] bool,
+    albedo [N, 3]). With `live`, the lanes it selects are shaded (by index:
+    a dead lane's inputs, which may hold NaN, enter no arithmetic) and the
+    others get zeros, as from dispatch_shade."""
+    if live is not None:
+        rows = torch.nonzero(live).squeeze(1)
+        res = fused_shade_torch(bake, *(x[rows] for x in (t, b, n, ng, wo, ls_wi, ls_li, ls_pdf,
+                                                          u_bsdf, mat)))
+        out = {}
+        for key, v in res.items():
+            out[key] = torch.zeros((live.shape[0],) + v.shape[1:], dtype=v.dtype, device=v.device)
+            out[key][rows] = v
+        return out
     tab, has_spec, has_metal = bake
     sh = reduced_shade(tab[mat.long()], has_spec, has_metal, (_split(t), _split(b), _split(n)),
                        _split(ng), _split(wo), _split(ls_wi), _split(ls_li), ls_pdf,
@@ -73,7 +87,7 @@ def build() -> ctypes.CDLL:
             build_seconds = secs
         lib = ctypes.CDLL(str(so))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.akr_fused_shade.argtypes = [vp, ci, ci, ci] + [vp] * 10 + [vp] * 6 + [ci, vp]
+        lib.akr_fused_shade.argtypes = [vp, ci, ci, ci] + [vp] * 8 + [ci, vp]
         lib.akr_fused_shade.restype = ci
         lib.akr_fused_shade_kernel_info.argtypes = [vp, ci, ci, ci]
         lib.akr_fused_shade_kernel_info.restype = ci
@@ -94,13 +108,16 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def fused_shade(bake, t, b, n, ng, wo, ls_wi, ls_li, ls_pdf, u_bsdf, mat):
+def fused_shade(bake, t, b, n, ng, wo, ls_wi, ls_li, ls_pdf, u_bsdf, mat, live=None):
     """K9 (replaces akari_render_tpu/integrators/pallas_shade.py::_kernel,
-    via _run): the arguments and result of fused_shade_torch."""
+    via _run): the arguments and result of fused_shade_torch. On the card
+    one launch reads every input where it lies: [N, 3] rows with any row
+    stride (inner stride 1: a strided view such as the flat tier's ng is
+    not copied), and writes every lane, zeros where `live` is False."""
     global launches
     dev = t.device
     if dev.type == "cpu":
-        return fused_shade_torch(bake, t, b, n, ng, wo, ls_wi, ls_li, ls_pdf, u_bsdf, mat)
+        return fused_shade_torch(bake, t, b, n, ng, wo, ls_wi, ls_li, ls_pdf, u_bsdf, mat, live)
     if dev.type != "cuda":
         raise ValueError(f"fused_shade: unsupported device {dev}")
     tab, has_spec, has_metal = bake
@@ -111,15 +128,23 @@ def fused_shade(bake, t, b, n, ng, wo, ls_wi, ls_li, ls_pdf, u_bsdf, mat):
         if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape:
             raise ValueError(f"fused_shade: {name} must be float32 {shape} on {dev}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
-        return x.contiguous()
+        return x
 
-    tab = f32("table", tab, (M, MAT_COLS))
-    vecs = [f32(k, x, (N, 3)) for k, x in (("t", t), ("b", b), ("n", n), ("ng", ng), ("wo", wo),
-                                           ("ls_wi", ls_wi), ("ls_li", ls_li), ("u_bsdf", u_bsdf))]
-    ls_pdf = f32("ls_pdf", ls_pdf, (N,))
+    def rows3(name, x):  # [N, 3] with inner stride 1: the kernel takes its row stride
+        x = f32(name, x, (N, 3))
+        return x if x.stride(1) == 1 and x.stride(0) >= 3 else x.contiguous()
+
+    tab = f32("table", tab, (M, MAT_COLS)).contiguous()
+    vecs = [rows3(k, x) for k, x in (("t", t), ("b", b), ("n", n), ("ng", ng), ("wo", wo),
+                                      ("ls_wi", ls_wi), ("ls_li", ls_li), ("u_bsdf", u_bsdf))]
+    ls_pdf = f32("ls_pdf", ls_pdf, (N,)).contiguous()
     if mat.device != dev or tuple(mat.shape) != (N,):
         raise ValueError("fused_shade: mat must be [N] on the lanes' device")
-    mat = mat.to(torch.int32).contiguous()
+    mat = mat.to(torch.int32).contiguous()  # the scenes store int32: no copy
+    if live is not None:
+        if live.device != dev or live.dtype != torch.bool or tuple(live.shape) != (N,):
+            raise ValueError("fused_shade: live must be bool [N] on the lanes' device")
+        live = live.contiguous()
     out = {k: torch.empty(s, dtype=dt, device=dev) for k, s, dt in (
         ("direct", (N, 3), torch.float32), ("wi", (N, 3), torch.float32),
         ("f", (N, 3), torch.float32), ("pdf", (N,), torch.float32),
@@ -127,13 +152,15 @@ def fused_shade(bake, t, b, n, ng, wo, ls_wi, ls_li, ls_pdf, u_bsdf, mat):
     if N == 0:
         return out
     lib = build()
+    in3 = (ctypes.c_void_p * 8)(*(x.data_ptr() for x in vecs))
+    strides = (ctypes.c_int64 * 8)(*(x.stride(0) for x in vecs))
+    out3 = (ctypes.c_void_p * 4)(*(out[k].data_ptr() for k in ("direct", "wi", "f", "albedo")))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.akr_fused_shade(
-            _ptr(tab), M, int(bool(has_spec)), int(bool(has_metal)),
-            *(_ptr(x) for x in vecs[:7]), _ptr(ls_pdf), _ptr(vecs[7]), _ptr(mat),
-            _ptr(out["direct"]), _ptr(out["wi"]), _ptr(out["f"]), _ptr(out["pdf"]),
-            _ptr(out["valid"]), _ptr(out["albedo"]), N, ctypes.c_void_p(stream))
+            _ptr(tab), M, int(bool(has_spec)), int(bool(has_metal)), in3, strides, _ptr(ls_pdf),
+            _ptr(mat), _ptr(live) if live is not None else ctypes.c_void_p(0), out3, _ptr(out["pdf"]),
+            _ptr(out["valid"]), N, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused shade kernel launch failed: CUDA error {err}")
     launches += 1

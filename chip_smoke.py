@@ -26,12 +26,16 @@ Phases (any failure exits non-zero; nothing is caught):
 7. K2/K3/K4 parity at classroom's shapes: the unified candidate list
    (4,633 clusters) against 2^18 rays (1080p camera rays, rays from
    interior points, shadow segments, dead and NaN lanes, exclusion ids),
-   each kernel against its plain version, bit-equal (K3 with the walk
-   order: e_init, kcnt and each walk's prefix), with counters and CUDA
-   event timings; K3 in one 1080p sample of the main path, every launch
-   timed beside the PyTorch chain of its sort half (walk_order) and the
-   first two held against the plain version; and the pair sweep against
-   K1 over the fully flattened world soup, an independent check;
+   each kernel against its plain version, bit-equal (K2 equal, with the
+   count of bit patterns that differ, which may only be zeros of the other
+   sign, and its twin's cases; K3 with the walk order: e_init, kcnt and
+   each walk's prefix), with counters and CUDA event timings (K2 by device
+   time); K3 in one 1080p sample of the main path, every launch timed
+   beside the PyTorch chain of its sort half (walk_order) and the first two
+   held against the plain version, and every K2 launch of that sample held
+   against its plain chain and timed by its device record with its bound;
+   and the pair sweep against K1 over the fully flattened world soup, an
+   independent check;
 8. cluster-tier correctness: classroom 96x96, 16 spp, d12 through the CLI,
    held against the committed JAX image (testdata/classroom96_spp16.npy)
    and the committed 512-spp ground truth (BENCH_MSE_CLASSROOM.gt.exr);
@@ -40,10 +44,15 @@ Phases (any failure exits non-zero; nothing is caught):
    counted and every K3 and K4 launch timed;
 10. build: the path megakernel K8 (csrc/megakernel.cu) and the fused shade
    K9 (csrc/fused_shade.cu), in the same parallel build as phases 2 and 6;
-11. K9 parity: the live lanes of the first bounce of a path-B sample of
-   blinds 256x256 (the main path's inputs), and 2^18 lanes of seeded
-   blinds shade inputs, kernel against its plain version, with CUDA event
-   timings and the profiler's device time at both;
+11. K9 parity: the first bounce of a path-B sample of blinds 256x256 (the
+   main path's inputs): the masked kernel over the whole 65,536-lane
+   wavefront against the masked plain version, and the unmasked kernel on
+   its live lanes compacted; 2^18 lanes of seeded blinds shade inputs;
+   each with the lanes bit-equal on every output, CUDA event timings and
+   the profiler's device time; the bounce loop's shade call on that
+   wavefront as exactly one device event (torch.profiler); and every K9
+   launch of one path-B sample with its lanes, live lanes, device time and
+   bound;
 12. K8 parity: blinds 256x256, 16 spp, d12 (one pass of the main path),
    the kernel pass against its plain version, bit-equal per pixel and on
    the rays each traced, with the time of each, and its warps' SIMT efficiency with
@@ -59,7 +68,7 @@ Phases (any failure exits non-zero; nothing is caught):
    dispatch; path A: K8 once per pass) and, as the baseline, the
    wavefront with the per-kind dispatch at one 16-spp pass, with every
    kernel's launches counted per path, and the device events of one sample
-   of each read from torch.profiler;
+   of each (path B's printed) read from torch.profiler;
 15. build: the wide-BVH walk K7 (csrc/wide.cu), in the same parallel build
    (K5, the window refine, is part of csrc/pairs.cu);
 16. K7 and K5 parity on phase 7's classroom rays: the wide walk's kernel
@@ -104,12 +113,15 @@ at classroom's shapes against its plain version; no main path calls it.
 
 It prints a JSON line of kernel results (with each kernel's bound: the
 bytes it must move over 3.35 TB/s or the FP32 operations this run's data
-needs over 67 TFLOP/s, whichever is longer; a lane's slab test of one box
-counted as 12; for K1, K4, K6 and K7 the operations are those the
-candidate test needs lane by lane with its box test, from its counters,
-for K3 those its counters show (summary tests and units of slab tests),
-and `full_count_ms` beside them is the time of the count before the skips:
-every live lane against every triangle, slot or cluster of a live tile;
+needs over 67 TFLOP/s, whichever is longer; the operations of each test
+counted from the sources (MT_FLOPS and the constants beside it); for K1,
+K4, K6 and K7 the operations are those the candidate test needs lane by
+lane with its box test, from its counters, for K3 and K5 those their
+counters show (summary tests and units of slab tests), for K2 those of
+each row's case (dead, sign case, full chain), and `full_count_ms` beside
+them is the time of the count before the skips: every live lane against
+every triangle, slot or cluster of a live tile, every K2 element through
+the full chain;
 each kernel's registers and resident blocks), the card's name and power
 limit, and last a JSON line {"ok": true, "device": {...}}.
 """
@@ -161,13 +173,49 @@ K9_VALID_FRAC = 1e-5
 # the tensor cores, and HBM bandwidth
 FP32_PEAK = 67e12
 HBM_BPS = 3.35e12
-# FP32 operations of one Möller-Trumbore ray-triangle test (adds, multiplies
-# and the division; compares not counted), as K1, K4, K6 and K8 write it
-MT_FLOPS = 46
-# a ray's world->local transform, and the candidate test's widened box test
-# (a slab test's 12 plus the margin's 11)
+# FP32 operations, counted from the sources: every add, subtract,
+# multiply, division, square root, min, max, compare and select is one (an
+# abs is an operand modifier, a library call such as sinf one). Built with
+# -fmad=false, each instruction carries one, so the card issues them at
+# half the 67 TFLOP/s of FMAs: the bounds below are half what an issue
+# bound would give.
+# one Möller-Trumbore ray-triangle test (csrc/candidate_test.cuh:265-285,
+# mt_slot: 45 adds and multiplies, the division, 4 compares and inv_det's
+# select), as K1, K4, K6 and K8 (csrc/megakernel.cu:104-117) write it
+MT_FLOPS = 51
+# what the candidate test adds a slot tested (candidate_test.cuh:385-387:
+# the id offset, t against [tmin, best t], three exclusion compares)
+SLOT_FLOPS = 6
+# K8's a (ray, triangle): t > 0, t < tmax and t < best t
+# (megakernel.cu:118-122)
+K8_TRI_FLOPS = MT_FLOPS + 3
+# a ray's world->local transform (candidate_test.cuh:356-361)
 XF_FLOPS = 33
-BOX_FLOPS = 23
+# the candidate test's widened box test (candidate_test.cuh:234-246,
+# box_pass: the margin 10, the widened bounds, subtractions and products
+# 18, near and far 12, the compare)
+BOX_FLOPS = 41
+# K2's interval chain on one summary and box (csrc/pairs.cu::interval_entry:
+# per axis 4 subtractions, 8 products, 12 min/max, 4 for entry and exit;
+# two clamps, the compare and the select), and K2's sign case of it
+# (pairs.cu::cased_entry: per axis 2 subtractions, 4 products, 6 min/max,
+# 2 zero tests, entry and exit; the clamps, compare and select)
+CHAIN_FLOPS = 88
+CASED_FLOPS = 52
+# one lane's slab test of a box (pairs.cu::lane_slab, K3 and K5: per axis
+# 2 subtractions, 2 products, 4 min/max; two clamps and the compare); K7's
+# node step tests 8 children with it and selects each entry
+SLAB_FLOPS = 27
+K7_NODE_FLOPS = 8 * (SLAB_FLOPS + 1)
+# K9, a live lane of blinds' closure (csrc/reduced_closure.cuh::
+# reduced_shade<SPEC, no METAL, ALBEDO>): the closure 47 (the frame's flip
+# and wo's side test 24, wo in the frame 15, the albedo table 8); NEE 249
+# (to_local 15, bsdf_eval 202 of which ggx_refl_base1 112 and
+# fr_dielectric1 31, the side test 17, the MIS weight and scale 15); the
+# sample 369 (the lobe pick 5, ggx_sample_wh1 97, the reflection 7, the
+# cosine sample 16, the pick and valid 5, the world direction 15, bsdf_eval
+# 202, the side test and the selects 22); the albedo 18
+K9_LIVE_FLOPS = 47 + 249 + 369 + 18
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -301,7 +349,7 @@ def full_count_ops(reached, lanes, C: int) -> float:
     every slot of every candidate its walk must reach (the bound's count
     before the box test; kept so that times stay comparable with it).
     reached, lanes: per block [B]."""
-    return float((reached.double() * lanes.double()).sum()) * (XF_FLOPS + C * (MT_FLOPS + 1))
+    return float((reached.double() * lanes.double()).sum()) * (XF_FLOPS + C * (MT_FLOPS + SLOT_FLOPS))
 
 
 def box_test_ops(reached, lanes) -> float:
@@ -317,7 +365,7 @@ def needed_ops(reached, lanes, stats, C: int) -> float:
     tested: inside the box, or a sliver slot."""
     st = stats.double().sum(0)
     return (box_test_ops(reached, lanes) + float(st[0]) / -(-C // 32) * XF_FLOPS
-            + float(st[2]) * (MT_FLOPS + 1))
+            + float(st[2]) * (MT_FLOPS + SLOT_FLOPS))
 
 
 def issued_ops(reached, stats, warps: int) -> float:
@@ -328,7 +376,7 @@ def issued_ops(reached, stats, warps: int) -> float:
     passing lane's transform is counted as a warp's."""
     st = stats.double().sum(0)
     per_warp = (float(reached.double().sum()) * warps * BOX_FLOPS + float(st[1]) * XF_FLOPS
-                + float(st[0]) * (MT_FLOPS + 1))
+                + float(st[0]) * (MT_FLOPS + SLOT_FLOPS))
     return 32.0 * per_warp
 
 
@@ -415,10 +463,10 @@ def k1_bound(n_live, walked, stats, tiles, n: int, T: int):
     count is every live lane against every triangle (the earlier bound)."""
     ops = box_test_ops(walked, n_live)
     if stats is not None:
-        ops += float(stats.double().sum(0)[2]) * (MT_FLOPS + 1)
+        ops += float(stats.double().sum(0)[2]) * (MT_FLOPS + SLOT_FLOPS)
     nbytes = 60.0 * n + 4.0 * (tiles.tri.numel() + tiles.boxes.numel() + tiles.slots.numel())
     b_ms, b_by = bound(ops, nbytes)
-    return b_ms, b_by, bound(float(n_live.double().sum()) * T * MT_FLOPS, 0.0)[0]
+    return b_ms, b_by, bound(float(n_live.double().sum()) * T * (MT_FLOPS + SLOT_FLOPS), 0.0)[0]
 
 
 def k1_parity(scene, device):
@@ -768,6 +816,46 @@ def explain_disagreements(o, d, tmin, tmax, hk, hp, bad, scene, sg, soup, info):
     return same, gap, edge
 
 
+def k2_check(label, got, want, summ, cb6) -> dict:
+    """K2 against its plain chain (cull_einit_torch): equal, and every bit
+    pattern that differs (int32 views) a zero of the other sign; the count
+    printed. Also the kernel's twin (cull_einit_cased_torch) against the
+    chain, bit for bit. Returns the twin's tally of the rows' cases."""
+    import torch
+
+    from akari_render_tpu_torch.accel import pairs
+
+    tally = {}
+    twin = pairs.cull_einit_cased_torch(summ, cb6, tally)
+    differ = got.view(torch.int32) != want.view(torch.int32)
+    n_diff = int(differ.sum())
+    zeros = bool((got[differ] == 0).all()) and bool((want[differ] == 0).all())
+    print(f"K2 parity, {label}: {tuple(got.shape)}, equal {torch.equal(got, want)}, bit patterns "
+          f"that differ {n_diff} (all +-0: {zeros}); the twin bit-equal "
+          f"{torch.equal(twin.view(torch.int32), want.view(torch.int32))}; elements by the row's "
+          f"case {tally}", flush=True)
+    check(torch.equal(got, want), f"K2 e_con differs from its plain version ({label})")
+    check(zeros, f"K2's bit patterns differ from its plain version's off +-0 ({label})")
+    check(torch.equal(twin.view(torch.int32), want.view(torch.int32)),
+          f"K2's twin differs from the chain ({label})")
+    tally["B"], tally["K"] = summ.shape[0], cb6.shape[1]
+    tally["bits_differ"] = n_diff
+    return tally
+
+
+def k2_bound(rows: dict):
+    """(bound ms, by, full-count ms) of one K2 launch from k2_check's tally:
+    the operations of each element's case (a dead row none, a sign case
+    CASED_FLOPS, the chain CHAIN_FLOPS, a fallback both) against the bytes
+    (e_con written, the summaries and boxes read once). The full count: the
+    chain on every element."""
+    B, K = rows["B"], rows["K"]
+    ops = (CASED_FLOPS * (rows["cased"] - rows["fallback"])
+           + (CASED_FLOPS + CHAIN_FLOPS) * rows["fallback"] + CHAIN_FLOPS * rows["full"])
+    b_ms, b_by = bound(float(ops), 4.0 * (B * K + 16 * B + 6 * K))
+    return b_ms, b_by, bound(float(CHAIN_FLOPS) * B * K, 0.0)[0]
+
+
 def k3_check(label, got, want):
     """K3 with the walk order against its plain version (refine_all_torch,
     walk_order): e_init bit-equal, worder and went equal up to each block's
@@ -802,25 +890,31 @@ def k3_work(e_con, kcnt, counts):
 
 def k3_bound(B, K, counts, walk, live_tiles):
     """(bound ms, by, full-count ms) of one K3 launch (k3_work's
-    arguments): K2's chain (36 operations) per (cluster, warp) summary test
-    and a slab test (12) per lane of a unit run, from its counters, against
-    the bytes (e_con read, e_init written, the lanes' 8 floats, the boxes,
-    the walk's prefix). The full count: 12 per lane x cluster of the
-    256-cluster tiles K2 leaves (what the earlier kernel ran)."""
+    arguments): K2's chain (CHAIN_FLOPS) per (cluster, warp) summary test
+    and a slab test (SLAB_FLOPS) per lane of a unit run, from its counters,
+    against the bytes (e_con read, e_init written, the lanes' 8 floats, the
+    boxes, the walk's prefix). The full count: a slab test per lane x
+    cluster of the 256-cluster tiles K2 leaves (what the earlier kernel
+    ran)."""
     from akari_render_tpu_torch.accel import pairs
 
     nbytes = 4.0 * (2 * B * K + 8 * B * pairs.BLOCK + 6 * K + B) + 8.0 * float(walk)
-    b_ms, b_by = bound(36.0 * float(counts[0]) + 12.0 * 32 * float(counts[1]), nbytes)
-    return b_ms, b_by, bound(12.0 * float(live_tiles) * pairs.BLOCK * pairs.RALL_TILE, 0.0)[0]
+    b_ms, b_by = bound(CHAIN_FLOPS * float(counts[0]) + SLAB_FLOPS * 32.0 * float(counts[1]),
+                       nbytes)
+    full = SLAB_FLOPS * float(live_tiles) * pairs.BLOCK * pairs.RALL_TILE
+    return b_ms, b_by, bound(full, 0.0)[0]
 
 
 def k3_render_sample(scene, device):
     """One sample of classroom at 1920x1080 (phase 9's main path, outside
     the CLI) with every K3 launch timed by CUDA events and the sort half's
-    PyTorch chain (walk_order on the launch's e_init) timed beside it; the
+    PyTorch chain (walk_order on the launch's e_init) timed beside it, the
     first two launches (camera rays, then their shadow rays) held against
-    the plain version, bit-equal. Returns the means."""
+    the plain version, bit-equal; and every K2 launch held against its plain
+    chain (k2_check) and timed by its device record (torch.profiler over
+    the sample, padded at both ends). Returns K3's and K2's means."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from akari_render_tpu_torch.accel import pairs
     from akari_render_tpu_torch.config import RenderTask
@@ -833,6 +927,7 @@ def k3_render_sample(scene, device):
     settings = PTSettings(max_depth=m.max_depth, rr_depth=m.rr_depth, use_nee=m.use_nee,
                           clamp_indirect=m.clamp_indirect)
     real, rec = pairs.refine_walk, []
+    real_k2, k2_rec = pairs.cull_einit, []
 
     def wrapped(*a, **kw):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -847,12 +942,22 @@ def k3_render_sample(scene, device):
         rec.append((ev, k3_work(a[4], out[3], counts)))
         return out
 
-    pairs.refine_walk = wrapped
+    def cull(summ, cb6):
+        out = real_k2(summ, cb6)
+        k2_rec.append(k2_check(f"launch {len(k2_rec)} of a 1080p sample", out,
+                               pairs.cull_einit_torch(summ, cb6), summ, cb6))
+        return out
+
+    pairs.refine_walk, pairs.cull_einit = wrapped, cull
     try:
-        render_sample(scene, settings, filter_from_config(task.filter_config), 0, task.seed,
-                      task.sampler)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad_profiler_window()
+            render_sample(scene, settings, filter_from_config(task.filter_config), 0, task.seed,
+                          task.sampler)
+            torch.cuda.synchronize()
+            pad_profiler_window()
     finally:
-        pairs.refine_walk = real
+        pairs.refine_walk, pairs.cull_einit = real, real_k2
     torch.cuda.synchronize()
     k3 = [e[0].elapsed_time(e[1]) for e, _ in rec]
     chain = [e[1].elapsed_time(e[2]) for e, _ in rec]
@@ -865,7 +970,28 @@ def k3_render_sample(scene, device):
           f"{out['ms_min']:.4f}, most {out['ms_max']:.4f}; mean bound {out['bound_ms']:.4f}); "
           f"walk_order's argsort chain on the same e_init, mean {out['library_ms']:.4f} ms a "
           f"launch; each launch's ms (summary tests, units run, mean walk): {per}", flush=True)
-    return out
+    dev = [d / 1e6 for _, d in sorted(
+        (e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA and "cull_kernel" in e.name())]
+    check(len(dev) >= len(k2_rec) // 2,
+          f"the profiler recorded {len(dev)} of the sample's {len(k2_rec)} K2 launches")
+    b2 = [k2_bound(r) for r in k2_rec]
+    k2 = {"launches": len(k2_rec), "recorded": len(dev), "device_ms": sum(dev) / len(dev),
+          "device_ms_min": min(dev), "device_ms_max": max(dev),
+          "bound_ms": sum(b[0] for b in b2) / len(b2),
+          "full_count_ms": sum(b[2] for b in b2) / len(b2),
+          "bits_differ": sum(r["bits_differ"] for r in k2_rec),
+          "rows": {k: sum(r[k] for r in k2_rec) for k in ("dead", "cased", "fallback", "full")}}
+    per = "; ".join(f"{t:.4f} ({r['B']} blocks: dead {r['dead'] // r['K']}, sign cases "
+                    f"{r['cased'] // r['K']}, chain {r['full'] // r['K']}; bound {b[0]:.4f})"
+                    for t, r, b in zip(dev, k2_rec, b2))
+    print(f"K2 in one 1080p sample ({len(k2_rec)} launches, {len(dev)} device records), each equal "
+          f"to its plain chain: device time mean {k2['device_ms']:.4f} ms (least "
+          f"{k2['device_ms_min']:.4f}, most {k2['device_ms_max']:.4f}; mean bound "
+          f"{k2['bound_ms']:.4f}, the chain on every element {k2['full_count_ms']:.4f}); bit "
+          f"patterns that differ {k2['bits_differ']}; each launch's device ms (rows by case; "
+          f"bound): {per}", flush=True)
+    return out, k2
 
 
 def k5_work(args, counts, passed):
@@ -886,18 +1012,19 @@ def k5_work(args, counts, passed):
 
 def k5_bound(B, W, counts, blocks, full):
     """(bound ms, by, full-count ms) of one K5 launch (k5_work's
-    arguments): K2's chain (36 operations) per (member, warp) summary test
-    and a slab test (12) per lane of a unit run, from its counters, against
-    the bytes (every member's flag and result, 5 B; the id and box of each
-    member set, 28 B; the 8 floats of the lanes of each block with a member
-    set). The full count: 12 per slab test of k5_work's (every live lane
-    against every member set, each member's lanes in turn up to the first
-    that passes: no summary skip)."""
+    arguments): K2's chain (CHAIN_FLOPS) per (member, warp) summary test
+    and a slab test (SLAB_FLOPS) per lane of a unit run, from its counters,
+    against the bytes (every member's flag and result, 5 B; the id and box
+    of each member set, 28 B; the 8 floats of the lanes of each block with
+    a member set). The full count: a slab test per slab test of k5_work's
+    (every live lane against every member set, each member's lanes in turn
+    up to the first that passes: no summary skip)."""
     from akari_render_tpu_torch.accel import pairs
 
     nbytes = 5.0 * B * W + 28.0 * float(counts[0]) + 32.0 * pairs.BLOCK * float(blocks)
-    b_ms, b_by = bound(36.0 * float(counts[1]) + 12.0 * 32 * float(counts[2]), nbytes)
-    return b_ms, b_by, bound(12.0 * float(full), 0.0)[0]
+    b_ms, b_by = bound(CHAIN_FLOPS * float(counts[1]) + SLAB_FLOPS * 32.0 * float(counts[2]),
+                       nbytes)
+    return b_ms, b_by, bound(SLAB_FLOPS * float(full), 0.0)[0]
 
 
 class _TraversalDone(Exception):
@@ -1047,7 +1174,8 @@ def pairs_parity(device):
     B = s.summ.shape[0]
 
     e_con = pairs.cull_einit(s.summ, cb6)
-    e_con_p = pairs.cull_einit_torch(s.summ, cb6)
+    e_con_p, plain_k2 = timed(lambda: pairs.cull_einit_torch(s.summ, cb6))
+    k2_rows = k2_check("phase 7's rays", e_con, e_con_p, s.summ, cb6)
     k3_args = (cb6, s.o_soa, s.inv_soa, s.lim, e_con)
     k3_counts = torch.zeros((B, 2), dtype=torch.int32, device=device)
     e_init, *k3_order = pairs.refine_walk(*k3_args, counts=k3_counts)
@@ -1073,7 +1201,6 @@ def pairs_parity(device):
           f"{float(torch.isfinite(e_init).float().mean()):.4f} (walk length mean "
           f"{float(kcnt.mean()):.1f}, max {int(kcnt.max())}); max abs err K2 {errs['K2']} "
           f"K3 {errs['K3']} K4 {errs['K4']}", flush=True)
-    check(torch.equal(e_con, e_con_p), "K2 e_con differs from its plain version")
     for mode, (wk, wp) in walks.items():
         check(torch.equal(wk, wp), f"K4 walk ({mode}) differs from its plain version")
     hits = {m: int((w[0][1] >= 0).sum()) for m, w in walks.items()}
@@ -1122,30 +1249,32 @@ def pairs_parity(device):
     # the plain K3, K4 and K6 times are those of their parity calls above
     k2_t = event_and_device_ms(lambda: pairs.cull_einit(s.summ, cb6), 20, "cull_kernel")
     ms = {
-        "K2": (k2_t["ms"], cuda_ms(lambda: pairs.cull_einit_torch(s.summ, cb6), 3)),
+        "K2": (k2_t["ms"], plain_k2),
         "K3": (cuda_ms(lambda: pairs.refine_walk(*k3_args), 20), plain_ms["K3"]),
         "K4": (cuda_ms(lambda: pairs.sweep_walk(*walk_args, boxes=boxes), 5), plain_ms["K4"]),
         "K6": (cuda_ms(lambda: pairs.sweep(*k6_args), 5), plain_ms["K6"]),
     }
-    # bounds: K2 writes e_con (36 FP32 operations per element); K3 (k3_bound)
-    # runs K2's chain per (cluster, warp) summary tested and 12 per lane of a
-    # unit run, from its counters (its full count: 12 per lane x cluster of
-    # the 256-cluster tiles K2 leaves); K4 and K6 box-test each
-    # live lane against each candidate tested (23), transform the ray of a
-    # lane queued for it (33) and test it against the slots the box test
-    # leaves it (MT_FLOPS + 1 each): needed_ops, from the counters; they
-    # read each lane's 16 floats and write its 4. full_ms: the same with
-    # every live lane against every slot (the count before the box test)
+    # bounds: K2 writes e_con, with each row's case's operations (k2_bound);
+    # K3 (k3_bound) runs K2's chain per (cluster, warp) summary tested and a
+    # slab test per lane of a unit run, from its counters (its full count: a
+    # slab test per lane x cluster of the 256-cluster tiles K2 leaves); K4
+    # and K6 box-test each live lane against each candidate tested
+    # (BOX_FLOPS), transform the ray of a lane queued for it (XF_FLOPS) and
+    # test it against the slots the box test leaves it (MT_FLOPS +
+    # SLOT_FLOPS each): needed_ops, from the counters; they read each lane's
+    # 16 floats and write its 4. full_ms: the same with every live lane
+    # against every slot (the count before the box test)
     table_bytes = cl.tri.numel() * 4 + (cl.xf.numel() * 4 if cl.xf is not None else 0)
     k3_b = k3_bound(*k3_work(e_con, k3_order[2], k3_counts))
+    k2_b = k2_bound(k2_rows)
     bounds = {
-        "K2": bound(36.0 * B * K, 4.0 * (B * K + 16 * B + 6 * K)),
+        "K2": k2_b[:2],
         "K3": k3_b[:2],
         "K4": bound(needed_ops(walked, live_lanes, k4_stats, C),
                     80.0 * n + table_bytes + 8.0 * float(walked.sum())),
         "K6": bound(needed_ops(valid.sum(1), live_lanes, k6_stats, C), 80.0 * n + table_bytes),
     }
-    full_ms = {"K3": k3_b[2], "K4": bound(full_count_ops(walked, live_lanes, C), 0.0)[0],
+    full_ms = {"K2": k2_b[2], "K3": k3_b[2], "K4": bound(full_count_ops(walked, live_lanes, C), 0.0)[0],
                "K6": bound(full_count_ops(valid.sum(1), live_lanes, C), 0.0)[0]}
     library_ms = {"K3": cuda_ms(lambda: pairs.walk_order(e_init), 20)}
     kc = k3_counts.double().sum(0)
@@ -1154,7 +1283,9 @@ def pairs_parity(device):
           f"({kc[1] / max(kc[0], 1):.4f} of the tests); walk length mean "
           f"{float(k3_order[2].float().mean()):.1f}; the sort half's PyTorch chain (walk_order: "
           f"stable argsort, gather, count) {library_ms['K3']:.4f} ms", flush=True)
-    print(f"K2 at classroom's shapes: {times_text(k2_t)}", flush=True)
+    print(f"K2 at classroom's shapes ({B} blocks x {K} clusters): {times_text(k2_t)}; bound "
+          f"{k2_b[0]:.4f} ms by {k2_b[1]} (the full chain on every element {k2_b[2]:.4f} ms)",
+          flush=True)
     print("pair kernel times at classroom's shapes (closest-hit walk for K4): " + ", ".join(
         f"{k} {a:.4f} ms (plain {b:.4f} ms, bound {bounds[k][0]:.4f} ms by {bounds[k][1]})"
         for k, (a, b) in ms.items()) + f"; K4 tested {int(walked.sum())} candidates "
@@ -1209,7 +1340,10 @@ def pairs_parity(device):
                for k in names}
     entries["K3"]["name"] = "K3 pair-sweep per-ray refine with the walk order"
     entries["K2"]["event_ms"] = k2_t["event_ms"]
-    entries["K3"]["render_sample"] = k3_render_sample(scene, device)
+    entries["K2"]["bits_differ"], entries["K2"]["rows"] = k2_rows["bits_differ"], {
+        k: k2_rows[k] for k in ("dead", "cased", "fallback", "full")}
+    entries["K3"]["render_sample"], entries["K2"]["render_sample"] = k3_render_sample(scene,
+                                                                                    device)
     for k, v in full_ms.items():
         entries[k]["full_count_ms"] = v
     return entries, {"scene": scene, "cl": cl, "rays": (o, d, tmin, tmax), "ex": (ex0, ex1),
@@ -1319,7 +1453,7 @@ class timed_walks:
                 ops, full = box_test_ops(reached, live), full_count_ops(reached, live, C)
                 nbytes += 8.0 * float(reached.sum())
             else:
-                nodes = float((live.double() * reached[:, 0].double()).sum()) * 96
+                nodes = float((live.double() * reached[:, 0].double()).sum()) * K7_NODE_FLOPS
                 ops = nodes + box_test_ops(reached[:, 1], live)
                 full = nodes + full_count_ops(reached[:, 1], live, C)
             rec = out.setdefault(kernel, {"ms": [], "bound_ms": [], "full_count_ms": []})
@@ -1550,7 +1684,7 @@ def other_traversals_parity(ctx, device):
     ms_k7_any = cuda_ms(lambda: wide.wide_walk(*walk_args(True), boxes=boxes), 5)
     k7_stats = k7_probe(walk_args, boxes, got, got_any, counts, counts_any, ms_k7, device)
     k5_t = event_and_device_ms(lambda: pairs.refine_window(*k5_args), 20, "window_refine_kernel")
-    # bounds. K7: per live lane 8 slab tests (12 operations each) a node
+    # bounds. K7: per live lane 8 slab tests (K7_NODE_FLOPS) a node
     # expanded and, a leaf tested, what the candidate test needs
     # (needed_ops, from the closest-hit walk's counters); the full count
     # takes every live lane against every slot of every leaf tested
@@ -1560,7 +1694,7 @@ def other_traversals_parity(ctx, device):
     live_w = (sw.lim[1] > sw.lim[0]).reshape(B, pairs.BLOCK).sum(1).double()
     table_bytes = (cl.tri.numel() + cl.wide.numel()
                    + (cl.xf.numel() if cl.xf is not None else 0)) * 4
-    ops_nodes = float((live_w * counts[:, 0].double()).sum()) * 96
+    ops_nodes = float((live_w * counts[:, 0].double()).sum()) * K7_NODE_FLOPS
     ops_k7 = ops_nodes + needed_ops(counts[:, 1], live_w, k7_stats, C)
     b_k7 = bound(ops_k7, 80.0 * n + table_bytes)
     full_ms_k7 = bound(ops_nodes + full_count_ops(counts[:, 1], live_w, C), 0.0)[0]
@@ -1655,8 +1789,9 @@ def blinds_setup(device):
 
 def path_b_bounce(device):
     """The arguments of K9's first call in one path-B sample of blinds at
-    its own 256x256 with scenes/blinds/pt.json: the live lanes of the first
-    bounce, as the main path hands them to fused_shade."""
+    its own 256x256 with scenes/blinds/pt.json, as the main path hands them
+    to fused_shade: the whole wavefront of the first bounce, and its live
+    mask."""
     import torch
 
     from akari_render_tpu_torch.integrators import common
@@ -1665,10 +1800,11 @@ def path_b_bounce(device):
     scene, task, settings, filt = blinds_setup(device)
     real, calls = common.fused_shade, []
 
-    def capture(*args):
+    def capture(*args, live=None):
         if not calls:
-            calls.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
-        return real(*args)
+            calls.append((tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                          live.clone()))
+        return real(*args, live=live)
 
     common.fused_shade = capture
     try:
@@ -1680,48 +1816,121 @@ def path_b_bounce(device):
     return calls[0]
 
 
-def k9_check(label: str, args) -> dict:
-    """K9 against its plain version on one set of fused_shade arguments,
-    with CUDA event timings; returns its numbers for the JSON line."""
+def k9_bound(lanes: int, live: int, table_numel: int):
+    """(bound ms, by) of one K9 launch over `lanes` lanes, `live` of them
+    live: the bytes (a live lane's 104 B in and 53 B out, a dead lane's
+    53 B of zeros, a flag a lane, the material table once) against the
+    closure's FP32 operations a live lane (K9_LIVE_FLOPS)."""
+    return bound(float(K9_LIVE_FLOPS) * live,
+                 157.0 * live + 53.0 * (lanes - live) + lanes + 4.0 * table_numel)
+
+
+def k9_check(label: str, args, live=None) -> dict:
+    """K9 against its plain version on one set of fused_shade arguments
+    (with `live`, the masked call over the whole wavefront against the
+    masked plain version), with the lanes bit-equal on every output, CUDA
+    event and device timings; returns its numbers for the JSON line."""
     import torch
 
     from akari_render_tpu_torch.integrators import fused_shade as fs
 
     lanes = args[1].shape[0]
-    got = fs.fused_shade(*args)
-    want = fs.fused_shade_torch(*args)
+    n_live = lanes if live is None else int(live.sum())
+    got = fs.fused_shade(*args, live=live)
+    want = fs.fused_shade_torch(*args, live=live)
     torch.cuda.synchronize()
     same = got["valid"] == want["valid"]
     valid_mis = int((~same).sum())
     max_abs, max_rel = 0.0, 0.0
+    bit_equal = same.clone()
     for k in ("direct", "wi", "f", "pdf", "albedo"):
         g, w = got[k], want[k]
+        eq = (g.view(torch.int32) == w.view(torch.int32)).reshape(lanes, -1).all(1)
+        bit_equal &= eq
         if k in ("wi", "f", "pdf"):  # a flipped sample draws another direction
             g, w = g[same], w[same]
         max_abs = max(max_abs, max_abs_diff(g, w))
         diff = torch.where(g == w, 0.0, torch.abs(g - w) / torch.clamp(torch.abs(w), min=1e-30))
         max_rel = max(max_rel, float(torch.nan_to_num(diff, nan=float("inf")).max()))
-    t = event_and_device_ms(lambda: fs.fused_shade(*args), 20, "fused_shade_kernel")
-    plain_ms = cuda_ms(lambda: fs.fused_shade_torch(*args), 3)
-    # 26 values in (104 B) and 13 floats plus a bool out (53 B) per lane,
-    # the material table once
-    bound_ms, bound_by = bound(0.0, lanes * 157.0 + args[0][0].numel() * 4)
-    print(f"K9 parity on {label} ({lanes} lanes): valid "
-          f"{float(want['valid'].float().mean()):.4f}, valid mismatches {valid_mis}, max rel err "
+    call = (lambda: fs.fused_shade(*args)) if live is None else (
+        lambda: fs.fused_shade(*args, live=live))
+    # device time whatever the events read: around a call of this short
+    # kernel they measure the host (0.06-0.27 ms a call on an H100 host)
+    ev = cuda_ms(call, 20)
+    dev = device_ms(call, 20, "fused_shade_kernel")
+    t = {"ms": dev, "event_ms": ev, "device_ms": dev}
+    plain_ms = cuda_ms(lambda: fs.fused_shade_torch(*args, live=live), 3)
+    bound_ms, bound_by = k9_bound(lanes, n_live, args[0][0].numel())
+    print(f"K9 parity on {label} ({lanes} lanes, {n_live} live): valid "
+          f"{float(want['valid'].float().mean()):.4f}, valid mismatches {valid_mis}, lanes "
+          f"bit-equal on every output {int(bit_equal.sum())} of {lanes}, max rel err "
           f"{max_rel:.3g}, max abs err {max_abs:.3g}; kernel {times_text(t)} (plain {plain_ms:.4f} "
           f"ms, bound {bound_ms:.4f} ms by {bound_by})", flush=True)
     check(valid_mis <= K9_VALID_FRAC * lanes, f"K9 valid differs on {valid_mis} lanes")
     check(max_rel <= K9_REL, f"K9 disagrees with its plain version on {label}")
+    if live is not None:
+        dead = ~live
+        check(all(not bool(got[k][dead].any()) for k in got), f"K9 wrote a dead lane ({label})")
     return {"max_abs_err": max_abs, "ms": t["ms"], "event_ms": t["event_ms"],
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "lanes": lanes, "live": n_live, "bit_equal_lanes": int(bit_equal.sum())}
+
+
+def k9_sample_launches(device) -> dict:
+    """Every K9 launch of one path-B sample of blinds at 256^2: its lanes,
+    live lanes, device time (torch.profiler over the sample, padded at both
+    ends) and bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from akari_render_tpu_torch.integrators import common
+    from akari_render_tpu_torch.integrators.pt import render_sample
+
+    scene, task, settings, filt = blinds_setup(device)
+    real, calls = common.fused_shade, []
+
+    def count(*args, live=None):
+        calls.append((args[1].shape[0], live))
+        return real(*args, live=live)
+
+    common.fused_shade = count
+    try:
+        with env_switch(AKR_PALLAS_SHADE="1"), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad_profiler_window()
+            render_sample(scene, settings, filt, 0, task.seed, task.sampler)
+            torch.cuda.synchronize()
+            pad_profiler_window()
+    finally:
+        common.fused_shade = real
+    dev = [d / 1e6 for _, d in sorted(
+        (e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA and "fused_shade_kernel" in e.name())]
+    check(len(dev) >= len(calls) // 2,
+          f"the profiler recorded {len(dev)} of the sample's {len(calls)} K9 launches")
+    live = [int(v.sum()) for _, v in calls]
+    bounds = [k9_bound(n, lv, scene.shade_bake[0].numel())[0] for (n, _), lv in zip(calls, live)]
+    per = "; ".join(f"{n} lanes, {lv} live: {t:.4f} ms (bound {b:.4f})"
+                    for (n, _), lv, t, b in zip(calls, live, dev, bounds))
+    out = {"launches": len(calls), "recorded": len(dev), "device_ms": sum(dev) / len(dev),
+           "device_ms_sum": sum(dev), "bound_ms": sum(bounds) / len(bounds),
+           "live": live}
+    print(f"K9 in one path-B sample of blinds 256^2 ({len(calls)} launches, {len(dev)} device "
+          f"records): device time mean {out['device_ms']:.4f} ms, sum {out['device_ms_sum']:.4f} "
+          f"(mean bound {out['bound_ms']:.4f}); each launch: {per}", flush=True)
+    return out
 
 
 def k9_parity(device):
-    """Phase 11: K9 against its plain version on the live lanes of a real
-    path-B bounce at 256^2 and on 2^18 seeded blinds shade inputs. Returns
-    the kernel's JSON entry, timed at the path-B bounce."""
+    """Phase 11: K9 against its plain version on the first bounce of a real
+    path-B sample at 256^2: masked over the whole wavefront, and unmasked on
+    its live lanes compacted; on 2^18 seeded blinds shade inputs; the
+    bounce loop's shade call as one device event (torch.profiler); and every
+    K9 launch of one path-B sample. Returns the kernel's JSON entry, timed
+    on the masked wavefront."""
     import numpy as np
     import torch
+
+    from akari_render_tpu_torch.integrators import common
 
     scene, _, _, _ = blinds_setup(device)
     check(scene.shade_bake is not None, "blinds must bake into the reduced closure")
@@ -1740,9 +1949,22 @@ def k9_parity(device):
     synthetic = (scene.shade_bake, *(f.contiguous() for f in si["frame"]), si["ng"].contiguous(),
                  unit(), unit(), t(rng.random((n, 3)) * 3.0), t(rng.random(n) * 2.0 + 1e-3),
                  t(rng.random((n, 3))), si["mat"])
-    main = k9_check("the live lanes of a path-B bounce at 256^2", path_b_bounce(device))
-    seeded = k9_check("seeded blinds inputs", synthetic)
-    main["max_abs_err"] = max(main["max_abs_err"], seeded["max_abs_err"])
+    args, live = path_b_bounce(device)
+    main = k9_check("the wavefront of a path-B bounce at 256^2, masked", args, live)
+    rows = torch.nonzero(live).squeeze(1)
+    compact = (args[0], *(x[rows] for x in args[1:]))
+    main["compacted"] = k9_check("the live lanes of that bounce, compacted", compact)
+    main["seeded"] = k9_check("seeded blinds inputs", synthetic)
+    main["max_abs_err"] = max(main["max_abs_err"], main["compacted"]["max_abs_err"],
+                              main["seeded"]["max_abs_err"])
+    si_b = {"frame": args[1:4], "ng": args[4], "mat": args[10]}
+    extra = dict(zip(("wo", "ls_wi", "ls_li", "ls_pdf", "u_bsdf"), args[5:10]))
+    events = device_events_per_call(
+        {"K9 call": lambda: common._fused_shade_live(args[0], si_b, extra, live)})
+    print(f"the bounce loop's shade call (_fused_shade_live) on that wavefront: "
+          f"{events['K9 call']} device events", flush=True)
+    check(events["K9 call"] == 1, "the bounce loop's shade call must be one device launch")
+    main["sample"] = k9_sample_launches(device)
     return {"name": "K9 fused shade", "route": "cuda",
             "source": "akari_render_tpu_torch/csrc/fused_shade.cu",
             "replaces": "akari_render_tpu/integrators/pallas_shade.py:85", **main,
@@ -1794,12 +2016,12 @@ def k8_parity(device):
     ms = cuda_ms(lambda: mk.megakernel_pass(tb, 0, spp), 10)
     n_rays = int(rk.sum())
     T = scene.num_tris
-    ops = float(n_rays) * T * MT_FLOPS
+    ops = float(n_rays) * T * K8_TRI_FLOPS
     table_bytes = sum(x.numel() * 4 for x in (tb.attr, tb.ce, tb.lsel, tb.loff, tb.ltab, tb.mat))
     bound_ms, bound_by = bound(ops, table_bytes + 16.0 * tb.npix)
     print(f"K8 at {tb.width}^2, {spp} spp, d{tb.max_depth}: {ms:.4f} ms per pass (plain "
           f"{plain_ms:.4f} ms, the parity call); {n_rays} rays traced x {T} triangles x "
-          f"{MT_FLOPS} = {ops:.4g} FP32 operations: bound {bound_ms:.4f} ms by {bound_by}",
+          f"{K8_TRI_FLOPS} = {ops:.4g} FP32 operations: bound {bound_ms:.4f} ms by {bound_by}",
           flush=True)
     return {"name": "K8 path megakernel", "route": "cuda",
             "source": "akari_render_tpu_torch/csrc/megakernel.cu",
@@ -2012,7 +2234,8 @@ def blinds_full_width(device):
         "wavefront": wavefront_sample(), "path B": wavefront_sample("AKR_PALLAS_SHADE"),
         "path A": lambda: mk.megakernel_pass(tb, 0, 1)})  # a sample is a one-sample pass
     print(f"blinds 256^2 device events per sample (torch.profiler, device activity only; "
-          f"{time.perf_counter() - t0:.1f} s): {events}", flush=True)
+          f"{time.perf_counter() - t0:.1f} s): {events}; path B's: {events['path B']}",
+          flush=True)
     check(events["path A"] == 1, "path A's sample must be one device event")
     return found
 

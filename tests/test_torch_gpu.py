@@ -26,7 +26,7 @@ from akari_render_tpu_torch.integrators import megakernel as mk
 from akari_render_tpu_torch.integrators.common import PTSettings
 from akari_render_tpu_torch.integrators.pt import render_pt
 from akari_render_tpu_torch.scene import load_scene
-from torch_cull_rays import aimed_rays, instanced_soup, tile_clusters
+from torch_cull_rays import adversarial_summaries, aimed_rays, instanced_soup, tile_clusters
 
 ROOT = Path(__file__).resolve().parents[1]
 SCENE = ROOT / "scenes/matbox/scene.json"
@@ -187,6 +187,46 @@ def test_pair_kernels_match_plain_on_card(cuda):
                            pairs.sweep_walk_torch(*args)), any_hit
     assert {k: pairs.launches[k] - before[k] for k in before} == {"K2": 1, "K3": 1, "K4": 2,
                                                                   "K5": 0, "K6": 0}
+
+
+@pytest.mark.parametrize("inputs", ["sorted rays", "warp summaries", "adversarial"])
+def test_cull_kernel_cases_match_plain_on_card(cuda, inputs):
+    """K2 (tiled; dead blocks and sign cases) against its plain chain on the
+    card: equal (torch.equal), and every element whose bit pattern differs
+    is a zero of the other sign (printed). The sorted rays' summaries take
+    the sign cases, the warp summaries (K3's, with dead warps) also the dead
+    rows, the adversarial inputs every branch and the per-element
+    fallback; their boxes are the finite ones (from column 3): an infinite
+    or NaN bound against an inverse direction of 0 makes a NaN product,
+    which the chain's fminf drops and torch.minimum keeps, in the kernel
+    before this design as in this one, and cluster boxes are finite."""
+    if inputs == "adversarial":
+        summ, cb6 = (x.to(cuda) for x in adversarial_summaries(3, B=333, K=1000))
+        cb6 = cb6[:, 3:].contiguous()
+    else:
+        cl = _soup_clusters().to(cuda)
+        o, d, tmin, tmax, ex0, _ = _pair_rays(1 << 14, 5, cuda)
+        s = pairs.sort_rays(cl, o, d, tmin, tmax, ex0)
+        cb6 = pairs.cluster_bounds(cl)
+        summ = (s.summ if inputs == "sorted rays"
+                else pairs._warp_lanes(s.o_soa, s.inv_soa, s.lim)[-1].reshape(-1, 16))
+    before = pairs.launches["K2"]
+    got = pairs.cull_einit(summ, cb6)
+    want = pairs.cull_einit_torch(summ, cb6)
+    assert pairs.launches["K2"] == before + 1
+    tally = {}
+    assert torch.equal(pairs.cull_einit_cased_torch(summ, cb6, tally).view(torch.int32),
+                       want.view(torch.int32))
+    differ = got.view(torch.int32) != want.view(torch.int32)
+    print(f"K2 {inputs}: {tuple(got.shape)}, rows' elements {tally}, bit patterns that differ "
+          f"{int(differ.sum())}")
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = torch.isnan(want)
+    assert torch.equal(got[~ok], want[~ok])
+    assert bool((got[differ & ~ok] == 0).all())
+    assert tally["cased"] - tally["fallback"] > 0
+    if inputs == "adversarial":
+        assert tally["dead"] > 0 and tally["full"] > 0 and tally["fallback"] > 0
 
 
 def _check_refine_walk(got, want):
@@ -516,6 +556,43 @@ def _blinds_shade_inputs(scene, n, seed, device):
                                    t(rng.random((n, 2)) * 0.45))
     return (scene.shade_bake, *si["frame"], si["ng"], unit(), unit(), t(rng.random((n, 3)) * 3.0),
             t(rng.random(n) * 2.0 + 1e-3), t(rng.random((n, 3))), si["mat"])
+
+
+@pytest.mark.parametrize("layout", ["masked", "masked, strided ng", "all dead",
+                                    "unaligned rows, ragged edge"])
+def test_fused_shade_kernel_masked_matches_plain_on_card(cuda, layout):
+    """K9 with its live mask against the masked plain version on the card,
+    every output bit-equal, NaN in the dead lanes' inputs; zeros on the
+    dead lanes. The layouts: ng as a strided view (the flat tier's), a
+    wavefront with no live lane, and [N, 3] rows whose base is 12 B past a
+    16-byte boundary with N not a multiple of 32."""
+    scene = load_scene(str(BLINDS), 16, 16, device=cuda)
+    n = 3001 if layout.startswith("unaligned") else 1 << 14
+    args = list(_blinds_shade_inputs(scene, n + 1, 9, cuda))
+    frac = 0.0 if layout == "all dead" else 0.37
+    live = torch.as_tensor(np.random.default_rng(4).random(n + 1) < frac, device=cuda)
+    for j in range(1, 10):  # NaN in the dead lanes' inputs
+        x = args[j]
+        args[j] = torch.where(live.reshape((n + 1,) + (1,) * (x.ndim - 1)), x, float("nan"))
+    if layout.startswith("unaligned"):  # skip the first row: bases 12 B (or 4 B) off
+        args[1:11] = [x[1:] for x in args[1:11]]
+        live = live[1:]
+    else:
+        args[1:11] = [x[:n] for x in args[1:11]]
+        live = live[:n]
+    if "strided" in layout:
+        wide = torch.zeros((n, 41), device=cuda)
+        wide[:, 9:12] = args[4]
+        args[4] = wide[:, 9:12]
+    before = fs.launches
+    got = fs.fused_shade(*args, live=live)
+    want = fs.fused_shade_torch(*args, live=live)
+    assert fs.launches == before + 1
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+        assert not bool(got[k][~live].any()), k
+    if frac:
+        assert float(want["valid"][live].float().mean()) > 0.3
 
 
 def test_fused_shade_kernel_matches_plain_on_card(cuda):

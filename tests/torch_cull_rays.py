@@ -1,8 +1,9 @@
 """Rays aimed at the triangles that define a candidate's world box (or a
-K1 tile's) and at sliver triangles, and a small instanced candidate list
-to aim them at: shared by the CPU tests of the candidate test's skips
-(tests/test_torch_candidate_cull.py, tests/test_torch_flat_cull.py), the
-card's tests (tests/test_torch_gpu.py) and chip_smoke.py. Imports no jax."""
+K1 tile's) and at sliver triangles, a small instanced candidate list to
+aim them at, and adversarial inputs of K2's cull: shared by the CPU tests
+of the skips (tests/test_torch_candidate_cull.py,
+tests/test_torch_flat_cull.py, tests/test_torch_cull_cases.py), the card's
+tests (tests/test_torch_gpu.py) and chip_smoke.py. Imports no jax."""
 import numpy as np
 import torch
 
@@ -161,3 +162,55 @@ def sliver_rays(v0, e1, e2, ids, per, seed):
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     o = p - d * 10.0 ** rng.uniform(-2, 1, (len(p), 1))
     return o.astype(np.float32), d.astype(np.float32)
+
+
+def adversarial_summaries(seed: int, B: int = 160, K: int = 700, tiny: bool = True):
+    """K2's inputs built to hit every corner of its cases
+    (csrc/pairs.cu::cull_kernel): interval summaries [B, 16] whose
+    inverse-direction intervals lie on one side of zero, straddle it, touch
+    it at +-0 or lie near |1e20|, dead blocks (t-limit -1), tmin +-0; boxes
+    [6, K] with signed zero bounds, bounds taken from the summaries' origin
+    bounds (so that some n = bound - origin are exactly +-0), bounds that
+    overflow a product, an empty box, a NaN bound and an unbounded slab
+    (columns 0 to 2). With `tiny`, a few origins lie near the denormals, so
+    that products underflow."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    olo = rng.uniform(-3, 3, (B, 3)).astype(f32)
+    ohi = (olo + rng.uniform(0, 1, (B, 3)) * (rng.random((B, 3)) < 0.8)).astype(f32)
+    mag = np.exp(rng.uniform(np.log(1e-3), np.log(1e3), (B, 3, 2))).astype(f32)
+    mag.sort(axis=2)
+    kind = rng.integers(0, 7, (B, 3))
+    il = np.where(kind == 1, -mag[..., 1], mag[..., 0])
+    ih = np.where(kind == 1, -mag[..., 0], mag[..., 1])
+    il = np.where(kind == 2, -mag[..., 0], il)  # straddles zero
+    il = np.where(kind == 3, rng.choice([f32(0.0), f32(-0.0)], (B, 3)), il)  # touches zero
+    ih = np.where(kind == 4, rng.choice([f32(0.0), f32(-0.0)], (B, 3)), ih)
+    il = np.where(kind == 4, -mag[..., 1], il)
+    big = f32(1e20) * rng.uniform(0.5, 1.0, (B, 3)).astype(f32)  # |inv| near 1e20
+    il, ih = np.where(kind == 5, big * f32(0.5), il), np.where(kind == 5, big, ih)
+    il, ih = np.where(kind == 6, -big, il), np.where(kind == 6, -big * f32(0.5), ih)
+    tiny = (rng.random((B, 3)) < 0.05) & tiny  # origins near the denormals: products underflow
+    olo = np.where(tiny, f32(1e-38), olo)
+    ohi = np.where(tiny, f32(2e-38), ohi)
+    tmin = rng.choice([f32(0.0), f32(1e-4), f32(-0.0)], B)
+    tlim = np.where(rng.random(B) < 0.15, f32(-1.0), rng.uniform(0.5, 1e3, B).astype(f32))
+    summ = np.concatenate([olo, ohi, il, ih, tmin[:, None], tlim[:, None],
+                           np.zeros((B, 2), f32)], 1).astype(f32)
+    lo = rng.uniform(-4, 4, (3, K)).astype(f32)
+    hi = (lo + rng.uniform(0, 2, (3, K))).astype(f32)
+    src = np.concatenate([olo.T, ohi.T], 1)  # origin bounds, [3, 2B]
+    pick = rng.random((3, K)) < 0.2
+    lo = np.where(pick, src[:, rng.integers(0, 2 * B, K)], lo)
+    hi = np.maximum(hi, lo)
+    hi = np.where(rng.random((3, K)) < 0.1, src[:, rng.integers(0, 2 * B, K)], hi)
+    zero = rng.random((3, K)) < 0.05  # signed zero bounds
+    lo = np.where(zero, f32(-0.0), lo)
+    hi = np.where(zero & (hi < 0), f32(0.0), hi)
+    huge = rng.random((3, K)) < 0.03  # products that overflow against |inv| ~ 1e20
+    lo, hi = np.where(huge, f32(-1e19), lo), np.where(huge, f32(3e19), hi)
+    cb6 = np.concatenate([lo, hi], 0).astype(f32)
+    cb6[:, 0] = [np.inf, np.inf, np.inf, -np.inf, -np.inf, -np.inf]  # an empty box
+    cb6[:, 1] = [1.0, np.nan, 0.0, 2.0, 1.0, 1.0]  # a NaN bound
+    cb6[:, 2] = [-np.inf, 0.0, 0.0, np.inf, 1.0, 1.0]  # an unbounded slab
+    return torch.as_tensor(summ), torch.as_tensor(cb6)

@@ -19,6 +19,12 @@ the middle rows and of bounce rays from their hits): the clusters per
 block that K2 leaves, the (cluster, 32-lane warp) summary tests and those
 that pass, against the lane x cluster work of the earlier kernel.
 
+K2 (the same camera and bounce rays, and the shadow rays of NEE from the
+camera rays' hits): the dead blocks, the share of live blocks' (block,
+axis) summaries whose inverse-direction interval straddles zero, and the
+elements K2's sign cases (`pairs.cull_einit_cased_torch`) take, with the
+twin held bit for bit against `cull_einit_torch`.
+
 K5 (the same rays through the windowed walk, every round's window through
 `pairs.refine_window_grouped_torch`): the share of the members set that
 some lane passes, of the (member, warp) pairs tested that pass the warp
@@ -26,7 +32,7 @@ summary, and of the blocks with a member set in each round, against the
 earlier kernel's work (every member of every block, each member's lanes in
 turn up to the first that passes).
 
-    python tools/cull_shares.py [--rays 8192] [--only k1|k3|k5]
+    python tools/cull_shares.py [--rays 8192] [--only k1|k2|k3|k5]
 """
 from __future__ import annotations
 
@@ -189,6 +195,46 @@ def k3_shares(n_rays: int):
               f"({tally['units'] * 32 / full:.4f})", flush=True)
 
 
+def k2_shares(n_rays: int):
+    import numpy as np
+    import torch
+
+    from akari_render_tpu_torch.accel import pairs
+    from akari_render_tpu_torch.integrators.common import nee_light_sample
+
+    sc, cl, tmin, rays = classroom_rays(n_rays)
+    K = cl.num_clusters
+    cb6 = pairs.cluster_bounds(cl)
+    # shadow rays: NEE from the camera rays' hits, as the bounce loop makes them
+    o_c, d_c, tmax_c = rays[0][1]
+    h = pairs.intersect_pairs(cl, o_c, d_c, tmin, tmax_c)
+    si = sc.surface_interaction(h.tri_id, h.bary)
+    u = torch.as_tensor(np.random.default_rng(12).random((n_rays, 3)), dtype=torch.float32)
+    ls = nee_light_sample(sc, si, u, h.valid)
+    rays.insert(1, ("shadow rays", (ls.shadow_ro, ls.wi,
+                                    torch.where(ls.valid & h.valid, ls.shadow_dist, -1.0))))
+    for label, (o, d, tmax) in rays:
+        s = pairs.sort_rays(cl, o, d, tmin, tmax)
+        B = s.summ.shape[0]
+        dead, cased = pairs.cull_row_cases(s.summ)
+        il, ih = s.summ[:, 6:9], s.summ[:, 9:12]
+        straddle = ~((il > 0) | (ih < 0))
+        live = ~dead
+        tally = {}
+        got = pairs.cull_einit_cased_torch(s.summ, cb6, tally)
+        want = pairs.cull_einit_torch(s.summ, cb6)
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        print(f"K2, classroom 1080p {label}, {B} blocks x {K} clusters: dead blocks "
+              f"{int(dead.sum())} ({float(dead.float().mean()):.4f}); of the live blocks' "
+              f"(block, axis) summaries, {int(straddle[live].sum())} of {3 * int(live.sum())} "
+              f"straddle zero ({float(straddle[live].float().mean()):.4f}); live blocks with a "
+              f"straddling axis {int(straddle[live].any(1).sum())}; cased blocks "
+              f"{int(cased.sum())} ({float(cased.float().mean()):.4f}); elements: dead "
+              f"{tally['dead']}, cased {tally['cased']} (of them the full chain "
+              f"{tally['fallback']}), full chain {tally['full']}; twin bit-equal to "
+              f"cull_einit_torch: {same}", flush=True)
+
+
 def k5_shares(n_rays: int):
     import torch
 
@@ -231,12 +277,13 @@ def k5_shares(n_rays: int):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rays", type=int, default=8192)
-    ap.add_argument("--only", choices=("k1", "k3", "k5"))
+    ap.add_argument("--only", choices=("k1", "k2", "k3", "k5"))
     args = ap.parse_args()
     import torch
 
     torch.set_num_threads(8)
-    for name, fn in (("k1", k1_shares), ("k3", k3_shares), ("k5", k5_shares)):
+    for name, fn in (("k1", k1_shares), ("k2", k2_shares), ("k3", k3_shares),
+                     ("k5", k5_shares)):
         if args.only in (None, name):
             fn(args.rays)
 

@@ -11,13 +11,18 @@ busy and idle share, each hand-written kernel's share of the busy time
 and the sorts' share, the kernel launch count, and the top device kernels.
 A second, unprofiled sample brackets every Scene.intersect / occlude call
 with device synchronisations and reports the traversal layer's share of
-the wall time. The full tables go to `--out`.
+the wall time. With AKR_PALLAS_SHADE=1 it also splits the shade of each
+bounce (the bounce loop's `_fused_shade_live`, in a profiler range) into
+device time of the K9 kernel, of gathers, of fills and scatters, and of the
+rest (nonzero), per bounce. `--root` profiles the package of another
+checkout (e.g. a parent unpacked with `git archive`). The full tables go
+to `--out`.
 
 Usage:
     [AKR_PALLAS_SHADE=1 | AKR_MEGAKERNEL=1 | AKR_WIDE=1 | AKR_PAIRS_STATIC=0]
     python tools/profile_torch_pt.py
         [--scene matbox|classroom|blinds] [--res N] [--spp 2]
-        [--out build/profile_torch_pt.txt]
+        [--out build/profile_torch_pt.txt] [--root CHECKOUT]
 """
 from __future__ import annotations
 
@@ -37,6 +42,46 @@ KERNELS = {"K1": "flat_kernel", "K2": "cull_kernel", "K3": "refine_walk_kernel",
            "K8": "megakernel", "K9": "fused_shade_kernel"}
 
 
+# the profiler range around each call of the bounce loop's fused shade
+SHADE_RANGE = "fused shade (K9) call"
+
+
+def shade_split(events, spp: int) -> dict:
+    """The device time of the shade's calls (SHADE_RANGE, on path B), a
+    bounce, split by kind of kernel: K9 itself, gathers (index), fills and
+    scatters (fill, index_put, scatter), the rest (nonzero and its
+    copies); with the calls a sample and their device events a call. A
+    kernel belongs to a call when it starts inside the call's range on the
+    device's timeline (the profiler's annotation of the range there): K9
+    launches through ctypes, which the profiler ties to no operator."""
+    cuda = torch_device_events(events)
+    spans = [(e.time_range.start, e.time_range.end) for e in cuda if e.name == SHADE_RANGE]
+    if not spans:
+        return {}
+    split = {"kernel": 0.0, "gathers": 0.0, "fills_scatters": 0.0, "rest": 0.0}
+    n_kernels = 0
+    for e in cuda:
+        if e.name == SHADE_RANGE or not any(a <= e.time_range.start < b for a, b in spans):
+            continue
+        n_kernels += 1
+        name = e.name.lower()
+        kind = ("kernel" if "fused_shade_kernel" in name
+                else "fills_scatters" if any(w in name for w in ("fill", "index_put", "scatter"))
+                else "gathers" if "index" in name else "rest")
+        split[kind] += e.time_range.elapsed_us() / 1e3
+    calls = len(spans)
+    return {"shade_calls_per_sample": calls / spp, "shade_device_events_per_call": n_kernels / calls,
+            **{f"shade_{k}_device_ms_per_bounce": v / calls for k, v in split.items()}}
+
+
+def torch_device_events(events):
+    """The device-side records of a profile: kernels, copies, fills, and
+    the ranges' annotations on the device's timeline."""
+    import torch
+
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=("matbox", "classroom", "blinds"), default="matbox")
@@ -44,7 +89,9 @@ def main():
                     help="square resolution (default: the scene camera's)")
     ap.add_argument("--spp", type=int, default=2)
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch_pt.txt"))
+    ap.add_argument("--root", default=str(ROOT), help="the checkout whose package to profile")
     args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -52,6 +99,7 @@ def main():
     from akari_render_tpu_torch.config import RenderTask
     from akari_render_tpu_torch.core.filters import filter_from_config
     from akari_render_tpu_torch.core.math import disable_tf32
+    from akari_render_tpu_torch.integrators import common
     from akari_render_tpu_torch.integrators.common import PTSettings
     from akari_render_tpu_torch.integrators.megakernel import (
         megakernel_eligible, megakernel_pass, pass_tables,
@@ -81,6 +129,13 @@ def main():
         def sample(i):
             return render_sample(scene, settings, filt, i, task.seed, task.sampler)
 
+    real_shade = common._fused_shade_live
+
+    def shade_in_range(*a):
+        with torch.profiler.record_function(SHADE_RANGE):
+            return real_shade(*a)
+
+    common._fused_shade_live = shade_in_range
     sample(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -89,6 +144,7 @@ def main():
             sample(1 + i)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    common._fused_shade_live = real_shade
 
     # the traversal layer, unprofiled: every intersect / occlude call
     # bracketed by synchronisations
@@ -111,7 +167,8 @@ def main():
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the device's work, without the ranges' annotations on its timeline
+    kernels = [e for e in torch_device_events(prof.events()) if e.name != SHADE_RANGE]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
 
     def share(pred):
@@ -137,6 +194,7 @@ def main():
         # against the unprofiled sample is the one to read there
         "device_idle_share_of_unprofiled_sample": 1.0 - busy_us / 1e6 / args.spp / wall_timed,
         "traversal_share_of_unprofiled_sample": spent[0] / wall_timed,
+        **shade_split(prof.events(), args.spp),
     }
     dev_key = "self_device_time_total" if hasattr(avg[0], "self_device_time_total") else "self_cuda_time_total"
     by_dev = avg.table(sort_by=dev_key, row_limit=40)
