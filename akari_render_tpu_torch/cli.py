@@ -10,8 +10,9 @@ cluster-tier scene AKR_WIDE=1 traverses with the wide-BVH walk (K7) and
 AKR_PAIRS_STATIC=0 with the pair sweep's legacy windowed walk (K5). Each
 render prints which tier, shade and traversal ran.
 
-`pt` is the only ported method; mcmc, gpt and aov method files exit with
-"not yet ported".
+`pt` and `aov` are the ported methods (aov writes one EXR a name,
+`{stem}_{name}{suffix}`, and the albedo as the main image); mcmc, mcmc_opt
+and gpt method files exit with "not yet ported".
 """
 from __future__ import annotations
 
@@ -45,8 +46,8 @@ def main(argv=None):
         raise SystemExit(f"--device {args.device}: CUDA is not available")
     tasks = RenderTask.list_from_file(args.method)
     for task in tasks:
-        if task.method_type != "pt":
-            raise SystemExit(f"method {task.method_type!r} is not yet ported (only pt is)")
+        if task.method_type not in ("pt", "aov"):
+            raise SystemExit(f"method {task.method_type!r} is not yet ported (only pt and aov are)")
         if args.spp is not None:
             task.method.spp = args.spp
 
@@ -71,6 +72,7 @@ def main(argv=None):
 
 def _render_one(task, task_idx, n_tasks, scene, args, progress_cb):
     from .core.image_io import write_image
+    from .integrators.aov import render_aov
     from .integrators.pt import render_pt
     from .stats import RenderSession
 
@@ -80,10 +82,19 @@ def _render_one(task, task_idx, n_tasks, scene, args, progress_cb):
     session = RenderSession(
         name=out_p.stem, save_stats=args.save_stats, out_dir=str(out_p.parent)
     )
-    img, stats = render_pt(scene, task.method, task, progress_cb=progress_cb, session=session)
+    if task.method_type == "aov":
+        img, stats = render_aov(scene, task.method, task)
+        base = Path(args.output or task.out_path)
+        for name, im in stats.pop("images").items():
+            p = base.with_name(f"{base.stem}_{name}{base.suffix}")
+            write_image(str(p), im)
+            print(f"wrote {p}", file=sys.stderr)
+        route = f"traversal {scene.traversal}"
+    else:
+        img, stats = render_pt(scene, task.method, task, progress_cb=progress_cb, session=session)
+        route = f"tier {stats['tier']}, shade {stats['shade']}, traversal {stats['traversal']}"
     write_image(str(out_p), img)
-    print(f"wrote {out_p}  ({stats.get('total_time', 0.0):.2f}s render; tier {stats['tier']}, "
-          f"shade {stats['shade']}, traversal {stats['traversal']})", file=sys.stderr)
+    print(f"wrote {out_p}  ({stats.get('total_time', 0.0):.2f}s render; {route})", file=sys.stderr)
     if args.save_stats:
         stats_path = out_p.with_suffix(".stats.json")
         scalars = {k: v for k, v in stats.items() if not hasattr(v, "shape") or v.ndim <= 1}

@@ -17,13 +17,20 @@ reduced principled closure (Scene.shade_bake), NEE on and force_diffuse
 off, the wavefront goes through K9 (fused_shade.py) in one launch per
 bounce instead, masked by the live lanes, as in the JAX package.
 
+trace_paths returns (radiance, aux, sampler) and takes the per-depth taps
+`radiance_cb`, as in the JAX package. The aux is recorded at the first hit:
+the albedo of the closure there (the per-kind closures' `albedo`, or K9's
+albedo output on the fused route; evaluated at the first bounce only, the
+only one that records it), the geometric normal and the hit distance.
+
 Not ported: the fused shadow/next-bounce traversal (AKR_FUSE_RAYS), the
-split-compacted resume (depth_end/resume_state), per-depth taps (GPT) and
-spectral transport.
+split-compacted resume (depth_end/resume_state) and spectral transport.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
+from typing import Callable
 
 import torch
 
@@ -131,10 +138,17 @@ def nee_light_sample(scene: Scene, si, u_light, lanes):
     return ls._replace(li=torch.where(front_l[..., None], l_emission, 0.0))
 
 
-def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler):
-    """Trace one path per lane: returns the radiance [N, 3]. (The JAX
-    version also returns first-hit AOVs and the sampler, for integrators
-    not ported yet.)"""
+def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
+                radiance_cb: Callable | None = None):
+    """Trace one bounce-limited path per lane: returns (radiance [N, 3],
+    aux, sampler) with aux = dict(albedo [N, 3], normal [N, 3], first_t
+    [N]) of the first hit (zeros and RAY_TMAX where the camera ray missed).
+
+    radiance_cb: optional hook(depth, kind, contribution [N, 3], mask [N])
+    called with kind "emission" at every depth (0 to max_depth) and "nee"
+    at every bounce's shadow ray (depth + 1), as in the JAX package. With
+    it every bounce runs, as the JAX package's unrolled loop does, even
+    after every lane has died; without it the loop stops there."""
     a = scene.arrays
     n = ray_o.shape[0]
     dev = ray_o.device
@@ -148,6 +162,9 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler):
         "active": torch.ones((n,), dtype=torch.bool, device=dev),
         "prev_bsdf_pdf": torch.zeros((n,), device=dev),
         "base_replay": torch.zeros((n, 3), device=dev),
+        "first_albedo": torch.zeros((n, 3), device=dev),
+        "first_normal": torch.zeros((n, 3), device=dev),
+        "first_t": torch.full((n,), RAY_TMAX, device=dev),
     }
     nee = settings.use_nee and a.lights.num_lights > 0
     fused = uses_fused_shade(scene, settings)
@@ -174,8 +191,14 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler):
             w = torch.zeros_like(w)
         contrib = st["beta"] * le * w[..., None]
         st["radiance"] = st["radiance"] + torch.where(ok[..., None], contrib, 0.0)
+        if radiance_cb is not None:
+            radiance_cb(depth, "emission", contrib, ok)
 
-    def shade(closure, ex):
+    def record_first_hit(hit, si, lane_hit):
+        st["first_normal"] = torch.where(lane_hit[..., None], si["ng"], st["first_normal"])
+        st["first_t"] = torch.where(lane_hit, hit.t, st["first_t"])
+
+    def shade(closure, ex, albedo=False):
         out = {}
         if "ls_wi" in ex:
             f_l, pdf_l = closure.evaluate(ex["wo"], ex["ls_wi"])
@@ -183,16 +206,21 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler):
             wp = (w / torch.clamp(ex["ls_pdf"], min=1e-20))[..., None]
             out["direct"] = ex["ls_li"] * f_l * wp
         out.update(closure.sample(ex["wo"], ex["u_bsdf"][..., 0], ex["u_bsdf"][..., 1:]))
+        if albedo:  # the first bounce records it (aux)
+            out["albedo"] = closure.albedo(ex["wo"])
         return out
 
     depth = 0
-    while depth < settings.max_depth and bool(torch.any(st["active"])):
+    while depth < settings.max_depth and (radiance_cb is not None
+                                          or bool(torch.any(st["active"]))):
         counts["bounces"] += 1
         hit = intersect_live()
         lane_hit = st["active"] & hit.valid
         st["active"] = lane_hit
         si = scene.surface_interaction(hit.tri_id, hit.bary)
         wo = -st["ray_d"]
+        if depth == 0:
+            record_first_hit(hit, si, lane_hit)
         add_emission(depth, si, lane_hit, wo)
         if depth == 0:
             st["base_replay"] = st["radiance"]
@@ -214,12 +242,16 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler):
         if fused:  # fused implies NEE, so ls is set
             sh = _fused_shade_live(scene.shade_bake, si, extra, st["active"])
         else:
-            sh = dispatch_shade(scene, si, extra, shade, st["active"], settings.force_diffuse)
+            sh = dispatch_shade(scene, si, extra, partial(shade, albedo=depth == 0), st["active"],
+                                settings.force_diffuse)
         if not sh:  # no live lane: every output is zero
             sh = {k: torch.zeros((n,) + s, dtype=dt, device=dev) for k, s, dt in (
                 ("wi", (3,), torch.float32), ("f", (3,), torch.float32),
                 ("pdf", (), torch.float32), ("valid", (), torch.bool),
-                ("direct", (3,), torch.float32))}
+                ("direct", (3,), torch.float32), ("albedo", (3,), torch.float32))}
+        if depth == 0:
+            st["first_albedo"] = torch.where(lane_hit[..., None], sh["albedo"],
+                                             st["first_albedo"])
 
         if ls is not None:
             occluded = scene.occlude(
@@ -227,9 +259,10 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler):
                 exclude0=si["tri_id"].to(torch.int32), exclude1=ls.dest_tri,
             )
             direct_ok = light_valid & ~occluded
-            st["radiance"] = st["radiance"] + torch.where(
-                direct_ok[..., None], st["beta"] * sh["direct"], 0.0
-            )
+            contrib = st["beta"] * sh["direct"]
+            st["radiance"] = st["radiance"] + torch.where(direct_ok[..., None], contrib, 0.0)
+            if radiance_cb is not None:
+                radiance_cb(cur_depth, "nee", contrib, direct_ok)
 
         # continue the path (pt.rs:778-866)
         sample_ok = sh["valid"] & (sh["pdf"] > 0.0) & (torch.min(sh["f"], -1).values >= 0.0)
@@ -255,10 +288,13 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler):
     hit = intersect_live()
     lane_hit = st["active"] & hit.valid
     si = scene.surface_interaction(hit.tri_id, hit.bary)
+    if settings.max_depth == 0:
+        record_first_hit(hit, si, lane_hit)
     add_emission(settings.max_depth, si, lane_hit, -st["ray_d"])
 
     radiance = st["radiance"]
     if settings.clamp_indirect > 0.0:
         indirect = torch.clamp(radiance - st["base_replay"], max=settings.clamp_indirect)
         radiance = st["base_replay"] + indirect
-    return radiance
+    aux = {"albedo": st["first_albedo"], "normal": st["first_normal"], "first_t": st["first_t"]}
+    return radiance, aux, sampler

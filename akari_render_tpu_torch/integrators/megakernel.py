@@ -24,7 +24,8 @@ vectorised over lanes with an eager bounce loop.
 Samples come from the stateless hash stream of the JAX kernel (key from
 sample index and pixel, counter per draw: camera 2, then per bounce light
 3, BSDF 3, RR 1), in int64 holding the uint32 arithmetic, bit-exact with
-JAX.
+JAX; its two functions are the hash sampler's (core/samplers.py:
+hash_u64, hash_draw).
 
 Not ported (TPU-only): the relay-watchdog pass sizing
 (AKR_MAX_PASS_SECONDS, AKR_ADAPTIVE_PASS), the block knob AKR_MK_BLOCK,
@@ -44,13 +45,14 @@ import numpy as np
 import torch
 
 from ..accel.nvcc import CSRC, compile_library, read_kernel_info
+from ..core.samplers import GOLDEN, hash_u64
+from ..core.samplers import hash_draw as draw
 from ..svm.reduced import (
     MAT_COLS, TWO_PI_F, dot3, force_diffuse_table, normalize3, reduced_shade,
 )
 
 RAY_TMAX = 1e20
 MASK32 = 0xFFFFFFFF
-GOLDEN = 0x9E3779B9
 MAX_TRIS = 512
 # lanes per plain-version sweep chunk: bounds its [T, lanes] temporaries
 SWEEP_ELEMS = 1 << 22
@@ -69,30 +71,6 @@ build_seconds = 0.0
 SOURCE = CSRC / "megakernel.cu"
 _lib = None
 _lib_lock = threading.Lock()
-
-
-# ------------------------------------------------------------- hash stream
-def hash_u64(hi, lo):
-    """samplers._hash_u64 (a 2x32 splitmix-style mix); uint32 values in
-    int64 tensors or Python ints."""
-    x = lo ^ ((hi * GOLDEN) & MASK32)
-    x = x ^ (x >> 16)
-    x = (x * 0x85EBCA6B) & MASK32
-    x = x ^ (x >> 13)
-    x = (x * 0xC2B2AE35) & MASK32
-    return x ^ (x >> 16)
-
-
-def draw(key, ctr):
-    """HashSampler.next_1d: (ctr + 1, a float32 uniform in [0, 1) with 24
-    bits) from the uint32 key (int64 tensor) and counter (tensor or int)."""
-    x = key ^ ((ctr * GOLDEN) & MASK32)
-    x = x ^ (x >> 16)
-    x = (x * 0x21F0AAAD) & MASK32
-    x = x ^ (x >> 15)
-    x = (x * 0x735A2D97) & MASK32
-    x = x ^ (x >> 15)
-    return ctr + 1, (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
 # ------------------------------------------------ the path's own helpers

@@ -40,9 +40,9 @@ from .common import PTSettings, trace_paths, uses_fused_shade
 from .megakernel import megakernel_eligible, render_pt_megakernel
 
 
-def render_sample(scene: Scene, settings: PTSettings, filt, sample_index: int, seed: int,
-                  sampler_config: dict | None):
-    """One sample for every pixel: (radiance [H*W, 3], filter weight [H*W])."""
+def camera_sample(scene: Scene, filt, sample_index: int, seed: int, sampler_config: dict | None):
+    """The camera rays of one sample for every pixel: (ray_o, ray_d [H*W, 3],
+    filter weight [H*W], the sampler after the camera draw)."""
     width, height = scene.camera.width, scene.camera.height
     pix = torch.arange(width * height, dtype=torch.int64, device=scene.device)
     sampler = make_sampler(sampler_config, pix, sample_index, seed)
@@ -52,7 +52,15 @@ def render_sample(scene: Scene, settings: PTSettings, filt, sample_index: int, s
         [(pix % width).to(torch.float32), (pix // width).to(torch.float32)], -1
     ) + 0.5 + off
     ray_o, ray_d = generate_rays(scene.camera, p_film)
-    return trace_paths(scene, settings, ray_o, ray_d, sampler), fw
+    return ray_o, ray_d, fw, sampler
+
+
+def render_sample(scene: Scene, settings: PTSettings, filt, sample_index: int, seed: int,
+                  sampler_config: dict | None):
+    """One sample for every pixel: (radiance [H*W, 3], filter weight [H*W])."""
+    ray_o, ray_d, fw, sampler = camera_sample(scene, filt, sample_index, seed, sampler_config)
+    radiance, _aux, _sampler = trace_paths(scene, settings, ray_o, ray_d, sampler)
+    return radiance, fw
 
 
 def render_pt(scene: Scene, config: PTConfig, task=None, progress_cb=None, session=None):

@@ -16,13 +16,10 @@ values agree to float32 rounding.
 """
 from __future__ import annotations
 
-import os
-import tempfile
-from pathlib import Path
-
 import numpy as np
 import torch
 
+from ..core.cache import cached_array
 from ..core.math import Frame
 from .microfacet import TrowbridgeReitz, fr_dielectric, ior_from_f0
 
@@ -31,7 +28,6 @@ _SAMPLES = 1 << 14
 _SEED = 0
 _PER_BATCH = 256  # samples per cell per batch: DIM^3 * 256 = 1M lanes
 TABLE_NAME = "ggx_dielectric_s"
-CACHE_DIR = Path(__file__).resolve().parents[2] / "build" / "cache"
 
 _cache: dict[str, np.ndarray] = {}
 
@@ -85,16 +81,8 @@ def get_table(device) -> np.ndarray:
     """The port's own table (numpy float32): from the process cache, the
     on-disk cache, or computed on `device` and cached."""
     if TABLE_NAME not in _cache:
-        path = CACHE_DIR / f"{TABLE_NAME}.{DIM}.npy"
-        if path.exists():
-            tbl = np.load(path)
-        else:
-            tbl = compute_ggx_dielectric_table(device)
-            CACHE_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".npy", dir=CACHE_DIR)
-            with os.fdopen(fd, "wb") as f:
-                np.save(f, tbl)
-            os.replace(tmp, path)  # atomic: concurrent builders cannot tear it
+        tbl = cached_array(f"{TABLE_NAME}.{DIM}.npy",
+                           lambda: compute_ggx_dielectric_table(device))
         _cache[TABLE_NAME] = np.asarray(tbl, np.float32)
     return _cache[TABLE_NAME]
 

@@ -198,3 +198,26 @@ class FusedPrincipled(Surface):
         if "coat" in self.static_zero:
             return self._emission
         return self._emission * self._w_tint() * (1.0 - self._eo_c(wo))
+
+    def roughness(self, wo, u_select):
+        """The roughness of the lobe the selection cascade picks with
+        u_select (coat, then metal, specular, dielectric, else diffuse: 1)."""
+        z = self.static_zero
+        false = torch.zeros(wo.shape[:-1], dtype=torch.bool, device=wo.device)
+        if "coat" in z:
+            pick_coat, u1 = false, u_select
+        else:
+            pick_coat, u1 = weighted_discrete_choice2_and_remap(torch.mean(self._eo_c(wo), -1),
+                                                                u_select)
+        if "metallic" in z:
+            pick_metal, u2 = false, u1
+        else:
+            pick_metal, u2 = weighted_discrete_choice2_and_remap(self.metallic, u1)
+        pick_spec, u3 = weighted_discrete_choice2_and_remap(torch.mean(self._eo_s(wo), -1), u2)
+        if "transmission" in z:
+            pick_diel = false
+        else:
+            pick_diel, _ = weighted_discrete_choice2_and_remap(self.transmission, u3)
+        r = torch.where(pick_coat, self.dist_c.roughness,
+                        torch.where(pick_metal | pick_spec | pick_diel, self.dist_r.roughness, 1.0))
+        return torch.broadcast_to(r, wo.shape[:-1])

@@ -40,6 +40,15 @@ class Surface:
     def emission(self, wo):
         return torch.zeros_like(wo)
 
+    def roughness(self, wo, u_select):
+        return torch.ones(wo.shape[:-1], device=wo.device)
+
+    def ns(self, shape, device):
+        """The shading normal in the closure's local frame: +z."""
+        n = torch.zeros(tuple(shape) + (3,), device=device)
+        n[..., 2] = 1.0
+        return n
+
 
 class DiffuseBsdf(Surface):
     """Lambert; `reflectance` is pre-divided by pi."""
@@ -104,6 +113,9 @@ class MicrofacetReflection(Surface):
     def albedo(self, wo):
         return self.color
 
+    def roughness(self, wo, u_select):
+        return torch.broadcast_to(self.dist.roughness, wo.shape[:-1])
+
 
 class MicrofacetTransmission(Surface):
     """GGX transmission lobe."""
@@ -154,6 +166,9 @@ class MicrofacetTransmission(Surface):
     def albedo(self, wo):
         return self.color
 
+    def roughness(self, wo, u_select):
+        return torch.broadcast_to(self.dist.roughness, wo.shape[:-1])
+
 
 class EmissiveSurface(Surface):
     """Emission on top of an optional inner BSDF."""
@@ -178,6 +193,12 @@ class EmissiveSurface(Surface):
     def emission(self, wo):
         e = self._emission * torch.ones_like(wo)
         return e + self.inner.emission(wo) if self.inner else e
+
+    def roughness(self, wo, u_select):
+        return self.inner.roughness(wo, u_select) if self.inner else super().roughness(wo, u_select)
+
+    def ns(self, shape, device):
+        return self.inner.ns(shape, device) if self.inner else super().ns(shape, device)
 
 
 class BsdfMixture(Surface):
@@ -221,6 +242,13 @@ class BsdfMixture(Surface):
         if self.mode == "add":
             return ea + eb
         return ea * (1.0 - frac) + eb * frac
+
+    def roughness(self, wo, u_select):
+        pick_b, remapped = weighted_discrete_choice2_and_remap(self.frac_fn(wo), u_select)
+        return torch.where(pick_b, self.b.roughness(wo, remapped), self.a.roughness(wo, remapped))
+
+    def ns(self, shape, device):
+        return normalize(self.a.ns(shape, device) + self.b.ns(shape, device))
 
 
 class SurfaceClosure(Surface):
@@ -270,6 +298,15 @@ class SurfaceClosure(Surface):
 
     def emission(self, wo):
         return self.inner.emission(self._to_local(wo))
+
+    def roughness(self, wo, u_select):
+        return self.inner.roughness(self._to_local(wo), u_select)
+
+    def ns(self, shape=None, device=None):
+        """The shading normal in world space (in the parent's local space
+        for a nested closure)."""
+        shape = self.n.shape[:-1] if shape is None else shape
+        return self._to_world(self.inner.ns(shape, self.n.device))
 
 
 def frame_from_n_t(n, tt):

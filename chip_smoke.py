@@ -93,7 +93,23 @@ Phases (any failure exits non-zero; nothing is caught):
 18. the other traversals at full width: classroom 1920x1080, 1 spp, d12
    through the CLI under each switch, with every kernel's launches counted,
    every K5 and K7 launch timed and the windowed walk's rounds, beside
-   phase 9's default route.
+   phase 9's default route;
+19. sampler parity: make_sampler for pmj02bn, sobol, hash and independent
+   on the card against the CPU, 2^20 lanes x 24 dimensions, bit-equal, at
+   sample index 4,100 (pmj02's epoch 1) and at per-lane indices;
+20. cbox correctness: the cbox fixture at 64x64, 16 spp, pmj02bn, d12
+   through the CLI on the dispatch route and on path B (K9), each held to
+   phase 4's gates against testdata/cbox64_spp{16,256}.npy, and the first
+   hit's aux albedo from K9 against the dispatch route's;
+21. cbox at full width: 1024x1024, scenes/cbox/pt.json's configuration
+   (pmj02bn, d12) at 4 spp after a warm-up, and the same with the
+   independent sampler: Mpaths/s, launches, K1's launches and mean time,
+   peak device bytes a lane, and one sample's device launches and idle
+   share (torch.profiler);
+22. AOV: the aov method through the CLI, matbox 64x64, 2 spp, against the
+   committed JAX set (testdata/matbox64_aov_spp2.npz), then cbox
+   1024x1024 at 1 spp: seven finite images, the depth above 5 where a ray
+   hit.
 
 Each phase prints the seconds since the start when it ends. After the
 build it prints what the compiler gave every kernel (registers a thread,
@@ -169,6 +185,27 @@ BLINDS_METHOD = ROOT / "scenes" / "blinds" / "pt.json"
 # and the fraction of lanes whose valid flag may differ
 K9_REL = 1e-5
 K9_VALID_FRAC = 1e-5
+# the reference's own PT configuration (phases 19-22)
+CBOX = ROOT / "scenes" / "cbox" / "scene.json"
+CBOX_METHOD = ROOT / "scenes" / "cbox" / "pt.json"
+# phase 19: lanes and dimensions a sampler draws, on the card and the CPU
+SAMPLER_LANES = 1 << 20
+SAMPLER_DIMS = 24
+# phase 20: the first hit's albedo from K9 against the dispatch route's
+# closures (K9's plain version is within 5e-6 of them on the CPU)
+AUX_ALBEDO_TOL = 1e-5
+# phase 21: samples of the timed cbox render
+CBOX_SPP = 4
+# phase 22: the AOVs of matbox 64^2, 2 spp, against the JAX set. Every
+# pixel but AOV_PIX_FRAC of them within AOV_ABS (the roughness: within
+# AOV_ABS on all but AOV_ROUGH_FRAC, since the lobe a sample picks reads
+# the GGX albedo table, which the card draws itself), and every image's
+# channel means within AOV_MEAN_REL (the roughness's AOV_ROUGH_MEAN_REL)
+AOV_ABS = 1e-4
+AOV_PIX_FRAC = 1e-3
+AOV_ROUGH_FRAC = 0.01
+AOV_MEAN_REL = 1e-3
+AOV_ROUGH_MEAN_REL = 0.01
 # the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32 outside
 # the tensor cores, and HBM bandwidth
 FP32_PEAK = 67e12
@@ -2115,9 +2152,10 @@ def read_launches() -> dict:
             "K9": fs.launches, **common.counts}
 
 
-def device_events_per_call(calls: dict, windows: int = 6) -> dict:
+def device_events_per_call(calls: dict, windows: int = 6, busy: bool = False) -> dict:
     """Device events (kernels, copies, fills) of one call of each fn in
-    `calls` (name -> fn, each called once before, as a warm-up), by
+    `calls` (name -> fn, each called once before, as a warm-up), with
+    `busy` as (events, milliseconds the device was busy with them), by
     torch.profiler, where a marker kernel (spin_kernel) opens each call's
     span and one more closes the last. A window is padded at both ends
     (pad_profiler_window), since this torch build loses records at a
@@ -2148,14 +2186,17 @@ def device_events_per_call(calls: dict, windows: int = 6) -> dict:
         t1 = time.perf_counter()
         # the raw kineto records: prof.events() would first build the
         # profiler's Python event tree over every record
-        events = sorted((e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+        events = sorted((e.start_ns(), e.name(), e.duration_ns())
+                        for e in prof.profiler.kineto_results.events()
                         if e.device_type() == torch.autograd.DeviceType.CUDA)
-        head, counts = 0, []
-        for _, name in events:
+        head, counts, busy_ns = 0, [], []
+        for _, name, dur in events:
             if "spin_kernel" in name:
                 counts.append(0)
+                busy_ns.append(0)
             elif counts:
                 counts[-1] += 1
+                busy_ns[-1] += dur
             else:
                 head += 1
         whole = head > 0 and len(counts) == len(calls) + 1 and counts[-1] > 0
@@ -2164,6 +2205,8 @@ def device_events_per_call(calls: dict, windows: int = 6) -> dict:
               f"{counts} after each; whole: {whole}", flush=True)
         if whole:
             if counts[:-1] in seen:
+                if busy:
+                    return {k: (c, b / 1e6) for k, c, b in zip(calls, counts, busy_ns)}
                 return dict(zip(calls, counts))
             seen.append(counts[:-1])
     fail(f"the profiler recorded no two whole windows that agree in {windows}")
@@ -2240,10 +2283,274 @@ def blinds_full_width(device):
     return found
 
 
+def sampler_parity(device):
+    """Phase 19: make_sampler for pmj02bn, sobol, hash (independent under
+    AKR_RNG=hash) and independent on the card against the same call on the
+    CPU: SAMPLER_LANES lanes x SAMPLER_DIMS dimensions, bit-equal (int32
+    views), at sample index 4,100 for every lane (pmj02's epoch 1; one
+    index a wavefront, as the renders draw) and at a per-lane index over
+    epochs 0-2 (the [N] path)."""
+    import torch
+
+    from akari_render_tpu_torch.core.lds import make_sampler
+
+    t0 = time.perf_counter()
+    pix = torch.arange(SAMPLER_LANES, dtype=torch.int64)
+    per_lane = (pix * 2654435761) % (3 * 4096)
+    for kind in ("pmj02bn", "sobol", "hash", "independent"):
+        cfg = {"type": "independent" if kind == "hash" else kind, "seed": 0}
+        with env_switch(**({"AKR_RNG": "hash"} if kind == "hash" else {})):
+            for index in (4100, per_lane):
+                draws = []
+                for dev in ("cpu", device):
+                    si = index.to(dev) if isinstance(index, torch.Tensor) else index
+                    s = make_sampler(cfg, pix.to(dev), si, 0)
+                    us = []
+                    for _ in range(SAMPLER_DIMS):
+                        s, u = s.next_1d()
+                        us.append(u)
+                    draws.append(torch.stack(us).cpu().view(torch.int32))
+                check(torch.equal(draws[0], draws[1]),
+                      f"{kind} draws on the card differ from the CPU's "
+                      f"({int((draws[0] != draws[1]).sum())} of {draws[0].numel()})")
+    print(f"sampler parity: pmj02bn, sobol, hash and independent, {SAMPLER_LANES} lanes x "
+          f"{SAMPLER_DIMS} dims at sample index 4100 and at per-lane indices over 0-12287, "
+          f"bit-equal on cpu and {device} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def cbox_setup(device, width=None):
+    """(scene, task, PTSettings, filter) of the cbox fixture with
+    scenes/cbox/pt.json, at its own 1024x1024 unless `width` is given."""
+    from akari_render_tpu_torch.config import RenderTask
+    from akari_render_tpu_torch.core.filters import filter_from_config
+    from akari_render_tpu_torch.integrators.common import PTSettings
+    from akari_render_tpu_torch.scene import load_scene
+
+    task = RenderTask.from_file(CBOX_METHOD)
+    m = task.method
+    settings = PTSettings(max_depth=m.max_depth, rr_depth=m.rr_depth, use_nee=m.use_nee,
+                          clamp_indirect=m.clamp_indirect)
+    scene = load_scene(str(CBOX), width, width, device=device)
+    return scene, task, settings, filter_from_config(task.filter_config)
+
+
+def cbox_correctness(device):
+    """Phase 20: cbox 64^2, 16 spp, pmj02bn, d12 through the CLI on the
+    dispatch route and on path B (K9), each held to phase 4's gates against
+    the committed JAX images (testdata/cbox64_spp{16,256}.npy); then one
+    sample's first-hit aux on both routes: path B's albedo (K9's albedo
+    output) against the dispatch route's closures, and the normal and t
+    bit-equal."""
+    import numpy as np
+    import torch
+
+    from akari_render_tpu_torch.cli import main as cli_main
+    from akari_render_tpu_torch.core.image_io import read_exr
+    from akari_render_tpu_torch.integrators.common import trace_paths
+    from akari_render_tpu_torch.integrators.pt import camera_sample
+
+    testdata = ROOT / "akari_render_tpu_torch" / "testdata"
+    jax16 = np.load(testdata / "cbox64_spp16.npy")
+    gt = np.load(testdata / "cbox64_spp256.npy")
+    for name, route, shade in (("dispatch", "0", "dispatch"), ("path B", "1", "fused (K9)")):
+        out = OUT / f"cbox64_{name.replace(' ', '_')}.exr"
+        with env_switch(AKR_PALLAS_SHADE=route):
+            reset_launches()
+            stats = cli_main(["-s", str(CBOX), "-m", str(CBOX_METHOD), "--res", "64", "--spp",
+                              "16", "-o", str(out), "--device", device])
+            got = read_launches()
+        check(stats["shade"] == shade and stats["tier"] == "wavefront",
+              f"cbox 64^2 {name} took the {stats['tier']} tier, {stats['shade']} shade")
+        check(got["K1"] > 0 and got["K8"] == 0 and (got["K9"] > 0) == (route == "1"),
+              f"cbox 64^2 {name} launches {got}")
+        img = read_exr(out)
+        check(img.shape == jax16.shape and bool(np.all(np.isfinite(img))),
+              f"cbox 64^2 {name} image shape / finiteness")
+        m_port, m_jax = img.mean(axis=(0, 1)), jax16.mean(axis=(0, 1))
+        mean_rel = float(np.max(np.abs(m_port - m_jax) / np.abs(m_jax)))
+        mse_port = float(np.mean((img - gt) ** 2))
+        mse_jax = float(np.mean((jax16 - gt) ** 2))
+        print(f"cbox 64^2 16spp pmj02bn d12 {name} ({shade}): means port {m_port} jax {m_jax} "
+              f"(max rel {mean_rel:.3g}); MSE(port, jax256) {mse_port:.6g}, MSE(jax16, jax256) "
+              f"{mse_jax:.6g}, MSE(port, jax16) {float(np.mean((img - jax16) ** 2)):.6g}; "
+              f"launches {got}", flush=True)
+        check(mean_rel <= MEAN_TOL, f"cbox {name} means differ from the JAX image by more than 1%")
+        check(mse_port <= MSE_RATIO * mse_jax, f"cbox {name} MSE against the JAX 256-spp image too high")
+
+    scene, task, settings, filt = cbox_setup(device, 64)
+    aux = {}
+    for route in ("0", "1"):
+        with env_switch(AKR_PALLAS_SHADE=route):
+            reset_launches()
+            o, d, _, sampler = camera_sample(scene, filt, 0, task.seed, task.sampler)
+            _, aux[route], _ = trace_paths(scene, settings, o, d, sampler)
+            check((read_launches()["K9"] > 0) == (route == "1"), "the aux sample's K9 launches")
+    diff = float((aux["1"]["albedo"] - aux["0"]["albedo"]).abs().max())
+    hit = aux["0"]["first_t"] < 1e19
+    print(f"cbox 64^2 aux: K9's albedo against the dispatch route's, max abs {diff:.3g} over "
+          f"{int(hit.sum())} first hits (mean {aux['1']['albedo'][hit].mean(0).tolist()})",
+          flush=True)
+    check(diff <= AUX_ALBEDO_TOL, "K9's aux albedo differs from the dispatch route's")
+    check(bool(hit.any()) and float(aux["1"]["albedo"][hit].max()) > 0.5, "the aux albedo is empty")
+    for k in ("normal", "first_t"):
+        check(torch.equal(aux["0"][k], aux["1"][k]), f"the aux {k} differs between the routes")
+
+
+def cbox_full_width(device):
+    """Phase 21: cbox at its own 1024^2 with the reference's configuration
+    (scenes/cbox/pt.json: pmj02bn, d12, rr 5, Gaussian r 1.5) through the
+    CLI, CBOX_SPP samples after a one-sample warm-up, and the same render
+    with the independent sampler beside it, in turns (pmj02bn, independent,
+    independent, pmj02bn: the host's clock moves between renders): Mpaths/s, every kernel's
+    launches, K1's launches and mean time a launch (CUDA events), peak
+    device bytes a lane; then one sample of each by torch.profiler: its
+    device launches and busy time, and the idle share against an
+    unprofiled sample. Returns the printed numbers."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from akari_render_tpu_torch.cli import main as cli_main
+    from akari_render_tpu_torch.core.image_io import read_exr
+    from akari_render_tpu_torch.integrators.pt import render_sample
+
+    method = _json.loads(CBOX_METHOD.read_text())
+    found = {}
+    for kind in ("pmj02bn", "independent", "independent", "pmj02bn"):
+        path = CBOX_METHOD
+        if kind != method["sampler"]["type"]:
+            path = OUT / f"cbox_{kind}.json"
+            path.write_text(_json.dumps({**method, "sampler": {**method["sampler"],
+                                                               "type": kind}}))
+        out = OUT / f"cbox1024_{kind}.exr"
+        out.unlink(missing_ok=True)
+        if kind not in found:
+            cli_main(["-s", str(CBOX), "-m", str(path), "--spp", "1", "-o", str(out),
+                      "--device", device])  # the warm-up
+        torch.cuda.reset_peak_memory_stats()
+        with timed_k1() as timing:
+            reset_launches()
+            t0 = time.perf_counter()
+            stats = cli_main(["-s", str(CBOX), "-m", str(path), "--spp", str(CBOX_SPP), "-o",
+                              str(out), "--device", device])
+            wall = time.perf_counter() - t0
+            got = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        check(stats["tier"] == "wavefront" and stats["spp_total"] == CBOX_SPP,
+              f"cbox 1024^2 {kind}: {stats['tier']}, {stats['spp_total']} spp")
+        check(got["K1"] > 0 and all(got[k] == 0 for k in ("K2", "K3", "K4", "K5", "K7", "K8")),
+              f"cbox 1024^2 {kind} launches {got}")
+        img = read_exr(out)
+        check(img.shape == (1024, 1024, 3) and bool(np.all(np.isfinite(img))),
+              f"cbox 1024^2 {kind} image shape / finiteness")
+        k1 = timing.summary()
+        check(k1["launches"] == got["K1"], f"K1: {k1['launches']} launches timed of {got['K1']}")
+        paths = 1024 * 1024 * CBOX_SPP
+        run = {"mpaths_s": paths / stats["total_time"] / 1e6, "render_s": stats["total_time"],
+               "k1_launches": got["K1"], "k1_ms": k1["ms"], "k1_bound_ms": k1["bound_ms"],
+               "bounces": got["bounces"], "peak_bytes_per_lane": peak / (1024 * 1024)}
+        found.setdefault(kind, {"runs": []})["runs"].append(run)
+        print(f"cbox 1024^2 {CBOX_SPP}spp d12 {kind} ({stats['shade']}, {stats['traversal']}): "
+              f"render {stats['total_time']:.4f} s ({run['mpaths_s']:.4f} Mpaths/s), CLI "
+              f"wall {wall:.3f} s, launches and counts {got}, K1 mean {k1['ms']:.4f} ms a launch "
+              f"(least {k1['ms_min']:.4f}, most {k1['ms_max']:.4f}; mean bound "
+              f"{k1['bound_ms']:.4f}), peak device memory {peak / 2**30:.3f} GiB "
+              f"({peak / (1024 * 1024):.0f} B per lane), image mean {img.mean(axis=(0, 1))}",
+              flush=True)
+
+    scene, task, settings, filt = cbox_setup(device)
+
+    def sample(kind):
+        def fn():
+            render_sample(scene, settings, filt, 0, task.seed, {**task.sampler, "type": kind})
+        return fn
+
+    t0 = time.perf_counter()
+    events = device_events_per_call({k: sample(k) for k in found}, busy=True)
+    for kind, (count, busy_ms) in events.items():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sample(kind)()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+        found[kind].update(launches_per_sample=count, busy_ms=busy_ms, sample_ms=wall_ms,
+                           idle_share=1.0 - busy_ms / wall_ms)
+        print(f"cbox 1024^2 one {kind} sample (torch.profiler, device activity only): {count} "
+              f"device events, device busy {busy_ms:.3f} ms; unprofiled sample {wall_ms:.3f} ms, "
+              f"device idle {100 * (1.0 - busy_ms / wall_ms):.1f} %", flush=True)
+    print(f"cbox 1024^2 profile: {time.perf_counter() - t0:.1f} s; pmj02bn against independent: "
+          f"{events['pmj02bn'][0] - events['independent'][0]:+d} device events a sample",
+          flush=True)
+    return found
+
+
+def aov_phase(device):
+    """Phase 22: the aov method through the CLI: matbox 64^2, 2 spp, each
+    of the seven images against the committed JAX set
+    (testdata/matbox64_aov_spp2.npz) within AOV_* (the albedo and
+    roughness read the card's own GGX albedo table); then cbox 1024^2,
+    1 spp: the seven images finite, and the depth above 5 wherever a ray
+    hit. K1 traces the first hits."""
+    import json as _json
+
+    import numpy as np
+
+    from akari_render_tpu_torch.cli import main as cli_main
+    from akari_render_tpu_torch.core.image_io import read_exr
+    from akari_render_tpu_torch.integrators.aov import AOV_NAMES
+
+    ref = np.load(ROOT / "akari_render_tpu_torch" / "testdata" / "matbox64_aov_spp2.npz")
+    for scene, res, spp in ((SCENE, "64", 2), (CBOX, None, 1)):
+        method = OUT / f"aov_{spp}.json"
+        method.write_text(_json.dumps({"method": {"type": "aov", "spp": spp}}))
+        out = OUT / f"{scene.parent.name}_aov.exr"
+        reset_launches()
+        t0 = time.perf_counter()
+        cli_main(["-s", str(scene), "-m", str(method), "-o", str(out), "--device", device]
+                 + (["--res", res] if res else []))
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        check(got["K1"] == spp, f"the AOV of {scene.parent.name} launched K1 {got['K1']} times")
+        images = {n: read_exr(out.with_name(f"{out.stem}_{n}{out.suffix}")) for n in AOV_NAMES}
+        check(np.array_equal(read_exr(out), images["albedo"]), "the main image is not the albedo")
+        for n, im in images.items():
+            check(bool(np.all(np.isfinite(im))), f"AOV {n} of {scene.parent.name} not finite")
+        if res:
+            worst = []
+            for n, im in images.items():
+                want = ref[n]
+                check(im.shape == want.shape, f"AOV {n} shape {im.shape}")
+                off = np.abs(im - want).max(axis=-1) > AOV_ABS
+                m_rel = float(np.max(np.abs(im.mean((0, 1)) - want.mean((0, 1)))
+                                     / np.maximum(np.abs(want.mean((0, 1))), 1e-6)))
+                rough = n == "roughness"
+                worst.append(f"{n} {off.mean():.4g} of pixels off, max abs "
+                             f"{np.abs(im - want).max():.3g}, means rel {m_rel:.3g}")
+                check(off.mean() <= (AOV_ROUGH_FRAC if rough else AOV_PIX_FRAC)
+                      and m_rel <= (AOV_ROUGH_MEAN_REL if rough else AOV_MEAN_REL),
+                      f"matbox 64^2 AOV {n} differs from JAX's: {worst[-1]}")
+            print(f"AOV matbox 64^2 2spp against JAX ({wall:.2f} s CLI): " + "; ".join(worst),
+                  flush=True)
+        else:
+            depth = images["depth"][..., 0]
+            hit = depth > 0.0
+            check(hit.mean() > 0.95 and float(depth[hit].min()) > 5.0,
+                  f"cbox AOV depth: {hit.mean():.4f} of pixels hit, least depth "
+                  f"{float(depth[hit].min()) if hit.any() else 0.0}")
+            print(f"AOV cbox 1024^2 1spp ({wall:.2f} s CLI): {hit.mean():.4f} of pixels hit, depth "
+                  f"{float(depth[hit].min()):.4f}-{float(depth.max()):.4f}, image means "
+                  f"{ {n: [round(float(x), 4) for x in im.mean((0, 1))] for n, im in images.items()} }",
+                  flush=True)
+
+
 def build_all():
-    """Phases 2, 6, 10 and 15: one nvcc per kernel source, started together."""
+    """Phases 2, 6, 10 and 15: one nvcc per kernel source, started together,
+    and beside them the host's pmj02 tables (core/pmj02.py, cached in
+    build/cache/) for phases 19-21."""
     from akari_render_tpu_torch.accel import intersect as k1
     from akari_render_tpu_torch.accel import pairs, wide
+    from akari_render_tpu_torch.core.pmj02 import get_pmj02_tables
     from akari_render_tpu_torch.integrators import fused_shade as fs
     from akari_render_tpu_torch.integrators import megakernel as mk
 
@@ -2257,7 +2564,7 @@ def build_all():
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=run, args=(b,))
-               for b in (k1.build, pairs.build, wide.build, mk.build, fs.build)]
+               for b in (k1.build, pairs.build, wide.build, mk.build, fs.build, get_pmj02_tables)]
     for th in threads:
         th.start()
     for th in threads:
@@ -2269,7 +2576,7 @@ def build_all():
     print(f"K2-K6 build: nvcc {pairs.build_seconds:.3f} s; K7 build: nvcc "
           f"{wide.build_seconds:.3f} s", flush=True)
     print(f"K8 build: nvcc {mk.build_seconds:.3f} s; K9 build: nvcc {fs.build_seconds:.3f} s "
-          f"({wall:.3f} s for the five builds, in parallel)", flush=True)
+          f"({wall:.3f} s for the five builds and the pmj02 tables, in parallel)", flush=True)
     # K3 at classroom's 4,633 candidates, K8 and K9 at blinds' tables: the
     # shapes of their main paths
     scene, _, settings, filt = blinds_setup("cuda")
@@ -2342,6 +2649,15 @@ def main():
     for k, c in blinds_full_width(device).items():
         fused[k]["launches"] = c
     lap("phase 14 (blinds 256^2)")
+
+    sampler_parity(device)
+    lap("phase 19 (sampler parity)")
+    cbox_correctness(device)
+    lap("phase 20 (cbox 64^2)")
+    cbox_full_width(device)
+    lap("phase 21 (cbox 1024^2)")
+    aov_phase(device)
+    lap("phase 22 (AOV)")
 
     kernels = [entry, *pair_entries.values(), other["K5"], other["K7"], fused["K8"], fused["K9"]]
     for k in kernels:  # K6 is K4's kernel

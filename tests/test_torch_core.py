@@ -84,8 +84,18 @@ def test_independent_sampler_new_bit_exact():
 
 
 def test_unported_sampler_raises():
-    with pytest.raises(NotImplementedError):
-        t_lds.make_sampler({"type": "pmj02bn"}, torch.arange(4), 0)
+    """Every sampler type is ported now, and an unknown type raises nothing:
+    make_sampler falls to the independent sampler, as the JAX package does,
+    with JAX's draws bit for bit."""
+    cfg = {"type": "bogus", "seed": 2}
+    pix = np.arange(4096, dtype=np.uint32)
+    js = j_lds.make_sampler(cfg, jnp.asarray(pix), jnp.uint32(7), seed_extra=1)
+    ts = t_lds.make_sampler(cfg, torch.arange(4096), 7, seed_extra=1)
+    assert isinstance(ts, t_samplers.IndependentSampler)
+    for _ in range(3):
+        js, ju = js.next_3d()
+        ts, tu = ts.next_3d()
+        np.testing.assert_array_equal(np.asarray(ju), tu.numpy())
 
 
 def test_camera_rays_match(rng_np):

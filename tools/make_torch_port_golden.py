@@ -13,10 +13,15 @@ Writes into akari_render_tpu_torch/testdata/, as [H, W, 3] float32:
   (the same settings) with the wavefront path tracer at 16 and 256 spp,
   and blinds64_mk_spp16.npy: the same 16 spp through the megakernel
   (render_pt_megakernel, the Pallas kernel in interpret mode; about 20 s
-  for the three).
+  for the three);
+- cbox64_spp{16,256}.npy: the cbox fixture at 64x64 through
+  scenes/cbox/pt.json (d12, rr 5, pmj02bn sampler seed 0, gaussian filter
+  r 1.5) at 16 and 256 spp, and matbox64_aov_spp2.npz: matbox's seven AOV
+  images (integrators/aov.py, remapped; one array a name) at 64x64, 2 spp
+  (about 3 minutes for the three).
 
 Usage:
-    python tools/make_torch_port_golden.py [--only matbox|classroom|blinds]
+    python tools/make_torch_port_golden.py [--only matbox|classroom|blinds|cbox]
 """
 from __future__ import annotations
 
@@ -34,7 +39,10 @@ SETS = {
     "matbox": ("matbox", 64, (16, 256), ()),
     "classroom": ("classroom", 96, (16,), ()),
     "blinds": ("blinds", 64, (16, 256), (16,)),
+    "cbox": ("cbox", 64, (16, 256), ()),
 }
+# AOV reference sets written with a set: (scene dir, resolution, spp)
+AOV_SETS = {"cbox": ("matbox", 64, 2)}
 
 
 def main(argv=None):
@@ -45,7 +53,8 @@ def main(argv=None):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from akari_render_tpu.config import RenderTask
+    from akari_render_tpu.config import AOVConfig, RenderTask
+    from akari_render_tpu.integrators.aov import render_aov
     from akari_render_tpu.integrators.megakernel import render_pt_megakernel
     from akari_render_tpu.integrators.pt import render_pt
     from akari_render_tpu.scene import load_scene
@@ -65,6 +74,15 @@ def main(argv=None):
             path = out_dir / f"{name}{res}{tag}_spp{spp}.npy"
             np.save(path, np.asarray(img, np.float32))
             print(f"wrote {path}: mean {img.mean(axis=(0, 1))} ({stats['total_time']:.1f}s)")
+        if name in AOV_SETS:
+            scene_dir, res, spp = AOV_SETS[name]
+            scene = load_scene(str(ROOT / "scenes" / scene_dir / "scene.json"), width=res,
+                               height=res)
+            _, stats = render_aov(scene, AOVConfig(spp=spp))
+            path = out_dir / f"{scene_dir}{res}_aov_spp{spp}.npz"
+            np.savez_compressed(path, **{k: np.asarray(v, np.float32)
+                                         for k, v in stats["images"].items()})
+            print(f"wrote {path}: {stats['aovs']} ({stats['total_time']:.1f}s)")
 
 
 if __name__ == "__main__":
