@@ -8,11 +8,13 @@ AKR_MEGAKERNEL=1 renders an eligible scene through the path megakernel
 (K8), AKR_PALLAS_SHADE=1 shades through the fused shade (K9); on a
 cluster-tier scene AKR_WIDE=1 traverses with the wide-BVH walk (K7) and
 AKR_PAIRS_STATIC=0 with the pair sweep's legacy windowed walk (K5). Each
-render prints which tier, shade and traversal ran.
+render prints which integrator, tier, shade and traversal ran.
 
-`pt` and `aov` are the ported methods (aov writes one EXR a name,
-`{stem}_{name}{suffix}`, and the albedo as the main image); mcmc, mcmc_opt
-and gpt method files exit with "not yet ported".
+Every method type of the reference's method JSON renders: `pt`, `gpt`,
+`mcmc` and `mcmc_opt` (one branch, Kelemen PSSMLT) and `aov` (one EXR a
+name, `{stem}_{name}{suffix}`, and the albedo as the main image); another
+type exits with "unknown method". Not ported: --checkpoint,
+--checkpoint-every, --devices (sharding), --gui and --save-intermediate.
 """
 from __future__ import annotations
 
@@ -44,10 +46,11 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: CUDA is not available")
-    tasks = RenderTask.list_from_file(args.method)
+    try:
+        tasks = RenderTask.list_from_file(args.method)
+    except ValueError as e:  # an unknown method type, or a file that does not parse
+        raise SystemExit(str(e)) from None
     for task in tasks:
-        if task.method_type not in ("pt", "aov"):
-            raise SystemExit(f"method {task.method_type!r} is not yet ported (only pt and aov are)")
         if args.spp is not None:
             task.method.spp = args.spp
 
@@ -73,6 +76,8 @@ def main(argv=None):
 def _render_one(task, task_idx, n_tasks, scene, args, progress_cb):
     from .core.image_io import write_image
     from .integrators.aov import render_aov
+    from .integrators.gpt import render_gpt
+    from .integrators.mcmc import render_mcmc
     from .integrators.pt import render_pt
     from .stats import RenderSession
 
@@ -89,10 +94,17 @@ def _render_one(task, task_idx, n_tasks, scene, args, progress_cb):
             p = base.with_name(f"{base.stem}_{name}{base.suffix}")
             write_image(str(p), im)
             print(f"wrote {p}", file=sys.stderr)
-        route = f"traversal {scene.traversal}"
-    else:
+        route = f"aov, traversal {scene.traversal}"
+    elif task.method_type == "pt":
         img, stats = render_pt(scene, task.method, task, progress_cb=progress_cb, session=session)
-        route = f"tier {stats['tier']}, shade {stats['shade']}, traversal {stats['traversal']}"
+        route = (f"pt, tier {stats['tier']}, shade {stats['shade']}, "
+                 f"traversal {stats['traversal']}")
+    else:
+        render = render_gpt if task.method_type == "gpt" else render_mcmc
+        img, stats = render(scene, task.method, task, progress_cb=progress_cb, session=session)
+        what = (f"gpt ({stats['shift_mode']} shift)" if task.method_type == "gpt"
+                else f"{task.method_type} (b {stats['b']:.6g}, acceptance {stats['acceptance']:.4f})")
+        route = f"{what}, shade {stats['shade']}, traversal {scene.traversal}"
     write_image(str(out_p), img)
     print(f"wrote {out_p}  ({stats.get('total_time', 0.0):.2f}s render; {route})", file=sys.stderr)
     if args.save_stats:

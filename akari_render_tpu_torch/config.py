@@ -172,6 +172,8 @@ class RenderTask:
     def from_json(d: dict) -> "RenderTask":
         m = d["method"]
         t = m["type"]
+        if t not in _METHODS:
+            raise ValueError(f"unknown method: {t}")
         cls = _METHODS[t]
         return RenderTask(
             method_type=t,

@@ -1,6 +1,7 @@
 """Alias tables for O(1) discrete sampling (port of
 akari_render_tpu/core/distribution.py::AliasTable): the host-side Vose
-build in numpy float64. lights.py samples the tables on the device."""
+build in numpy float64. lights.py samples the tables on the device.
+resample_with_f64 is MCMC's bootstrap resampling, copied (numpy)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -44,3 +45,15 @@ class AliasTable(NamedTuple):
             prob=prob.astype(np.float32), alias=alias, pdf=pdf.astype(np.float32)
         )
 
+
+def resample_with_f64(weights: np.ndarray, us: np.ndarray) -> np.ndarray:
+    """CPU bootstrap resampling by inverse-CDF (ref distribution.rs:92-115).
+
+    weights: [N] float; us: [M] uniforms -> [M] indices.
+    """
+    cdf = np.cumsum(np.asarray(weights, np.float64))
+    total = cdf[-1]
+    assert total > 0.0, "bootstrap failed: all-zero weights"
+    return np.minimum(
+        np.searchsorted(cdf, us * total, side="right"), len(weights) - 1
+    ).astype(np.uint32)

@@ -26,6 +26,10 @@ def cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def length(v):
+    return torch.sqrt(torch.clamp(dot(v, v), min=0.0))
+
+
 def length_squared(v):
     return dot(v, v)
 

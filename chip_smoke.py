@@ -109,7 +109,26 @@ Phases (any failure exits non-zero; nothing is caught):
 22. AOV: the aov method through the CLI, matbox 64x64, 2 spp, against the
    committed JAX set (testdata/matbox64_aov_spp2.npz), then cbox
    1024x1024 at 1 spp: seven finite images, the depth above 5 where a ray
-   hit.
+   hit;
+23. GPT correctness: cbox 64x64, 4 spp through the CLI with
+   scenes/cbox/gpt.json (the reconnection shift, on the dispatch route),
+   the reconstruction and the primal held to phase 4's gates against the
+   committed JAX render (testdata/cbox64_gpt_spp4.npz) and
+   testdata/cbox64_spp256.npy, the gradients correlated with JAX's; then
+   the pss shift on the dispatch route and with AKR_PALLAS_SHADE=1 (K9),
+   their means within 1 % of each other;
+24. MCMC correctness: cbox 64x64 through the CLI with scenes/cbox/mcmc.json
+   at 256 chains and 16 spp-equivalents, on the dispatch route and with
+   AKR_PALLAS_SHADE=1 (K9), each with means within 2 % of the committed
+   JAX render (testdata/cbox64_mcmc.npy) and MSE against
+   testdata/cbox64_spp256.npy within 1.25x JAX's, with b and the
+   acceptance beside JAX's;
+25. GPT and MCMC at full width: cbox 1024x1024 through the CLI with
+   gpt.json (2 spp) and mcmc.json (65,536 chains, 1 spp-equivalent: 16
+   steps a chain): GPT paths a second (5 a pixel a sample), MCMC mutations
+   a second, K1's launches and mean time, peak device bytes a pixel, and
+   the device events and idle share of one GPT sample and one mutation
+   step (torch.profiler).
 
 Each phase prints the seconds since the start when it ends. After the
 build it prints what the compiler gave every kernel (registers a thread,
@@ -206,6 +225,21 @@ AOV_PIX_FRAC = 1e-3
 AOV_ROUGH_FRAC = 0.01
 AOV_MEAN_REL = 1e-3
 AOV_ROUGH_MEAN_REL = 0.01
+# the gradient-domain path tracer and Kelemen PSSMLT (phases 23-25)
+CBOX_GPT = ROOT / "scenes" / "cbox" / "gpt.json"
+CBOX_MCMC = ROOT / "scenes" / "cbox" / "mcmc.json"
+# phase 23: GPT's gradients against JAX's, by correlation (the gradients'
+# means are near zero)
+GRAD_CORR = 0.99
+# phase 24: the chains on the card drift from JAX's as float sums differ,
+# so the image is held statistically: means within 2 %, MSE against the JAX
+# 256-spp PT image within 1.25x the JAX MCMC image's own
+MCMC_MEAN_TOL = 0.02
+MCMC_MSE_RATIO = 1.25
+MCMC_CHAINS_64 = 256  # the 1024^2 configuration's chains a pixel, 1/16
+# phase 25: samples of the GPT render and spp-equivalents of the MCMC one
+GPT_SPP = 2
+MCMC_SPP = 1
 # the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32 outside
 # the tensor cores, and HBM bandwidth
 FP32_PEAK = 67e12
@@ -2544,6 +2578,247 @@ def aov_phase(device):
                   flush=True)
 
 
+def method_file(name: str, base: Path, **overrides) -> Path:
+    """A copy of a method file with some of its method's fields changed,
+    under OUT."""
+    import json as _json
+
+    doc = _json.loads(base.read_text())
+    doc["method"].update(overrides)
+    path = OUT / name
+    path.write_text(_json.dumps(doc))
+    return path
+
+
+def image_gates(label: str, img, want, gt, mean_tol: float, mse_ratio: float) -> str:
+    """Phase 4's gates: channel means within mean_tol of `want` (the JAX
+    render of the same configuration) and MSE against `gt` within
+    mse_ratio of want's own; returns the printed comparison."""
+    import numpy as np
+
+    check(img.shape == want.shape and bool(np.all(np.isfinite(img))),
+          f"{label}: image shape {img.shape} / finiteness")
+    m_port, m_jax = img.mean(axis=(0, 1)), want.mean(axis=(0, 1))
+    mean_rel = float(np.max(np.abs(m_port - m_jax) / np.abs(m_jax)))
+    mse_port, mse_jax = float(np.mean((img - gt) ** 2)), float(np.mean((want - gt) ** 2))
+    text = (f"means port {m_port} jax {m_jax} (max rel {mean_rel:.3g}); MSE(port, gt) "
+            f"{mse_port:.6g}, MSE(jax, gt) {mse_jax:.6g}, MSE(port, jax) "
+            f"{float(np.mean((img - want) ** 2)):.6g}")
+    check(mean_rel <= mean_tol, f"{label}: means differ from JAX's by more than "
+                                f"{mean_tol:.0%}: {text}")
+    check(mse_port <= mse_ratio * mse_jax, f"{label}: MSE against the ground truth too high: "
+                                           f"{text}")
+    return text
+
+
+def gpt_correctness(device):
+    """Phase 23: cbox 64^2, 4 spp through the CLI with scenes/cbox/gpt.json
+    (the reconnection shift; its bounces shade through the dispatch) held
+    against the committed JAX render (testdata/cbox64_gpt_spp4.npz): the
+    reconstruction and the primal by phase 4's gates against
+    testdata/cbox64_spp256.npy, the gradients by correlation; then the pss
+    shift on the dispatch route and on path B (K9), the two within 1 % in
+    their means."""
+    import numpy as np
+
+    from akari_render_tpu_torch.cli import main as cli_main
+    from akari_render_tpu_torch.core.image_io import read_exr
+
+    testdata = ROOT / "akari_render_tpu_torch" / "testdata"
+    ref = np.load(testdata / "cbox64_gpt_spp4.npz")
+    gt = np.load(testdata / "cbox64_spp256.npy")
+    out = OUT / "cbox64_gpt.exr"
+    with env_switch(AKR_PALLAS_SHADE="0"):
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = cli_main(["-s", str(CBOX), "-m", str(CBOX_GPT), "--res", "64", "--spp", "4",
+                          "-o", str(out), "--device", device])
+        wall = time.perf_counter() - t0
+        got = read_launches()
+    check(stats["shift_mode"] == "reconnect" and stats["shade"] == "dispatch",
+          f"cbox 64^2 GPT took the {stats['shift_mode']} shift, {stats['shade']} shade")
+    check(got["K1"] > 0 and got["K8"] == 0 and got["K9"] == 0 and got["dispatch_groups"] > 0,
+          f"cbox 64^2 GPT launches {got}")
+    for name, img in (("recon", read_exr(out)), ("primal", stats["primal"])):
+        text = image_gates(f"cbox 64^2 GPT {name}", img, ref[name], gt, MEAN_TOL, MSE_RATIO)
+        print(f"cbox 64^2 4spp GPT reconnect {name}: {text}", flush=True)
+    for name in ("gx", "gy"):
+        corr = float(np.corrcoef(stats[name].ravel(), ref[name].ravel())[0, 1])
+        print(f"cbox 64^2 GPT {name}: correlation with JAX's {corr:.6f}, mean abs port "
+              f"{np.abs(stats[name]).mean():.6g} jax {np.abs(ref[name]).mean():.6g}", flush=True)
+        check(corr >= GRAD_CORR, f"cbox 64^2 GPT {name} correlates {corr:.4f} with JAX's")
+    print(f"cbox 64^2 GPT reconnect: {wall:.2f} s CLI, launches and counts {got}", flush=True)
+
+    pss = method_file("cbox_gpt_pss.json", CBOX_GPT, reconnect=False)
+    means = {}
+    for route, shade in (("0", "dispatch"), ("1", "fused (K9)")):
+        out = OUT / f"cbox64_gpt_pss_{route}.exr"
+        with env_switch(AKR_PALLAS_SHADE=route):
+            reset_launches()
+            stats = cli_main(["-s", str(CBOX), "-m", str(pss), "--res", "64", "--spp", "4",
+                              "-o", str(out), "--device", device])
+            got = read_launches()
+        img = read_exr(out)
+        check(stats["shift_mode"] == "pss" and stats["shade"] == shade,
+              f"cbox 64^2 GPT pss took the {stats['shift_mode']} shift, {stats['shade']} shade")
+        check(img.shape == (64, 64, 3) and bool(np.all(np.isfinite(img)))
+              and all(np.all(np.isfinite(stats[k])) for k in ("primal", "gx", "gy")),
+              f"cbox 64^2 GPT pss {shade}: shape / finiteness")
+        check(got["K1"] > 0 and (got["K9"] > 0) == (route == "1")
+              and (got["dispatch_groups"] == 0) == (route == "1"),
+              f"cbox 64^2 GPT pss {shade} launches {got}")
+        means[shade] = img.mean(axis=(0, 1))
+        print(f"cbox 64^2 4spp GPT pss ({shade}): mean {means[shade]}, launches and counts "
+              f"{got}", flush=True)
+    rel = float(np.max(np.abs(means["fused (K9)"] - means["dispatch"]) / means["dispatch"]))
+    check(rel <= MEAN_TOL, f"cbox 64^2 GPT pss: path B's means {rel:.3g} off the dispatch's")
+
+
+def mcmc_correctness(device):
+    """Phase 24: cbox 64^2 through the CLI with scenes/cbox/mcmc.json at
+    256 chains and 16 spp-equivalents, on the dispatch route and on path B
+    (K9 shades the chains' paths), each held against the committed JAX
+    render (testdata/cbox64_mcmc.npy): means within MCMC_MEAN_TOL, MSE
+    against testdata/cbox64_spp256.npy within MCMC_MSE_RATIO of JAX's;
+    b and the acceptance printed beside JAX's."""
+    import json as _json
+
+    import numpy as np
+
+    from akari_render_tpu_torch.cli import main as cli_main
+    from akari_render_tpu_torch.core.image_io import read_exr
+
+    testdata = ROOT / "akari_render_tpu_torch" / "testdata"
+    want = np.load(testdata / "cbox64_mcmc.npy")
+    jstats = _json.loads((testdata / "cbox64_mcmc_stats.json").read_text())
+    gt = np.load(testdata / "cbox64_spp256.npy")
+    method = method_file("cbox_mcmc_64.json", CBOX_MCMC, n_chains=MCMC_CHAINS_64)
+    for route, shade in (("0", "dispatch"), ("1", "fused (K9)")):
+        out = OUT / f"cbox64_mcmc_{route}.exr"
+        with env_switch(AKR_PALLAS_SHADE=route):
+            reset_launches()
+            t0 = time.perf_counter()
+            stats = cli_main(["-s", str(CBOX), "-m", str(method), "--res", "64", "--spp", "16",
+                              "-o", str(out), "--device", device])
+            wall = time.perf_counter() - t0
+            got = read_launches()
+        check(stats["shade"] == shade, f"cbox 64^2 MCMC took the {stats['shade']} shade")
+        check(got["K1"] > 0 and got["K8"] == 0 and (got["K9"] > 0) == (route == "1"),
+              f"cbox 64^2 MCMC {shade} launches {got}")
+        text = image_gates(f"cbox 64^2 MCMC {shade}", read_exr(out), want, gt, MCMC_MEAN_TOL,
+                           MCMC_MSE_RATIO)
+        print(f"cbox 64^2 MCMC ({shade}): b {stats['b']:.6g} (jax {jstats['b']:.6g}), "
+              f"acceptance {stats['acceptance']:.4f} (jax {jstats['acceptance']:.4f}), "
+              f"{stats['steps']} steps a chain; {text}; {wall:.2f} s CLI, launches and counts "
+              f"{got}", flush=True)
+
+
+def gpt_mcmc_full_width(device):
+    """Phase 25: cbox 1024^2 through the CLI with gpt.json at GPT_SPP
+    samples and mcmc.json (65,536 chains) at MCMC_SPP spp-equivalents:
+    GPT paths a second (five a pixel a sample), MCMC mutations a second
+    over the mutation steps, K1's launches and mean time (CUDA events),
+    peak device bytes a pixel; then one GPT sample and one mutation step
+    by torch.profiler (device events and busy time) against an unprofiled
+    one (the idle share). Returns the printed numbers."""
+    import numpy as np
+    import torch
+
+    from akari_render_tpu_torch.cli import main as cli_main
+    from akari_render_tpu_torch.config import RenderTask
+    from akari_render_tpu_torch.core.film import Film
+    from akari_render_tpu_torch.core.filters import filter_from_config
+    from akari_render_tpu_torch.core.image_io import read_exr
+    from akari_render_tpu_torch.core.samplers import IndependentSampler
+    from akari_render_tpu_torch.integrators import gpt, mcmc
+    from akari_render_tpu_torch.integrators.common import PTSettings
+    from akari_render_tpu_torch.scene import load_scene
+
+    found = {}
+    npix = 1024 * 1024
+    for name, method, spp in (("gpt", CBOX_GPT, GPT_SPP), ("mcmc", CBOX_MCMC, MCMC_SPP)):
+        out = OUT / f"cbox1024_{name}.exr"
+        out.unlink(missing_ok=True)
+        torch.cuda.reset_peak_memory_stats()
+        with timed_k1() as timing:
+            reset_launches()
+            t0 = time.perf_counter()
+            stats = cli_main(["-s", str(CBOX), "-m", str(method), "--spp", str(spp), "-o",
+                              str(out), "--device", device])
+            wall = time.perf_counter() - t0
+            got = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        img = read_exr(out)
+        check(img.shape == (1024, 1024, 3) and bool(np.all(np.isfinite(img)))
+              and float(img.mean()) > 0.0, f"cbox 1024^2 {name} image shape / finiteness")
+        check(got["K1"] > 0 and all(got[k] == 0 for k in ("K2", "K3", "K4", "K5", "K7", "K8")),
+              f"cbox 1024^2 {name} launches {got}")
+        k1 = timing.summary()
+        check(k1["launches"] == got["K1"], f"K1: {k1['launches']} launches timed of {got['K1']}")
+        run = {"render_s": stats["total_time"], "k1_launches": got["K1"], "k1_ms": k1["ms"],
+               "k1_bound_ms": k1["bound_ms"], "peak_bytes_per_pixel": peak / npix}
+        if name == "gpt":
+            run["paths_s"] = 5 * npix * spp / stats["total_time"]
+            rate = f"{run['paths_s'] / 1e6:.4f} Mpaths/s (5 paths a pixel a sample)"
+        else:
+            c = 65536
+            check(stats["steps"] == npix * spp // c, f"MCMC ran {stats['steps']} steps a chain")
+            run.update(mutations_s=c * stats["steps"] / stats["mutate_time"],
+                       mutate_s=stats["mutate_time"], bootstrap_s=stats["bootstrap_time"],
+                       direct_s=stats["direct_time"])
+            rate = (f"{run['mutations_s'] / 1e6:.4f} M mutations/s over the steps "
+                    f"({stats['steps']} steps x {c} chains in {stats['mutate_time']:.3f} s; "
+                    f"bootstrap {stats['bootstrap_time']:.3f} s, direct pass "
+                    f"{stats['direct_time']:.3f} s; b {stats['b']:.6g}, acceptance "
+                    f"{stats['acceptance']:.4f})")
+        found[name] = run
+        print(f"cbox 1024^2 {name} {spp}spp: render {stats['total_time']:.4f} s, {rate}, CLI "
+              f"wall {wall:.3f} s, launches and counts {got}, K1 mean {k1['ms']:.4f} ms a "
+              f"launch (least {k1['ms_min']:.4f}, most {k1['ms_max']:.4f}; mean bound "
+              f"{k1['bound_ms']:.4f}), peak device memory {peak / 2**30:.3f} GiB "
+              f"({peak / npix:.0f} B a pixel), image mean {img.mean(axis=(0, 1))}", flush=True)
+
+    scene = load_scene(str(CBOX), device=device)
+    gtask = RenderTask.from_file(CBOX_GPT)
+    gm = gtask.method
+    gset = PTSettings(max_depth=gm.max_depth, rr_depth=gm.rr_depth, use_nee=gm.use_nee)
+    gfilt = filter_from_config(gtask.filter_config)
+    films = tuple(Film.new(1024, 1024, device) for _ in range(6))
+    pix = torch.arange(npix, device=device)
+
+    def gpt_sample():
+        gpt.gpt_sample_films(scene, gm, gfilt, gset, mcmc.sample_dimension(gm.max_depth),
+                             gtask.seed, "reconnect", films, 0, pix)
+
+    mtask = RenderTask.from_file(CBOX_MCMC)
+    mm = mtask.method
+    mset, d = mcmc._mcmc_settings(mm)
+    mfilt = filter_from_config(mtask.filter_config)
+    boot = mcmc.bootstrap_chains(scene, mset, mfilt, mm, d, mm.n_chains, mtask.seed)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    rng = IndependentSampler.new(torch.arange(mm.n_chains, device=device),
+                                 seed=mtask.seed ^ 0xC4A1).rng
+    carry = mcmc.Chains(*boot[:4], rng, Film.new(1024, 1024, device),
+                        torch.zeros((), device=device), zero, zero, zero)
+    step = mcmc.make_mutate_step(scene, mset, mfilt, mm, d)
+    calls = {"gpt sample": gpt_sample, "mcmc step": lambda: step(carry)}
+    t0 = time.perf_counter()
+    events = device_events_per_call(calls, busy=True)
+    for name, (count, busy_ms) in events.items():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        calls[name]()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+        found[name.split()[0]].update(events=count, busy_ms=busy_ms, unprofiled_ms=wall_ms,
+                                      idle_share=1.0 - busy_ms / wall_ms)
+        print(f"cbox 1024^2 one {name} (torch.profiler, device activity only): {count} device "
+              f"events, device busy {busy_ms:.3f} ms; unprofiled {wall_ms:.3f} ms, device idle "
+              f"{100 * (1.0 - busy_ms / wall_ms):.1f} %", flush=True)
+    print(f"cbox 1024^2 GPT/MCMC profile: {time.perf_counter() - t0:.1f} s", flush=True)
+    return found
+
+
 def build_all():
     """Phases 2, 6, 10 and 15: one nvcc per kernel source, started together,
     and beside them the host's pmj02 tables (core/pmj02.py, cached in
@@ -2658,6 +2933,12 @@ def main():
     lap("phase 21 (cbox 1024^2)")
     aov_phase(device)
     lap("phase 22 (AOV)")
+    gpt_correctness(device)
+    lap("phase 23 (GPT cbox 64^2)")
+    mcmc_correctness(device)
+    lap("phase 24 (MCMC cbox 64^2)")
+    gpt_mcmc_full_width(device)
+    lap("phase 25 (GPT and MCMC cbox 1024^2)")
 
     kernels = [entry, *pair_entries.values(), other["K5"], other["K7"], fused["K8"], fused["K9"]]
     for k in kernels:  # K6 is K4's kernel

@@ -165,8 +165,25 @@ def test_cli_aov_writes_seven_images_and_albedo(tmp_path, jax_table, monkeypatch
 
 
 @pytest.mark.parametrize("method", ["mcmc", "mcmc_opt", "gpt"])
-def test_cli_unported_methods_exit(tmp_path, method):
+def test_cli_unported_methods_exit(tmp_path, method, capsys):
+    """The methods the CLI refused before this slice: each renders cbox
+    8x8 on the CPU with --save-stats (small configurations), writes its
+    stats JSON and names its integrator and route in the "wrote" line."""
+    cfg = ({"spp": 1, "max_depth": 3} if method == "gpt" else
+           {"spp": 2, "max_depth": 3, "n_chains": 64, "n_bootstrap": 256, "direct_spp": 1})
     path = tmp_path / "m.json"
-    path.write_text(json.dumps({"method": {"type": method, "spp": 1}}))
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["-s", str(CBOX), "-m", str(path), "--device", "cpu"])
+    path.write_text(json.dumps({"method": {"type": method, **cfg}}))
+    out = tmp_path / f"{method}.exr"
+    stats = cli.main(["-s", str(CBOX), "-m", str(path), "--res", "8", "-o", str(out),
+                      "--save-stats", "--device", "cpu"])
+    saved = json.loads(out.with_suffix(".stats.json").read_text())
+    wrote = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith(f"wrote {out}")]
+    assert len(wrote) == 1 and "traversal flat (K1)" in wrote[0]
+    if method == "gpt":
+        assert saved["shift_mode"] == stats["shift_mode"] == "reconnect"
+        assert "gpt (reconnect shift), shade dispatch" in wrote[0]
+        assert "primal" not in saved  # images stay out of the stats JSON
+    else:
+        assert saved["b"] == stats["b"] > 0.0 and 0.0 < saved["acceptance"] <= 1.0
+        assert f"{method} (b " in wrote[0] and saved["steps"] == 2
+    assert np.all(np.isfinite(read_exr(out)))

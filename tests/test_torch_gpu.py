@@ -713,3 +713,59 @@ def test_fused_route_aux_albedo_on_card(cuda, monkeypatch):
     assert float(aux["1"]["albedo"].max()) > 0.5
     for k in ("normal", "first_t"):
         assert torch.equal(aux["0"][k], aux["1"][k])
+
+
+def test_render_gpt_on_card_matches_cpu(cuda):
+    """cbox 32x32, 2 spp, d7 through render_gpt on the card and on the CPU
+    (the same samples, the same GGX table), in each shift mode: the
+    reconstruction, primal and gradients with channel means within 1e-3
+    (of the image's mean magnitude for the gradients) and all but 1 % of
+    the pixels within 1e-3 (a lane whose float decision flips moves its
+    pixels); K1 launched on the card."""
+    from akari_render_tpu_torch.config import GPTConfig
+    from akari_render_tpu_torch.integrators.gpt import render_gpt
+
+    cbox = ROOT / "scenes/cbox/scene.json"
+    table = load_scene(str(cbox), 32, 32, device=cuda).ggx_table_np
+    for mode in ("reconnect", "pss"):
+        out = []
+        for dev in ("cpu", cuda):
+            before = k1.launches
+            img, stats = render_gpt(load_scene(str(cbox), 32, 32, device=dev, ggx_table=table),
+                                    GPTConfig(spp=2), shift_mode=mode)
+            assert (k1.launches > before) == (dev == cuda)
+            out.append({"recon": img, **{k: stats[k] for k in ("primal", "gx", "gy")}})
+        for name, want in out[0].items():
+            got = out[1][name]
+            assert np.all(np.isfinite(got)), (mode, name)
+            scale = np.maximum(np.abs(want.mean((0, 1))), np.abs(want).mean((0, 1)))
+            assert np.all(np.abs(got.mean((0, 1)) - want.mean((0, 1))) <= 1e-3 * scale), (mode,
+                                                                                          name)
+            off = np.abs(got - want).max(axis=-1) > 1e-3 * np.maximum(np.abs(want).max(-1), 1.0)
+            assert off.mean() <= 0.01, (mode, name, off.mean())
+
+
+def test_render_mcmc_on_card_matches_cpu(cuda):
+    """cbox 32x32 render_mcmc on the card and on the CPU (d7, 256 chains,
+    4 spp-equivalents, 4,096 bootstrap samples, the direct pass at 2 spp):
+    the image's means and b within 2 % and the acceptance within 0.02 (the
+    chains drift apart as the splats' float sums and accept decisions round
+    differently); K1 launched on the card."""
+    from akari_render_tpu_torch.config import MCMCConfig
+    from akari_render_tpu_torch.integrators.mcmc import render_mcmc
+
+    cbox = ROOT / "scenes/cbox/scene.json"
+    table = load_scene(str(cbox), 32, 32, device=cuda).ggx_table_np
+    cfg = MCMCConfig(spp=4, n_chains=256, n_bootstrap=4096, direct_spp=2)
+    out = []
+    for dev in ("cpu", cuda):
+        before = k1.launches
+        img, stats = render_mcmc(load_scene(str(cbox), 32, 32, device=dev, ggx_table=table), cfg)
+        assert (k1.launches > before) == (dev == cuda)
+        assert np.all(np.isfinite(img)) and img.mean() > 0.0
+        out.append((img, stats))
+    (cimg, cst), (gimg, gst) = out
+    assert gst["steps"] == cst["steps"] == 32 * 32 * 4 // 256
+    np.testing.assert_allclose(gimg.mean(axis=(0, 1)), cimg.mean(axis=(0, 1)), rtol=0.02)
+    assert abs(gst["acceptance"] - cst["acceptance"]) <= 0.02
+    np.testing.assert_allclose(gst["b"], cst["b"], rtol=0.02)

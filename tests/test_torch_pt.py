@@ -81,10 +81,26 @@ def test_cli_writes_exr_and_stats(tmp_path, port_uses_jax_table):
     assert json.loads((tmp_path / "matbox.json").read_text())["intermediate"][-1]["spp"] == 2
 
 
-def test_cli_refuses_unported_methods(tmp_path):
-    method = tmp_path / "gpt.json"
-    method.write_text(json.dumps({"method": {"type": "gpt"}}))
-    with pytest.raises(SystemExit, match="not yet ported"):
+def test_cli_refuses_unported_methods(tmp_path, port_uses_jax_table):
+    """Every method type of the reference's method JSON renders: gpt, mcmc
+    and mcmc_opt write an 8x8 EXR on the CPU (small configurations: d3,
+    64 chains from 256 bootstrap samples); a type no package knows exits
+    with "unknown method"."""
+    small = {"gpt": {"spp": 1, "max_depth": 3},
+             "mcmc": {"spp": 2, "max_depth": 3, "n_chains": 64, "n_bootstrap": 256,
+                      "direct_spp": 1}}
+    small["mcmc_opt"] = small["mcmc"]
+    for kind, cfg in small.items():
+        method = tmp_path / f"{kind}.json"
+        method.write_text(json.dumps({"method": {"type": kind, **cfg}}))
+        out = tmp_path / f"{kind}.exr"
+        cli.main(["-s", str(SCENE), "-m", str(method), "--res", "8", "-o", str(out),
+                  "--device", "cpu"])
+        img = read_exr(out)
+        assert img.shape == (8, 8, 3) and np.all(np.isfinite(img)) and img.mean() > 0.0, kind
+    method = tmp_path / "bdpt.json"
+    method.write_text(json.dumps({"method": {"type": "bdpt"}}))
+    with pytest.raises(SystemExit, match="unknown method: bdpt"):
         cli.main(["-s", str(SCENE), "-m", str(method), "--device", "cpu"])
 
 
