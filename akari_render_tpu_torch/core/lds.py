@@ -17,6 +17,12 @@ forms bit for bit; what is one value for all lanes is computed once on the
 host, and a stashed second component is returned without drawing a new
 pair (JAX computes and discards one). A per-lane [N] sample index (a
 tensor) takes the [N] path.
+
+The persistent wavefront holds lanes at mixed depths, so there the
+dimension is an [N] int64 tensor too (`lanewise`): next_1d then draws each
+lane's fresh pair, keeps the stashed component where the lane's dimension
+is odd, and selects per lane, as the JAX package does. trace_paths' lanes
+draw in lockstep and keep the int.
 """
 from __future__ import annotations
 
@@ -29,7 +35,9 @@ import torch
 
 from .pcg import MASK32, Pcg32, u64_from_limbs
 from .pmj02 import N_PMJ02_SAMPLES, N_PMJ02_SETS, get_pmj02_tables
-from .samplers import GOLDEN, HashSampler, IndependentSampler, hash_u64, next_2d, next_3d
+from .samplers import (
+    GOLDEN, HashSampler, IndependentSampler, hash_u64, next_2d, next_3d, select, take,
+)
 
 
 def _hash(x):
@@ -138,7 +146,7 @@ class SobolSampler(NamedTuple):
 
     pixel_hash: torch.Tensor  # [N] hash of (pixel, seed)
     sample_index: object  # int, or [N] int64 tensor
-    dim: int  # dimension counter (one for all lanes)
+    dim: object  # dimension counter: int (one for all lanes), or [N] int64 tensor
     cache: torch.Tensor | None  # [N] stashed second component of the pair
 
     @staticmethod
@@ -147,17 +155,19 @@ class SobolSampler(NamedTuple):
                             _lane_index(sample_index), 0, None)
 
     @property
-    def has_cache(self) -> bool:
+    def has_cache(self):
         return self.dim % 2 == 1
 
+    def _pair(self, pair):
+        return sobol02_owen(self.sample_index, _hash_combine(self.pixel_hash, pair))
+
     def next_1d(self):
-        if self.has_cache:
-            return self._replace(dim=self.dim + 1), self.cache
-        u0, u1 = sobol02_owen(self.sample_index, _hash_combine(self.pixel_hash, self.dim // 2))
-        return self._replace(dim=self.dim + 1, cache=u1), u0
+        return _next_1d(self)
 
     next_2d = next_2d
     next_3d = next_3d
+    select = staticmethod(select)
+    take = take
 
 
 _PMJ02: dict = {}  # device -> [S * N, 2] int32 24-bit fixed point
@@ -188,11 +198,13 @@ class Pmj02Sampler(NamedTuple):
     hash(q, p, epoch) with epoch = sample_index // N: a per-pixel random
     digit scramble, which keeps every (0,2) elementary-interval property."""
 
-    tables: torch.Tensor  # [S * N, 2] int32 24-bit fixed point
+    tables: torch.Tensor  # [S * N, 2] int32 24-bit fixed point, shared by every lane
     pixel_hash: torch.Tensor  # [N] hash of (pixel, seed)
     sample_index: object  # int, or [N] int64 tensor
-    dim: int
+    dim: object  # int, or [N] int64 tensor
     cache: torch.Tensor | None
+
+    _shared = ("tables",)
 
     @staticmethod
     def new(pixel_ids, sample_index, seed: int = 0) -> "Pmj02Sampler":
@@ -202,24 +214,57 @@ class Pmj02Sampler(NamedTuple):
             _lane_index(sample_index), 0, None)
 
     @property
-    def has_cache(self) -> bool:
+    def has_cache(self):
         return self.dim % 2 == 1
 
-    def next_1d(self):
-        if self.has_cache:
-            return self._replace(dim=self.dim + 1), self.cache
+    def _pair(self, pair):
         s, n = N_PMJ02_SETS, N_PMJ02_SAMPLES
-        pair = self.dim // 2
         si = self.sample_index  # masked and non-negative: // and % are the uint32 ones
         row = self.tables[_hash(pair) % s * n + si % n]  # [2] or [N, 2]
         scr = _hash_combine(self.pixel_hash, _hash_combine(pair, si // n))
         mask = (1 << 24) - 1
-        u0 = _to_f(row[..., 0] ^ (scr & mask))
-        u1 = _to_f(row[..., 1] ^ ((scr >> 8) & mask))
-        return self._replace(dim=self.dim + 1, cache=u1), u0
+        return _to_f(row[..., 0] ^ (scr & mask)), _to_f(row[..., 1] ^ ((scr >> 8) & mask))
+
+    def next_1d(self):
+        return _next_1d(self)
 
     next_2d = next_2d
     next_3d = next_3d
+    select = staticmethod(select)
+    take = take
+
+
+def _next_1d(sampler):
+    """next_1d of a pair-drawing sampler (Sobol, pmj02): the stashed second
+    component at an odd dimension, else the first of a fresh pair. With an
+    int dimension the choice is made once for all lanes; with per-lane
+    dimensions every lane draws its fresh pair and selects, as in JAX."""
+    dim = sampler.dim
+    if not isinstance(dim, torch.Tensor):
+        if dim % 2 == 1:
+            return sampler._replace(dim=dim + 1), sampler.cache
+        u0, u1 = sampler._pair(dim // 2)
+        return sampler._replace(dim=dim + 1, cache=u1), u0
+    odd = dim % 2 == 1
+    u0, u1 = sampler._pair(dim // 2)
+    cache = sampler.cache if sampler.cache is not None else torch.zeros_like(u0)
+    return (sampler._replace(dim=dim + 1, cache=torch.where(odd, cache, u1)),
+            torch.where(odd, cache, u0))
+
+
+def lanewise(sampler, n: int):
+    """The sampler with its per-lane state as [n] tensors: the dimension
+    counter (and the stash) of a Sobol or pmj02 sampler becomes one entry a
+    lane, so lanes at different depths can share a pool; other samplers
+    already keep their state a lane."""
+    if not isinstance(sampler, (SobolSampler, Pmj02Sampler)) or isinstance(sampler.dim,
+                                                                          torch.Tensor):
+        return sampler
+    dev = sampler.pixel_hash.device
+    cache = sampler.cache if sampler.cache is not None else torch.zeros(n, device=dev)
+    return sampler._replace(dim=torch.full((n,), sampler.dim, dtype=torch.int64, device=dev),
+                            cache=cache, sample_index=_lane_index(
+                                torch.as_tensor(sampler.sample_index, device=dev).expand(n)))
 
 
 def _lane_index(sample_index):

@@ -1,6 +1,5 @@
 """Shared path-tracing core (port of akari_render_tpu/integrators/common.py:
-trace_paths in RGB, unfused and unsplit, with nee_light_sample,
-_emission_at and dispatch_shade).
+trace_paths in RGB, with nee_light_sample, _emission_at and dispatch_shade).
 
 A batch of N lanes steps through the bounce loop together; an eager
 Python loop takes the place of lax.while_loop and stops once every lane
@@ -23,17 +22,30 @@ the albedo of the closure there (the per-kind closures' `albedo`, or K9's
 albedo output on the fused route; evaluated at the first bounce only, the
 only one that records it), the geometric normal and the hit distance.
 
-Not ported: the fused shadow/next-bounce traversal (AKR_FUSE_RAYS), the
-split-compacted resume (depth_end/resume_state) and spectral transport.
+Fused rays (AKR_FUSE_RAYS=1, read at every call): bounce k's NEE shadow
+ray and bounce k+1's closest-hit ray trace in one traversal of 2N lanes,
+the shadow lanes as any hits capped at the shadow distance, and the
+pending contribution lands one bounce later. On without per-depth taps,
+with NEE and a light, in scenes without alpha, as in the JAX package.
+
+Partial tracing (the split-compacted pass, pt.py): depth_end stops the
+bounce loop early, finalize=False returns the raw state dict (sampler
+included), and resume_state with depth_beg continues it; any row subset
+of a state (take_rows) resumes bit-exactly.
+
+Rays go through Scene.intersect_alpha / occlude_alpha, which are
+intersect / occlude on opaque scenes. Not ported: spectral transport.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable
 
 import torch
 
+from ..accel.trace import Hit
 from ..core.math import RAY_TMAX, dot, face_forward, offset_ray_origin
 from ..core.sampling import INV_PI, mis_weight
 from ..lights import finish_light_sample, light_point_attrs, pdf_direct, sample_light_point_ex
@@ -45,6 +57,61 @@ from .fused_shade import fused_shade, fused_shade_enabled
 # of lanes (one shader kind of one bounce) shaded by dispatch_shade's
 # per-kind closures; neither adds a device sync
 counts = {"bounces": 0, "dispatch_groups": 0}
+
+
+def fuse_rays_enabled() -> bool:
+    """AKR_FUSE_RAYS=1: trace each bounce's shadow rays with the next
+    bounce's closest-hit rays in one traversal."""
+    return os.environ.get("AKR_FUSE_RAYS", "0") == "1"
+
+
+def uses_fused_rays(scene: Scene, settings: PTSettings) -> bool:
+    """Whether a path loop pipelines its shadow rays (the JAX package's
+    rule, without the per-depth taps that turn it off): the switch, NEE
+    with a light, no alpha."""
+    return (fuse_rays_enabled() and settings.use_nee and scene.arrays.lights.num_lights > 0
+            and not scene.has_alpha)
+
+
+def pending_rows(n: int, dev) -> dict:
+    """The pending-shadow rows of fused rays, empty."""
+    return {"p_ro": torch.zeros((n, 3), device=dev), "p_wi": torch.zeros((n, 3), device=dev),
+            "p_dist": torch.zeros((n,), device=dev), "p_contrib": torch.zeros((n, 3), device=dev),
+            "p_valid": torch.zeros((n,), dtype=torch.bool, device=dev),
+            "p_ex0": torch.full((n,), -1, dtype=torch.int32, device=dev),
+            "p_ex1": torch.full((n,), -1, dtype=torch.int32, device=dev)}
+
+
+def fused_trace(scene: Scene, st: dict, zeros_2n):
+    """One traversal of [path rays | pending shadow rays]: the path rays'
+    Hit and the pending lanes' occlusion. The shadow lanes trace as any
+    hits (per-lane on the cluster tier; K1 runs them closest hit) up to
+    their distance, excluding the triangles NEE left."""
+    n = st["ray_o"].shape[0]
+    dev = zeros_2n.device
+    lanes = torch.cat([torch.zeros((n,), dtype=torch.bool, device=dev),
+                       torch.ones((n,), dtype=torch.bool, device=dev)])
+    hit2 = scene.intersect(
+        torch.cat([st["ray_o"], st["p_ro"]]), torch.cat([st["ray_d"], st["p_wi"]]), zeros_2n,
+        torch.cat([torch.where(st["active"], RAY_TMAX, -1.0),
+                   torch.where(st["p_valid"], st["p_dist"], -1.0)]),
+        exclude0=torch.cat([st["exclude"], st["p_ex0"]]),
+        exclude1=torch.cat([torch.full((n,), -1, dtype=torch.int32, device=dev), st["p_ex1"]]),
+        any_hit_mask=lanes)
+    return Hit(*(x[:n] for x in hit2)), hit2.valid[n:]
+
+
+def resolve_pending(st: dict, occluded) -> None:
+    """Land the pending NEE contributions that were not occluded."""
+    ok = st["p_valid"] & ~occluded
+    st["radiance"] = st["radiance"] + torch.where(ok[..., None], st["p_contrib"], 0.0)
+    st["p_valid"] = torch.zeros_like(st["p_valid"])
+
+
+def take_rows(state: dict, ids) -> dict:
+    """The rows ids of a trace_paths state (every per-lane tensor and the
+    sampler's lanes)."""
+    return {k: v.take(ids) if k == "sampler" else v[ids] for k, v in state.items()}
 
 
 @dataclass
@@ -139,7 +206,8 @@ def nee_light_sample(scene: Scene, si, u_light, lanes):
 
 
 def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
-                radiance_cb: Callable | None = None):
+                radiance_cb: Callable | None = None, depth_end: int | None = None,
+                resume_state: dict | None = None, depth_beg: int = 0, finalize: bool = True):
     """Trace one bounce-limited path per lane: returns (radiance [N, 3],
     aux, sampler) with aux = dict(albedo [N, 3], normal [N, 3], first_t
     [N]) of the first hit (zeros and RAY_TMAX where the camera ray missed).
@@ -148,29 +216,49 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
     called with kind "emission" at every depth (0 to max_depth) and "nee"
     at every bounce's shadow ray (depth + 1), as in the JAX package. With
     it every bounce runs, as the JAX package's unrolled loop does, even
-    after every lane has died; without it the loop stops there."""
+    after every lane has died; without it the loop stops there.
+
+    depth_end bounds the bounce loop below max_depth; with finalize=False
+    the raw state dict (the sampler under "sampler") is returned instead,
+    before the last intersect and the clamp. resume_state and depth_beg
+    continue such a state (ray_o, ray_d and sampler are then ignored)."""
     a = scene.arrays
-    n = ray_o.shape[0]
-    dev = ray_o.device
+    if resume_state is not None:
+        st = dict(resume_state)
+        sampler = st.pop("sampler")
+    else:
+        n = ray_o.shape[0]
+        dev = ray_o.device
+        st = {
+            "ray_o": ray_o,
+            "ray_d": ray_d,
+            "exclude": torch.full((n,), -1, dtype=torch.int32, device=dev),
+            "radiance": torch.zeros((n, 3), device=dev),
+            "beta": torch.ones((n, 3), device=dev),
+            "active": torch.ones((n,), dtype=torch.bool, device=dev),
+            "prev_bsdf_pdf": torch.zeros((n,), device=dev),
+            "base_replay": torch.zeros((n, 3), device=dev),
+            "first_albedo": torch.zeros((n, 3), device=dev),
+            "first_normal": torch.zeros((n, 3), device=dev),
+            "first_t": torch.full((n,), RAY_TMAX, device=dev),
+        }
+    n = st["ray_o"].shape[0]
+    dev = st["ray_o"].device
     zeros_n = torch.zeros((n,), device=dev)
-    st = {
-        "ray_o": ray_o,
-        "ray_d": ray_d,
-        "exclude": torch.full((n,), -1, dtype=torch.int32, device=dev),
-        "radiance": torch.zeros((n, 3), device=dev),
-        "beta": torch.ones((n, 3), device=dev),
-        "active": torch.ones((n,), dtype=torch.bool, device=dev),
-        "prev_bsdf_pdf": torch.zeros((n,), device=dev),
-        "base_replay": torch.zeros((n, 3), device=dev),
-        "first_albedo": torch.zeros((n, 3), device=dev),
-        "first_normal": torch.zeros((n, 3), device=dev),
-        "first_t": torch.full((n,), RAY_TMAX, device=dev),
-    }
     nee = settings.use_nee and a.lights.num_lights > 0
     fused = uses_fused_shade(scene, settings)
+    fuse_rays = radiance_cb is None and uses_fused_rays(scene, settings)
+    if fuse_rays:
+        zeros_2n = torch.zeros((2 * n,), device=dev)
+        if "p_valid" not in st:
+            st.update(pending_rows(n, dev))
 
     def intersect_live():
-        return scene.intersect(
+        if fuse_rays:  # also lands the previous bounce's pending shadows
+            hit, occluded = fused_trace(scene, st, zeros_2n)
+            resolve_pending(st, occluded)
+            return hit
+        return scene.intersect_alpha(
             st["ray_o"], st["ray_d"], zeros_n,
             torch.where(st["active"], RAY_TMAX, -1.0), exclude0=st["exclude"],
         )
@@ -210,9 +298,9 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
             out["albedo"] = closure.albedo(ex["wo"])
         return out
 
-    depth = 0
-    while depth < settings.max_depth and (radiance_cb is not None
-                                          or bool(torch.any(st["active"]))):
+    d_end = settings.max_depth if depth_end is None else min(depth_end, settings.max_depth)
+    depth = depth_beg
+    while depth < d_end and (radiance_cb is not None or bool(torch.any(st["active"]))):
         counts["bounces"] += 1
         hit = intersect_live()
         lane_hit = st["active"] & hit.valid
@@ -253,8 +341,13 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
             st["first_albedo"] = torch.where(lane_hit[..., None], sh["albedo"],
                                              st["first_albedo"])
 
-        if ls is not None:
-            occluded = scene.occlude(
+        if ls is not None and fuse_rays:
+            # the next bounce's traversal (or the last intersect) lands it
+            st.update(p_ro=ls.shadow_ro, p_wi=ls.wi, p_dist=ls.shadow_dist, p_valid=light_valid,
+                      p_contrib=st["beta"] * sh["direct"],
+                      p_ex0=si["tri_id"].to(torch.int32), p_ex1=ls.dest_tri)
+        elif ls is not None:
+            occluded = scene.occlude_alpha(
                 ls.shadow_ro, ls.wi, zeros_n, torch.where(light_valid, ls.shadow_dist, -1.0),
                 exclude0=si["tri_id"].to(torch.int32), exclude1=ls.dest_tri,
             )
@@ -283,6 +376,8 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
         st["ray_d"] = sh["wi"]
         st["exclude"] = si["tri_id"].to(torch.int32)
         depth += 1
+    if not finalize:
+        return {**st, "sampler": sampler}
 
     # last iteration: intersect plus surface emission only (depth == max_depth)
     hit = intersect_live()
@@ -292,9 +387,15 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
         record_first_hit(hit, si, lane_hit)
     add_emission(settings.max_depth, si, lane_hit, -st["ray_d"])
 
-    radiance = st["radiance"]
-    if settings.clamp_indirect > 0.0:
-        indirect = torch.clamp(radiance - st["base_replay"], max=settings.clamp_indirect)
-        radiance = st["base_replay"] + indirect
+    radiance = clamp_radiance(settings, st["radiance"], st["base_replay"])
     aux = {"albedo": st["first_albedo"], "normal": st["first_normal"], "first_t": st["first_t"]}
     return radiance, aux, sampler
+
+
+def clamp_radiance(settings: PTSettings, radiance, base_replay):
+    """The path-end clamp: the indirect part (all but the emission the
+    camera ray saw) at most clamp_indirect."""
+    if settings.clamp_indirect > 0.0:
+        indirect = torch.clamp(radiance - base_replay, max=settings.clamp_indirect)
+        radiance = base_replay + indirect
+    return radiance

@@ -22,8 +22,8 @@ zeros where the JAX package computes values it then discards. The shade
 always takes the per-kind dispatch, as in the JAX package: it needs the
 closure's roughness, which K9 does not give.
 
-There is no intersect_alpha/occlude_alpha: the port refuses scenes with
-alpha at load (scene.py), so intersect/occlude are the same queries.
+Rays go through Scene.intersect_alpha / occlude_alpha, as in the JAX
+package (intersect / occlude on opaque scenes).
 """
 from __future__ import annotations
 
@@ -88,8 +88,9 @@ def _bounce(scene, settings, st, depth: int, sampler, record_mode: bool,
     dev = st["ray_o"].device
     zeros_n = torch.zeros((n,), device=dev)
     a = scene.arrays
-    hit = scene.intersect(st["ray_o"], st["ray_d"], zeros_n,
-                          torch.where(st["active"], RAY_TMAX, -1.0), exclude0=st["exclude"])
+    hit = scene.intersect_alpha(st["ray_o"], st["ray_d"], zeros_n,
+                                torch.where(st["active"], RAY_TMAX, -1.0),
+                                exclude0=st["exclude"])
     lane_hit = st["active"] & hit.valid
     si = scene.surface_interaction(hit.tri_id, hit.bary)
     wo = -st["ray_d"]
@@ -125,7 +126,7 @@ def _bounce(scene, settings, st, depth: int, sampler, record_mode: bool,
     extra = {"wo": wo, "u_bsdf": u_bsdf, "ls_wi": ls.wi, "ls_li": ls.li, "ls_pdf": ls.pdf}
     sh = _with_zeros(dispatch_shade(scene, si, extra, _shade, st["active"]), n, dev, _SHADE_SPEC)
 
-    occluded = scene.occlude(
+    occluded = scene.occlude_alpha(
         ls.shadow_ro, ls.wi, zeros_n, torch.where(light_valid, ls.shadow_dist, -1.0),
         exclude0=si["tri_id"].to(torch.int32), exclude1=ls.dest_tri,
     )
@@ -298,8 +299,9 @@ def trace_shift_reconnect(scene, settings: PTSettings, ray_o, ray_d, sampler,
         wi_p = to_v / torch.clamp(dist_p, min=1e-20)[..., None]
         ok = do_connect & (dist_p >= min_dist) & (pre["sh"]["roughness"] >= min_rough)
         ro = offset_ray_origin(xp, face_forward(si["ng"], wi_p))
-        occ = scene.occlude(ro, wi_p, zeros_n, torch.where(ok, dist_p * (1.0 - 1e-3), -1.0),
-                            exclude0=si["tri_id"].to(torch.int32), exclude1=rec.tri)
+        occ = scene.occlude_alpha(ro, wi_p, zeros_n,
+                                  torch.where(ok, dist_p * (1.0 - 1e-3), -1.0),
+                                  exclude0=si["tri_id"].to(torch.int32), exclude1=rec.tri)
         ok = ok & ~occ
 
         # f1, pdf_y1 at x'_{k-1} (the shifted connection segment)

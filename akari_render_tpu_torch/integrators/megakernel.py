@@ -100,7 +100,7 @@ def megakernel_eligible(scene, settings, sampler_config, filt) -> bool:
         return False
     if scene.num_tris == 0 or scene.num_tris > MAX_TRIS:
         return False
-    if a.const_emission is None or a.lights.num_lights < 1:
+    if scene.has_alpha or a.const_emission is None or a.lights.num_lights < 1:
         return False
     if not isinstance(filt, (BoxFilter, GaussianFilter)):
         return False

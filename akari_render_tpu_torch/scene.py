@@ -1,5 +1,5 @@
 """Scene assembly: scenegraph JSON -> device-resident tensors (port of
-akari_render_tpu/scene.py; no alpha-tested traversal).
+akari_render_tpu/scene.py).
 
 load_scene flattens the geometry, compiles the shader graphs into kinds
 plus per-kind constant matrices, finds the emissive triangles and their
@@ -21,9 +21,17 @@ Geometry takes one of the JAX package's tiers:
 When every kind reduces to the diffuse + metal + specular principled
 closure with constant inputs, load_scene also bakes the per-material table
 the fused tiers read (Scene.shade_bake, svm/reduced.py).
-Alpha-tested traversal raises NotImplementedError. Where the JAX package
-fetches attributes or shader constants with one-hot MXU matmuls, the port
-gathers rows; the values are the same.
+
+Alpha: an image base color whose texels are not all opaque makes the
+scene `has_alpha`. Then intersect_alpha restarts a ray past each candidate
+whose alpha rejects it (the commit decision hashes the triangle id and the
+barycentrics' bits, as the JAX package does, so it is deterministic), at
+most MAX_ALPHA_RESTARTS times, and occlude_alpha stages an any hit before
+that chain. Opaque scenes take intersect and occlude unchanged. Neither
+fused tier takes an alpha scene.
+
+Where the JAX package fetches attributes or shader constants with one-hot
+MXU matmuls, the port gathers rows; the values are the same.
 """
 from __future__ import annotations
 
@@ -45,12 +53,14 @@ from .accel.pairs import intersect_pairs, static_walk_enabled
 from .accel.trace import Hit
 from .accel.wide import attach_wide, intersect_wide
 from .camera import PerspectiveCamera, camera_from_scenegraph
+from .core.lds import _hash
 from .core.math import RAY_TMAX, Frame, normalize, orthonormal_basis
+from .core.pcg import MASK32
 from .lights import LightArrays
 from .native import build_bvh_order
 from .scenegraph.model import SceneGraph, load_scene_json, load_transform
 from .svm.compiler import CompiledKind, CompilerDriver, _image_key
-from .svm.eval import EvalContext, check_kind, dispatch_closure
+from .svm.eval import EvalContext, check_kind, dispatch_alpha, dispatch_closure
 from .svm.precompute import get_table
 from .svm.reduced import bake_shading
 from .svm.surface import frame_from_n_t
@@ -126,6 +136,15 @@ class Scene:
     # K1's tiles of the flat soup (accel/intersect.py FlatTiles) when K1
     # traces it, else None
     tiles: FlatTiles | None = None
+    # some texel of an image base color is not opaque: rays take the
+    # alpha-tested traversal
+    has_alpha: bool = False
+    # per kind: can its alpha be below 1 (an image node), else None (all can)
+    kind_alpha: list | None = None
+
+    # restarts of the alpha-tested traversal a ray may take; a lane still
+    # rejecting after them reports a miss
+    MAX_ALPHA_RESTARTS = 64
 
     @property
     def device(self):
@@ -177,6 +196,63 @@ class Scene:
             return occ
         return occ | self._trace_flat(o, d, tmin, tmax, exclude0, exclude1, exclude2,
                                       any_hit=True)
+
+    def _alpha_reject(self, hit):
+        """Lanes whose hit the alpha test rejects: u >= alpha at the hit,
+        with u hashed from the triangle id and the barycentrics' bits
+        (wrapping uint32 in int64, bit-equal to JAX's). Only the kinds that
+        can have alpha are evaluated, on their valid lanes."""
+        si = self.surface_interaction(hit.tri_id, hit.bary)
+        alpha = torch.ones(hit.t.shape, device=hit.t.device)
+        for k in range(len(self.kinds)):
+            if self.kind_alpha is not None and not self.kind_alpha[k]:
+                continue
+            rows = torch.nonzero(hit.valid & (si["kind"] == k)).squeeze(1)
+            if rows.numel():
+                sub = {key: si[key][rows] for key in ("mat", "uv", "p", "ng")}
+                sub["frame"] = tuple(f[rows] for f in si["frame"])
+                alpha[rows] = dispatch_alpha(self.kinds[k], self.eval_context(sub, k))
+        bits = hit.bary.contiguous().view(torch.int32).to(torch.int64) & MASK32
+        tri = hit.tri_id.to(torch.int64) & MASK32
+        u = (_hash(tri ^ _hash(bits[..., 0]) ^ bits[..., 1]) >> 8).to(torch.float32) * (
+            1.0 / (1 << 24))
+        return hit.valid & (u >= alpha)
+
+    def intersect_alpha(self, o, d, tmin, tmax, exclude0=None, exclude1=None) -> Hit:
+        """Closest hit with stochastic alpha: a rejected candidate is
+        skipped by tracing again past it (tmin at its t, its id in the third
+        exclusion slot; the caller's two stay in force), and lanes with
+        nothing to trace again get tmax -1. The loop stops when no lane
+        rejects (one host read a restart) or after MAX_ALPHA_RESTARTS; a
+        lane still rejecting then reports a miss. Opaque scenes: intersect."""
+        if not self.has_alpha:
+            return self.intersect(o, d, tmin, tmax, exclude0, exclude1)
+        hit = self.intersect(o, d, tmin, tmax, exclude0, exclude1)
+        reject = self._alpha_reject(hit)
+        for _ in range(self.MAX_ALPHA_RESTARTS):
+            if not bool(torch.any(reject)):
+                break
+            rehit = self.intersect(o, d, torch.where(reject, hit.t, tmin),
+                                   torch.where(reject, tmax, -1.0), exclude0, exclude1,
+                                   exclude2=hit.tri_id)
+            hit = Hit(*(torch.where(reject.reshape(reject.shape + (1,) * (x.ndim - 1)), y, x)
+                        for x, y in zip(hit, rehit)))
+            reject = self._alpha_reject(hit)
+        return Hit(t=torch.where(reject, RAY_TMAX, hit.t),
+                   tri_id=torch.where(reject, -1, hit.tri_id),
+                   bary=hit.bary, valid=hit.valid & ~reject)
+
+    def occlude_alpha(self, o, d, tmin, tmax, exclude0=None, exclude1=None):
+        """Any hit with stochastic alpha, staged: a plain any hit first, then
+        the closest-hit restart chain only for the lanes whose segment holds
+        some surface (the others trace with tmax -1). Opaque scenes:
+        occlude."""
+        if not self.has_alpha:
+            return self.occlude(o, d, tmin, tmax, exclude0, exclude1)
+        any_surf = self.occlude(o, d, tmin, tmax, exclude0, exclude1)
+        hit = self.intersect_alpha(o, d, tmin, torch.where(any_surf, tmax, -1.0), exclude0,
+                                   exclude1)
+        return any_surf & hit.valid
 
     def _trace_flat(self, o, d, tmin, tmax, exclude0=None, exclude1=None, exclude2=None,
                     any_hit=False, any_hit_mask=None):
@@ -332,6 +408,13 @@ class Scene:
             "ng": si["ng"][rows], "frame": tuple(f[rows] for f in si["frame"]),
         }
         return dispatch_closure(self.kinds[kind_idx], self.eval_context(sub, kind_idx))
+
+
+def _kind_may_have_alpha(kind: CompiledKind) -> bool:
+    """Whether a kind's alpha can be below 1: alpha comes only from an
+    image base color (principled.rs:15-26, diffuse.rs:85-92), so a kind
+    with an image node can; the atlas's texels decide at scene level."""
+    return any(node[0] == "image" for node in kind.nodes)
 
 
 def _const_emission_table(sg: SceneGraph, mat_names: list[str]):
@@ -558,13 +641,12 @@ def load_scene(path: str, width: int | None = None, height: int | None = None,
     param_np = driver.param_matrices()
 
     atlas = None
+    # alpha comes only from an image base color (_kind_may_have_alpha)
+    kind_alpha = [_kind_may_have_alpha(k) for k in kinds]
+    has_alpha = False
     if images:
         atlas_data, atlas_sizes = TextureAtlas.build_numpy(images)
-        # alpha comes only from an image base color: refuse if any texel has it
-        if any(node[0] == "image" for k in kinds for node in k.nodes) and float(
-            atlas_data[..., 3].min()
-        ) < 1.0:
-            raise NotImplementedError("alpha-tested scenes are not yet ported")
+        has_alpha = any(kind_alpha) and float(atlas_data[..., 3].min()) < 1.0
         atlas = TextureAtlas.from_numpy(atlas_data, atlas_sizes, device)
 
     table_np = np.asarray(ggx_table if ggx_table is not None else get_table(device), np.float32)
@@ -616,6 +698,8 @@ def load_scene(path: str, width: int | None = None, height: int | None = None,
         ggx_table_np=table_np,
         kind_const_ranges=[np.stack([m.min(axis=0), m.max(axis=0)], axis=-1) for m in param_np],
         tiles=flat_tiles(arrays.v0, arrays.e1, arrays.e2) if bvh is None and num_tris else None,
+        has_alpha=has_alpha,
+        kind_alpha=kind_alpha,
     )
 
     # emissive detection and per-triangle power (load.rs:312-414)
@@ -653,5 +737,5 @@ def load_scene(path: str, width: int | None = None, height: int | None = None,
     scene.arrays = scene.arrays._replace(
         lights=LightArrays.from_numpy(lights_np, device), attr=dev(attr)
     )
-    scene.shade_bake = bake_shading(scene)
+    scene.shade_bake = None if has_alpha else bake_shading(scene)
     return scene

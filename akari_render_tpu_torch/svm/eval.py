@@ -66,10 +66,15 @@ class EvalContext(NamedTuple):
     const_ranges: object = None
 
 
+# the closure ops: in alpha mode each evaluates to its alpha instead
+_CLOSURE_OPS = frozenset({"diffuse", "emission", "glass", "mix_bsdf", "principled"})
+
+
 class _Evaluator:
-    def __init__(self, kind: CompiledKind, ctx: EvalContext):
+    def __init__(self, kind: CompiledKind, ctx: EvalContext, mode: str = "surface"):
         self.kind = kind
         self.ctx = ctx
+        self.mode = mode  # "surface" | "alpha"
         self.values: list = [None] * len(kind.nodes)
 
     def static_const(self, i: int):
@@ -218,6 +223,8 @@ class _Evaluator:
             return "f3", n * torch.stack([strength, strength, torch.ones_like(strength)], -1)
         if op == "output":
             return self._get(node[1])
+        if self.mode == "alpha" and op in _CLOSURE_OPS:
+            return "alpha", self._alpha(node)
         if op == "diffuse":
             refl, _ = self.color_alpha(node[1])
             return "surface", DiffuseBsdf(refl * INV_PI)
@@ -231,6 +238,15 @@ class _Evaluator:
         if op == "principled":
             return "surface", self._principled(dict(node[1]))
         raise NotImplementedError(f"svm op {op!r} is not yet ported")
+
+    def _alpha(self, node):
+        """A closure node's alpha (eval.rs:27-33): the base color's alpha of
+        a diffuse or principled closure, 1 for every other closure."""
+        if node[0] == "diffuse":
+            return self.color_alpha(node[1])[1]
+        if node[0] == "principled":
+            return self.color_alpha(dict(node[1])["base_color"])[1]
+        return torch.ones(self.ctx.uv.shape[:-1], device=self.ctx.uv.device)
 
     def _glass(self, node) -> Surface:
         """Fresnel-weighted reflection plus transmission. The dispersion
@@ -353,6 +369,15 @@ def dispatch_closure(kind: CompiledKind, ctx: EvalContext) -> SurfaceClosure:
     if tag != "surface":
         raise TypeError(f"shader output is {tag}, expected surface")
     return SurfaceClosure(surf, ctx.frame, ctx.ng)
+
+
+def dispatch_alpha(kind: CompiledKind, ctx: EvalContext) -> torch.Tensor:
+    """The alpha of a kind over its lanes, [N] (the JAX package's
+    dispatch_closure(mode="alpha").alpha())."""
+    tag, alpha = _Evaluator(kind, ctx, "alpha")._get(kind.output)
+    if tag != "alpha":
+        raise TypeError(f"shader output is {tag}, expected a closure")
+    return alpha
 
 
 def _cs(name: str) -> str:

@@ -1,6 +1,7 @@
 """Trowbridge-Reitz (GGX) microfacet distribution and Fresnel terms (port of
 akari_render_tpu/svm/microfacet.py, visible-normal sampling only; the
-classic sampler and its inverse serve MCMC replay, which is not ported).
+classic sampler and its inverse, _sample_wh_classic and invert_wh, are not
+ported: no integrator of either package calls them, only the JAX tests).
 Local shading space: +z is the normal."""
 from __future__ import annotations
 

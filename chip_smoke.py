@@ -128,7 +128,30 @@ Phases (any failure exits non-zero; nothing is caught):
    steps a chain): GPT paths a second (5 a pixel a sample), MCMC mutations
    a second, K1's launches and mean time, peak device bytes a pixel, and
    the device events and idle share of one GPT sample and one mutation
-   step (torch.profiler).
+   step (torch.profiler);
+26. the PT pass shapes: cbox 64x64, 16 spp, pmj02bn, d12 through the CLI
+   on the pass, the persistent wavefront (sequential and fused rays),
+   fused-rays PT on the dispatch route and on path B (K9) and the split
+   pass at d = 6, each held to phase 4's gates against
+   testdata/cbox64_spp{16,256}.npy, the split bit-equal to the pass; K1 on
+   a fused 2N-lane traversal and K9 on a fused path-B bounce against their
+   plain versions, bit-equal; classroom 96x96 with fused rays and with the
+   split, held to phase 17's gates and against phase 8's image (the split
+   bit-equal), with K2, K3 and K4 on a fused traversal (per-lane any hit)
+   against their plain versions; the alpha fixture
+   (tests/torch_alpha_scene.py) on the card, its alpha-tested hits and
+   staged occlusion equal to the CPU's through K1 and through the pair
+   sweep;
+27. the pass shapes at full width (render_pt, SHAPE_RENDERS renders after a
+   warm-up): cbox 1024x1024 at CBOX_SPP through the persistent wavefront,
+   sequential and fused, and fused-rays PT; classroom 1920x1080 at 1 spp
+   with fused rays and with the split at d = 6: Mpaths/s (median and
+   spread), K1's and K4's launches a sample, peak device bytes a lane, and
+   one sample of each by torch.profiler (device events, idle share).
+
+`python3 chip_smoke.py --only 26,27` runs the build and the listed phases
+alone (26 after phase 8's image) and prints no result line: a quick check
+of them on the card.
 
 Each phase prints the seconds since the start when it ends. After the
 build it prints what the compiler gave every kernel (registers a thread,
@@ -1552,16 +1575,18 @@ TRAVERSALS = {"pairs-static": {}, "wide": {"AKR_WIDE": "1"},
               "pairs-windowed": {"AKR_PAIRS_STATIC": "0"}}
 
 
-def classroom_correctness(device, traversal="pairs-static", base=None):
-    """Phases 8 and 17: classroom 96^2 16 spp through `traversal` against
-    the committed JAX image and ground truth and, where given, against the
-    default traversal's image `base`. Returns the image."""
+def classroom_correctness(device, traversal="pairs-static", base=None, label=None):
+    """Phases 8, 17 and 26: classroom 96^2 16 spp through `traversal`
+    against the committed JAX image and ground truth and, where given,
+    against the default traversal's image `base` (`label` names a pass
+    shape the caller switched on). Returns the image."""
     import numpy as np
 
     from akari_render_tpu_torch.cli import main as cli_main
     from akari_render_tpu_torch.core.image_io import read_exr
 
-    out = OUT / f"classroom96_{traversal}.exr"
+    label = traversal if label is None else f"{traversal}, {label}"
+    out = OUT / f"classroom96_{label.replace(', ', '_').replace(' ', '_')}.exr"
     t0 = time.perf_counter()
     with env_switch(**TRAVERSALS[traversal]):
         stats = cli_main(["-s", str(CLASSROOM), "-m", str(CLASSROOM_METHOD), "--res", "96",
@@ -1580,7 +1605,7 @@ def classroom_correctness(device, traversal="pairs-static", base=None):
     mse_pj = float(np.mean((img - jax16) ** 2))
     vs_base = "" if base is None else (f", max abs difference from the pairs-static image "
                                        f"{float(np.abs(img - base).max()):.3g}")
-    print(f"classroom 96^2 16spp, {traversal} ({wall:.3f} s CLI wall): means port {m_port} jax "
+    print(f"classroom 96^2 16spp, {label} ({wall:.3f} s CLI wall): means port {m_port} jax "
           f"{m_jax} (max rel {mean_rel:.3g}); MSE(port, gt) {mse_port:.6g}, MSE(jax16, gt) "
           f"{mse_jax:.6g}, MSE(port, jax16) {mse_pj:.6g}{vs_base}", flush=True)
     check(mean_rel <= MEAN_TOL, "classroom channel means differ from the JAX image by more than 1%")
@@ -2819,6 +2844,334 @@ def gpt_mcmc_full_width(device):
     return found
 
 
+class captured:
+    """For a block, replace `attr` of module `mod` by a wrapper that keeps
+    the arguments of its calls number `keep` (counted from 0) that `want`
+    accepts, and calls through."""
+
+    def __init__(self, mod, attr: str, want=lambda *a, **kw: True, keep=(1,)):
+        self.mod, self.attr, self.want, self.keep = mod, attr, want, keep
+        self.calls = []
+
+    def __enter__(self):
+        self.real = getattr(self.mod, self.attr)
+        seen = [0]
+
+        def wrapped(*a, **kw):
+            if self.want(*a, **kw):
+                if seen[0] in self.keep:
+                    self.calls.append((a, kw))
+                seen[0] += 1
+            return self.real(*a, **kw)
+
+        setattr(self.mod, self.attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.real)
+
+
+def pair_sweep_parity(label, cl, o, d, tmin, tmax, ex0=None, ex1=None, ex2=None, mask=None):
+    """K2, K3 and K4 against their plain versions on one traversal's rays
+    (phase 7's checks): e_con equal (the bit patterns up to the sign of a
+    zero), e_init and the walk's prefix bit-equal, K4's hits bit-equal.
+    Returns the max abs errors."""
+    import torch
+
+    from akari_render_tpu_torch.accel import pairs
+
+    s = pairs.sort_rays(cl, o, d, tmin, tmax, ex0, ex1, ex2, mask)
+    cb6 = pairs.cluster_bounds(cl)
+    e_con = pairs.cull_einit(s.summ, cb6)
+    e_con_p = pairs.cull_einit_torch(s.summ, cb6)
+    k2_check(label, e_con, e_con_p, s.summ, cb6)
+    k3_args = (cb6, s.o_soa, s.inv_soa, s.lim, e_con)
+    got3 = pairs.refine_walk(*k3_args)
+    want3 = pairs.refine_walk_torch(*k3_args)
+    k3_check(label, got3, want3)
+    args = (*want3[1:], cl.tri_row, cl.tri, cl.xf, s.o_soa, s.d_soa, s.lim, s.ex, s.best0, False)
+    got4 = pairs.sweep_walk(*args, boxes=pairs.candidate_test_boxes(cl, cb6))
+    want4 = pairs.sweep_walk_torch(*args)
+    torch.cuda.synchronize()
+    n_mask = 0 if mask is None else int(mask.sum())
+    print(f"K4 parity, {label}: {o.shape[0]} rays ({n_mask} any-hit lanes), hits "
+          f"{int((want4[1] >= 0).sum())}, bit-equal {torch.equal(got4, want4)}", flush=True)
+    check(torch.equal(got4, want4), f"K4 differs from its plain version ({label})")
+    return {"K2": max_abs_diff(e_con, e_con_p), "K3": max_abs_diff(got3[0], want3[0]),
+            "K4": max_abs_diff(got4, want4)}
+
+
+# the PT pass shapes of phases 26 and 27: name -> (switches, the shade and
+# the tier the stats report)
+PASS_SHAPES = {
+    "pass": ({}, "dispatch", "wavefront"),
+    "persistent": ({"AKR_PERSISTENT": "1"}, "dispatch", "persistent"),
+    "persistent fused": ({"AKR_PERSISTENT": "1", "AKR_FUSE_RAYS": "1"}, "dispatch",
+                         "persistent"),
+    "fused rays": ({"AKR_FUSE_RAYS": "1"}, "dispatch", "wavefront"),
+    "fused rays path B": ({"AKR_FUSE_RAYS": "1", "AKR_PALLAS_SHADE": "1"}, "fused (K9)",
+                          "wavefront"),
+    "split": ({"AKR_SPLIT_DEPTH": str(6)}, "dispatch", "wavefront"),
+}
+# the split pass's depth in phases 26-27
+SPLIT_D = 6
+# phase 27: renders of each route timed (the median and the spread reported),
+# and the samples of the persistent wavefront's profiled call
+SHAPE_RENDERS = 3
+WF_PROFILE_SPP = 2
+
+
+def pass_shapes_correctness(device, base96):
+    """Phase 26: the cbox fixture at 64^2, 16 spp, pmj02bn, d12 through the
+    CLI on each PASS_SHAPES route, held to phase 4's gates against
+    testdata/cbox64_spp{16,256}.npy (the pass: phase 20's dispatch render
+    where it is there), the split bit-equal to the pass; K1
+    on a fused traversal of the fused route and K9 on a shade of the
+    fused path-B route against their plain versions. Then classroom 96^2
+    with fused rays and with the split, held to phase 17's gates and
+    against phase 8's image `base96` (the split bit-equal), with K2, K3
+    and K4 on a fused traversal against their plain versions. Last the
+    alpha fixture (tests/torch_alpha_scene.py) on the card: intersect_alpha
+    and occlude_alpha, through K1 and through the pair sweep
+    (AKR_FORCE_BVH), equal to the CPU's. Returns each kernel's errors on
+    this traffic and the launches of each cbox route."""
+    import numpy as np
+
+    from akari_render_tpu_torch import scene as scene_mod
+    from akari_render_tpu_torch.cli import main as cli_main
+    from akari_render_tpu_torch.core.image_io import read_exr
+    from akari_render_tpu_torch.integrators import common
+
+    testdata = ROOT / "akari_render_tpu_torch" / "testdata"
+    jax16 = np.load(testdata / "cbox64_spp16.npy")
+    gt = np.load(testdata / "cbox64_spp256.npy")
+    images, errs, launches = {}, {}, {}
+    for name, (switches, shade, tier) in PASS_SHAPES.items():
+        out = OUT / f"cbox64_shape_{name.replace(' ', '_')}.exr"
+        if name == "pass" and (OUT / "cbox64_dispatch.exr").exists():
+            images[name] = read_exr(OUT / "cbox64_dispatch.exr")  # phase 20's render
+            continue
+        fused_rays = "AKR_FUSE_RAYS" in switches
+        with env_switch(**{"AKR_PALLAS_SHADE": "0", **switches}), \
+                captured(scene_mod, "intersect_tris", lambda o, *a, **kw: o.shape[0] == 2 * 4096
+                         ) as k1_in, captured(common, "_fused_shade_live") as k9_in:
+            reset_launches()
+            t0 = time.perf_counter()
+            stats = cli_main(["-s", str(CBOX), "-m", str(CBOX_METHOD), "--res", "64", "--spp",
+                              "16", "-o", str(out), "--device", device])
+            wall = time.perf_counter() - t0
+            got = read_launches()
+        launches[f"cbox 64^2 {name}"] = got
+        check(stats["tier"] == tier and stats["shade"] == shade
+              and stats["fused_rays"] == fused_rays,
+              f"cbox 64^2 {name} took the {stats['tier']} tier, {stats['shade']} shade, fused "
+              f"rays {stats['fused_rays']}")
+        check(got["K1"] > 0 and (got["K9"] > 0) == (shade == "fused (K9)")
+              and all(got[k] == 0 for k in ("K2", "K3", "K4", "K5", "K7", "K8")),
+              f"cbox 64^2 {name} launches {got}")
+        images[name] = read_exr(out)
+        text = image_gates(f"cbox 64^2 {name}", images[name], jax16, gt, MEAN_TOL, MSE_RATIO)
+        extra = {k: stats[k] for k in ("pool", "refills", "bounces", "split_live") if k in stats}
+        print(f"cbox 64^2 16spp pmj02bn d12, {name} ({wall:.2f} s CLI): {text}; launches and "
+              f"counts {got} {extra}", flush=True)
+        if name == "fused rays":
+            a, kw = k1_in.calls[0]
+            hk, _, hp = k1_check("a fused traversal of cbox 64^2 (2N lanes)", a, kw["tiles"])
+            errs["K1"] = max_abs_diff(hk.t, hp.t)
+        if name == "fused rays path B":
+            bake, si, extra_in, lanes = k9_in.calls[0][0]
+            args = (bake, *si["frame"], si["ng"], *(extra_in[k] for k in (
+                "wo", "ls_wi", "ls_li", "ls_pdf", "u_bsdf")), si["mat"])
+            errs["K9"] = k9_check("a bounce of cbox 64^2 with fused rays (path B)", args,
+                                  live=lanes)["max_abs_err"]
+    check(np.array_equal(images["split"], images["pass"]),
+          f"cbox 64^2: the split pass differs from the pass by "
+          f"{float(np.abs(images['split'] - images['pass']).max()):.3g}")
+    for name in ("persistent", "persistent fused", "fused rays", "fused rays path B"):
+        diff = float(np.abs(images[name] - images["pass"]).max())
+        print(f"cbox 64^2 {name} against the pass: max abs {diff:.3g}", flush=True)
+
+    for name in ("fused rays", "split"):
+        with env_switch(**PASS_SHAPES[name][0]), captured(
+                scene_mod, "_cluster_trace",
+                lambda *a, **kw: kw.get("any_hit_mask") is not None) as k4_in:
+            img = classroom_correctness(device, "pairs-static", base96, label=name)
+        if name == "split":
+            check(np.array_equal(img, base96), "classroom 96^2: the split pass differs from the "
+                                               "pass")
+        else:
+            a, kw = k4_in.calls[0]
+            errs.update(pair_sweep_parity("a fused traversal of classroom 96^2 (2N lanes)", *a,
+                                          mask=kw["any_hit_mask"]))
+    alpha_on_card(device)
+    return errs, launches
+
+
+def alpha_on_card(device):
+    """Phase 26's alpha part: the six-sheet alpha fixture, intersect_alpha
+    and occlude_alpha (staged) on the card against the CPU, through K1 and
+    (AKR_FORCE_BVH) through the pair sweep: hit ids, validity and occlusion
+    equal, every restart carrying its rejected id in the third exclusion
+    slot."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_alpha_scene import alpha_rays, write_alpha_scene
+
+    from akari_render_tpu_torch.scene import load_scene
+
+    path = write_alpha_scene(OUT, 77, 6)
+    rays = alpha_rays(1 << 14, 9, 1.9)
+    for route, switches, kernels in (("K1", {}, ("K1",)),
+                                     ("the pair sweep", {"AKR_FORCE_BVH": "1"},
+                                      ("K2", "K3", "K4"))):
+        with env_switch(**switches):
+            cpu, card = (load_scene(path, device=dv) for dv in ("cpu", device))
+            check(card.has_alpha and cpu.has_alpha, "the alpha fixture has no alpha")
+            reset_launches()
+            res = []
+            for sc in (cpu, card):
+                t = [torch.as_tensor(x, device=sc.device) for x in rays]
+                res.append((sc.intersect_alpha(*t),
+                            sc.occlude_alpha(*t[:3], torch.full_like(t[3], 6.5))))
+            got = read_launches()
+        (hc, oc), (hk, ok) = res
+        ids_eq = torch.equal(hk.tri_id.cpu(), hc.tri_id) and torch.equal(hk.valid.cpu(), hc.valid)
+        occ_eq = torch.equal(ok.cpu(), oc)
+        wall = float((hc.tri_id >= 12).float().mean())
+        print(f"alpha fixture on the card through {route}: {rays[0].shape[0]} rays, ids and "
+              f"valid equal to the CPU {ids_eq}, occlusion equal {occ_eq}, wall share {wall:.4f} "
+              f"(the law {(1 - 77 / 255) ** 6:.4f}), t max abs {max_abs_diff(hk.t.cpu(), hc.t)}; "
+              f"launches {got}", flush=True)
+        check(ids_eq and occ_eq, f"the alpha traversal through {route} differs from the CPU's")
+        check(all(got[k] > 0 for k in kernels), f"the alpha traversal through {route} launched "
+                                                 f"{got}")
+
+
+def _shape_scene(device, which: str):
+    """(scene, task, PTSettings, filter, spp) of phase 27's configurations:
+    cbox 1024^2 (pt.json, pmj02bn, d12) at CBOX_SPP, classroom 1920x1080
+    (pt.json, d12) at 1 spp."""
+    from akari_render_tpu_torch.config import RenderTask
+    from akari_render_tpu_torch.core.filters import filter_from_config
+    from akari_render_tpu_torch.integrators.common import PTSettings
+    from akari_render_tpu_torch.scene import load_scene
+
+    if which == "cbox":
+        scene, task, settings, filt = cbox_setup(device)
+        return scene, task, settings, filt, CBOX_SPP
+    task = RenderTask.from_file(CLASSROOM_METHOD)
+    m = task.method
+    settings = PTSettings(max_depth=m.max_depth, rr_depth=m.rr_depth, use_nee=m.use_nee,
+                          clamp_indirect=m.clamp_indirect)
+    return (load_scene(str(CLASSROOM), device=device), task, settings,
+            filter_from_config(task.filter_config), 1)
+
+
+def pass_shapes_full_width(device):
+    """Phase 27: the new routes at full width, each rendered SHAPE_RENDERS
+    times through render_pt (cbox 1024^2 at CBOX_SPP: the persistent
+    wavefront, sequential and fused, and fused-rays PT; classroom 1080p at
+    1 spp: fused rays and the split at SPLIT_D; a one-sample warm-up before
+    each scene's first route), with the counts reset before and read after
+    each: Mpaths/s (the median and the spread), K1's and K4's launches a
+    sample, peak device bytes a lane; then one sample of each by
+    torch.profiler (device events, busy time) against an unprofiled one
+    (the idle share). A sample of the persistent wavefront is half a 2-spp
+    render: its pool (one wavefront of all pixels) then refills as it
+    does in a render. Returns the numbers."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from akari_render_tpu_torch.core.film import Film
+    from akari_render_tpu_torch.integrators.pt import render_pt, render_sample, render_sample_split
+    from akari_render_tpu_torch.integrators.wavefront import render_pt_wavefront
+
+    routes = (("cbox", "persistent"), ("cbox", "persistent fused"), ("cbox", "fused rays"),
+              ("classroom", "fused rays"), ("classroom", "split"))
+    found, samples = {}, {}
+    for which in ("cbox", "classroom"):
+        scene, task, settings, filt, spp = _shape_scene(device, which)
+        npix = scene.camera.width * scene.camera.height
+        for w, name in routes:
+            if w != which:
+                continue
+            switches, shade, tier = PASS_SHAPES[name]
+            cfg = copy.copy(task.method)
+            cfg.spp = cfg.spp_per_pass = spp
+            warm = copy.copy(cfg)
+            warm.spp = warm.spp_per_pass = 1
+            runs = []
+            with env_switch(**{"AKR_PALLAS_SHADE": "0", **switches}):
+                if not samples or next(reversed(samples)).split()[0] != which:
+                    render_pt(scene, warm, task)  # the scene's first route: a warm-up
+                for r in range(SHAPE_RENDERS):
+                    if r == 0:
+                        torch.cuda.reset_peak_memory_stats()
+                    reset_launches()
+                    img, stats = render_pt(scene, cfg, task)
+                    got = read_launches()
+                    runs.append({"render_s": stats["total_time"],
+                                 "mpaths_s": npix * spp / stats["total_time"] / 1e6,
+                                 "launches": got, "stats": {k: stats[k] for k in (
+                                     "pool", "refills", "bounces", "split_live") if k in stats}})
+                    if r == 0:
+                        peak = torch.cuda.max_memory_allocated()
+            check(stats["tier"] == tier and stats["shade"] == shade,
+                  f"{which} {name}: the {stats['tier']} tier, {stats['shade']} shade")
+            check(bool(np.all(np.isfinite(img))) and float(img.mean()) > 0.0,
+                  f"{which} {name}: image finiteness")
+            rates = sorted(r["mpaths_s"] for r in runs)
+            got = runs[0]["launches"]
+            k4 = got["K4"] / spp
+            key = f"{which} {name}"
+            found[key] = {"mpaths_s_median": rates[len(rates) // 2], "mpaths_s": rates,
+                          "k1_per_sample": got["K1"] / spp, "k4_per_sample": k4,
+                          "peak_bytes_per_lane": peak / npix, "launches": got,
+                          **runs[0]["stats"]}
+            print(f"{key} at full width ({spp} spp, d12): Mpaths/s median "
+                  f"{rates[len(rates) // 2]:.4f} over {SHAPE_RENDERS} renders "
+                  f"({rates[0]:.4f}-{rates[-1]:.4f}), K1 {got['K1'] / spp:g} and K4 {k4:g} "
+                  f"launches a sample, peak device memory {peak / 2**30:.3f} GiB "
+                  f"({peak / npix:.0f} B a lane); launches and counts {got} "
+                  f"{runs[0]['stats']}", flush=True)
+
+            def sample(scene=scene, task=task, settings=settings, filt=filt, cfg=cfg,
+                       switches=switches, name=name):
+                with env_switch(**{"AKR_PALLAS_SHADE": "0", **switches}):
+                    if name.startswith("persistent"):
+                        two = copy.copy(cfg)
+                        two.spp = two.spp_per_pass = WF_PROFILE_SPP
+                        render_pt_wavefront(scene, two, task)
+                    elif name == "split":
+                        film = Film.new(scene.camera.width, scene.camera.height, scene.device)
+                        render_sample_split(scene, settings, filt, 0, task.seed, task.sampler,
+                                            SPLIT_D, film)
+                    else:
+                        render_sample(scene, settings, filt, 0, task.seed, task.sampler)
+            samples[key] = sample
+    t0 = time.perf_counter()
+    events = device_events_per_call(samples, busy=True)
+    for key, (count, busy_ms) in events.items():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        samples[key]()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+        per = WF_PROFILE_SPP if "persistent" in key else 1
+        found[key].update(events_per_sample=count / per, busy_ms=busy_ms / per,
+                          sample_ms=wall_ms / per, idle_share=1.0 - busy_ms / wall_ms)
+        print(f"{key}, one sample (torch.profiler, device activity only; {per} spp per call): "
+              f"{count / per:g} device events, device busy {busy_ms / per:.3f} ms; unprofiled "
+              f"{wall_ms / per:.3f} ms, device idle {100 * (1.0 - busy_ms / wall_ms):.1f} %",
+              flush=True)
+    print(f"pass shapes profile: {time.perf_counter() - t0:.1f} s", flush=True)
+    return found
+
+
 def build_all():
     """Phases 2, 6, 10 and 15: one nvcc per kernel source, started together,
     and beside them the host's pmj02 tables (core/pmj02.py, cached in
@@ -2884,6 +3237,14 @@ def main():
 
     info = build_all()
     lap("phases 2, 6, 10 and 15 (build)")
+    if ONLY:  # a quick check of some phases; prints no result
+        if 26 in ONLY:
+            pass_shapes_correctness(device, classroom_correctness(device))
+            lap("phase 26")
+        if 27 in ONLY:
+            pass_shapes_full_width(device)
+            lap("phase 27")
+        return
     scene = load_scene(str(SCENE), device=device)
     entry = k1_parity(scene, device)
     pcg_parity(device)
@@ -2939,8 +3300,18 @@ def main():
     lap("phase 24 (MCMC cbox 64^2)")
     gpt_mcmc_full_width(device)
     lap("phase 25 (GPT and MCMC cbox 1024^2)")
+    shape_errs, shape_launches = pass_shapes_correctness(device, base96)
+    lap("phase 26 (the pass shapes at cbox 64^2 and classroom 96^2; alpha)")
+    shapes = pass_shapes_full_width(device)
+    lap("phase 27 (the pass shapes at full width)")
 
     kernels = [entry, *pair_entries.values(), other["K5"], other["K7"], fused["K8"], fused["K9"]]
+    for k in kernels:  # the new routes' traffic and launches
+        name = k["name"].split()[0]
+        if name in shape_errs:
+            k["pass_shapes"] = {"max_abs_err": shape_errs[name], "launches": {
+                **{r: c[name] for r, c in shape_launches.items() if c[name]},
+                **{r: v["launches"][name] for r, v in shapes.items() if v["launches"][name]}}}
     for k in kernels:  # K6 is K4's kernel
         res = info[k["name"].split()[0].replace("K6", "K4")]
         k["registers"], k["blocks_per_sm"] = res["registers"], res["blocks_per_sm"]
@@ -2949,6 +3320,11 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 
+
+# `--only 26,27`: the build and those phases alone (26 after phase 8's
+# image), for a quick check on the card; the full run takes no arguments
+ONLY = ({int(x) for x in sys.argv[sys.argv.index("--only") + 1].split(",")}
+        if "--only" in sys.argv else set())
 
 if __name__ == "__main__":
     main()

@@ -769,3 +769,67 @@ def test_render_mcmc_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(gimg.mean(axis=(0, 1)), cimg.mean(axis=(0, 1)), rtol=0.02)
     assert abs(gst["acceptance"] - cst["acceptance"]) <= 0.02
     np.testing.assert_allclose(gst["b"], cst["b"], rtol=0.02)
+
+
+def test_split_pass_on_card_bit_exact(cuda, monkeypatch):
+    """cbox 64x64, 4 spp, pmj02bn, d12 (pt.json) on the card: the split
+    pass at d = 6 equals the pass bit for bit, sequential and under fused
+    rays (a row permutation of independent lanes), and reports its live
+    counts; K1 launched."""
+    task = RenderTask.from_file(ROOT / "scenes/cbox/pt.json")
+    task.method.spp = task.method.spp_per_pass = 4
+    scene = load_scene(str(ROOT / "scenes/cbox/scene.json"), 64, 64, device=cuda)
+    for fuse in ("0", "1"):
+        monkeypatch.setenv("AKR_FUSE_RAYS", fuse)
+        monkeypatch.delenv("AKR_SPLIT_DEPTH", raising=False)
+        whole, _ = render_pt(scene, task.method, task)
+        monkeypatch.setenv("AKR_SPLIT_DEPTH", "6")
+        before = k1.launches
+        split, stats = render_pt(scene, task.method, task)
+        assert k1.launches > before and stats["split_depth"] == 6
+        assert len(stats["split_live"]) == 4 and stats["fused_rays"] == (fuse == "1")
+        assert np.isfinite(split).all() and np.array_equal(split, whole), fuse
+
+
+def test_persistent_wavefront_on_card_matches_pass(cuda, monkeypatch):
+    """cbox 64x64, 4 spp, pmj02bn, d12 on the card: the persistent
+    wavefront, sequential and fused, within rtol=2e-4, atol=2e-5 of the
+    pass (each item's radiance is the pass's; index_add_ sums the film in
+    any order), with a 1,024-lane pool as well."""
+    task = RenderTask.from_file(ROOT / "scenes/cbox/pt.json")
+    task.method.spp = task.method.spp_per_pass = 4
+    scene = load_scene(str(ROOT / "scenes/cbox/scene.json"), 64, 64, device=cuda)
+    want, _ = render_pt(scene, task.method, task)
+    monkeypatch.setenv("AKR_PERSISTENT", "1")
+    for fuse, lanes in (("0", None), ("1", None), ("0", "1024")):
+        monkeypatch.setenv("AKR_FUSE_RAYS", fuse)
+        if lanes:
+            monkeypatch.setenv("AKR_MAX_LANES", lanes)
+        before = k1.launches
+        got, stats = render_pt(scene, task.method, task)
+        assert stats["tier"] == "persistent" and k1.launches > before
+        assert stats["pool"] == (1024 if lanes else 64 * 64)
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_alpha_traversal_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The six-sheet alpha fixture (tests/torch_alpha_scene.py): the
+    card's intersect_alpha and occlude_alpha equal the CPU's on 2^14
+    rays, through K1 and through the pair sweep (AKR_FORCE_BVH)."""
+    from torch_alpha_scene import alpha_rays, write_alpha_scene
+
+    path = write_alpha_scene(tmp_path, 77, 6)
+    rays = alpha_rays(1 << 14, 9, 1.9)
+    for force in ("", "1"):
+        if force:
+            monkeypatch.setenv("AKR_FORCE_BVH", force)
+        out = []
+        for dev in ("cpu", cuda):
+            scene = load_scene(path, device=dev)
+            assert scene.has_alpha and (scene.arrays.bvh is not None) == bool(force)
+            t = [torch.as_tensor(x, device=dev) for x in rays]
+            hit = scene.intersect_alpha(*t)
+            occ = scene.occlude_alpha(*t[:3], torch.full_like(t[3], 6.5))
+            out.append((hit.tri_id.cpu(), hit.valid.cpu(), occ.cpu()))
+        for a, b in zip(*out):
+            assert torch.equal(a, b), force
