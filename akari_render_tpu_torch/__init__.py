@@ -7,12 +7,16 @@ method config, shader compiler, scene flattening, EXR IO) are carried over
 as numpy code, because importing anything from `akari_render_tpu` imports
 jax (its `__init__` sets up the XLA compile cache).
 
-Ported so far: `cli -s scene.json -m pt.json` with the path tracer on
-flat-tier and cluster-tier scenes with instancing (no alpha or spectral
-transport). The hand-written CUDA kernels are the brute-force
-Möller-Trumbore intersector (`csrc/intersect.cu`, wrapper
-`accel/intersect.py`) and the pair sweep's cull, refine and candidate walk
-(`csrc/pairs.cu`, wrappers in `accel/pairs.py`). Nothing here imports jax.
+Ported so far: the CLI with every method type (pt, aov, gpt, mcmc,
+mcmc_opt) on flat-tier and cluster-tier scenes with instancing and alpha,
+every shader op of the JAX package's compiler, RGB and spectral transport
+(hero wavelengths, dispersive glass), and the PT pass shapes. The
+hand-written CUDA kernels (csrc/) are the brute-force Möller-Trumbore
+intersector K1 (`accel/intersect.py`), the pair sweep's cull, refine,
+candidate walk and window refine K2-K6 (`accel/pairs.py`), the wide-BVH
+walk K7 (`accel/wide.py`), the path megakernel K8
+(`integrators/megakernel.py`) and the fused shade K9
+(`integrators/fused_shade.py`). Nothing here imports jax.
 """
 
 __version__ = "0.1.0"

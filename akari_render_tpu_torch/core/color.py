@@ -39,5 +39,10 @@ def convert_colorspace(rgb, src: str, dst: str):
     return torch.einsum("ij,...j->...i", torch.as_tensor(m, device=rgb.device), rgb)
 
 
+def luminance(rgb):
+    """Relative luminance of linear sRGB."""
+    return 0.2126729 * rgb[..., 0] + 0.7151522 * rgb[..., 1] + 0.072175 * rgb[..., 2]
+
+
 def remove_nan(c):
     return torch.where(torch.isfinite(c), c, 0.0)

@@ -1,5 +1,5 @@
 """Shared path-tracing core (port of akari_render_tpu/integrators/common.py:
-trace_paths in RGB, with nee_light_sample, _emission_at and dispatch_shade).
+trace_paths, with nee_light_sample, _emission_at and dispatch_shade).
 
 A batch of N lanes steps through the bounce loop together; an eager
 Python loop takes the place of lax.while_loop and stops once every lane
@@ -34,7 +34,19 @@ included), and resume_state with depth_beg continues it; any row subset
 of a state (take_rows) resumes bit-exactly.
 
 Rays go through Scene.intersect_alpha / occlude_alpha, which are
-intersect / occlude on opaque scenes. Not ported: spectral transport.
+intersect / occlude on opaque scenes.
+
+Spectral transport (`spectral`: the lanes' SampledWavelengths, four hero
+wavelengths a lane): the path decisions (BSDF sampling, RR, MIS) run in
+RGB exactly as in RGB mode, while a spectral throughput beside the RGB one
+multiplies rgb2spec-uplifted factors (core/spectral.py): the emission
+through the normalised D65, NEE's BSDF factor and light radiance uplifted
+apart, the sampled f. A dispersive glass (a Cauchy term) evaluates its IOR
+at the hero wavelength, so a lane that first hits one terminates its
+secondary wavelengths: their throughput goes to zero and the hero's is
+weighted by their count, once. The clamp acts on the spectral radiance,
+and the CIE sensor turns it into linear sRGB. As in the JAX package,
+spectral mode never shades through K9 and refuses per-depth taps.
 """
 from __future__ import annotations
 
@@ -48,6 +60,9 @@ import torch
 from ..accel.trace import Hit
 from ..core.math import RAY_TMAX, dot, face_forward, offset_ray_origin
 from ..core.sampling import INV_PI, mis_weight
+from ..core.spectral import (
+    device_table, eval_reflectance, illuminant_d65, spectral_to_rgb, uplift_unbounded,
+)
 from ..lights import finish_light_sample, light_point_attrs, pdf_direct, sample_light_point_ex
 from ..scene import Scene
 from ..svm.surface import DiffuseBsdf, SurfaceClosure
@@ -73,13 +88,17 @@ def uses_fused_rays(scene: Scene, settings: PTSettings) -> bool:
             and not scene.has_alpha)
 
 
-def pending_rows(n: int, dev) -> dict:
-    """The pending-shadow rows of fused rays, empty."""
-    return {"p_ro": torch.zeros((n, 3), device=dev), "p_wi": torch.zeros((n, 3), device=dev),
+def pending_rows(n: int, dev, wavelengths: int = 0) -> dict:
+    """The pending-shadow rows of fused rays, empty; with `wavelengths`
+    also the pending spectral contribution."""
+    rows = {"p_ro": torch.zeros((n, 3), device=dev), "p_wi": torch.zeros((n, 3), device=dev),
             "p_dist": torch.zeros((n,), device=dev), "p_contrib": torch.zeros((n, 3), device=dev),
             "p_valid": torch.zeros((n,), dtype=torch.bool, device=dev),
             "p_ex0": torch.full((n,), -1, dtype=torch.int32, device=dev),
             "p_ex1": torch.full((n,), -1, dtype=torch.int32, device=dev)}
+    if wavelengths:
+        rows["p_contrib_s"] = torch.zeros((n, wavelengths), device=dev)
+    return rows
 
 
 def fused_trace(scene: Scene, st: dict, zeros_2n):
@@ -105,6 +124,8 @@ def resolve_pending(st: dict, occluded) -> None:
     """Land the pending NEE contributions that were not occluded."""
     ok = st["p_valid"] & ~occluded
     st["radiance"] = st["radiance"] + torch.where(ok[..., None], st["p_contrib"], 0.0)
+    if "p_contrib_s" in st:
+        st["radiance_s"] = st["radiance_s"] + torch.where(ok[..., None], st["p_contrib_s"], 0.0)
     st["p_valid"] = torch.zeros_like(st["p_valid"])
 
 
@@ -122,12 +143,14 @@ class PTSettings:
     indirect_only: bool = False
     force_diffuse: bool = False
     clamp_indirect: float = 1000.0
+    color: str = "rgb"  # "rgb" | "spectral" (hero-wavelength transport)
 
 
 def dispatch_shade(scene: Scene, si, extra: dict, fn, lanes, force_diffuse: bool = False):
     """fn(closure, extra_rows) -> dict of per-lane tensors, evaluated for the
     lanes where `lanes` is True, grouped by shader kind. Other lanes get
-    zeros."""
+    zeros. With "lambdas" in extra (spectral mode), each group's closures
+    take their lanes' hero wavelengths."""
     n = lanes.shape[0]
     out: dict = {}
 
@@ -150,16 +173,19 @@ def dispatch_shade(scene: Scene, si, extra: dict, fn, lanes, force_diffuse: bool
         if rows.numel() == 0:
             continue
         counts["dispatch_groups"] += 1
-        closure = scene.kind_closure(si, k, rows)
+        lam0 = extra["lambdas"][rows, 0] if "lambdas" in extra else None
+        closure = scene.kind_closure(si, k, rows, lambda0=lam0)
         scatter(rows, fn(closure, {key: v[rows] for key, v in extra.items()}))
     return out
 
 
 def uses_fused_shade(scene: Scene, settings: PTSettings) -> bool:
     """Whether trace_paths shades through K9 (the JAX package's rule):
-    AKR_PALLAS_SHADE on, a bake, NEE with a light, no force_diffuse."""
-    return (fused_shade_enabled() and settings.use_nee and scene.arrays.lights.num_lights > 0
-            and not settings.force_diffuse and scene.shade_bake is not None)
+    AKR_PALLAS_SHADE on, a bake, NEE with a light, no force_diffuse, RGB
+    transport."""
+    return (fused_shade_enabled() and settings.color != "spectral" and settings.use_nee
+            and scene.arrays.lights.num_lights > 0 and not settings.force_diffuse
+            and scene.shade_bake is not None)
 
 
 def _fused_shade_live(bake, si, extra: dict, lanes):
@@ -207,7 +233,8 @@ def nee_light_sample(scene: Scene, si, u_light, lanes):
 
 def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
                 radiance_cb: Callable | None = None, depth_end: int | None = None,
-                resume_state: dict | None = None, depth_beg: int = 0, finalize: bool = True):
+                resume_state: dict | None = None, depth_beg: int = 0, finalize: bool = True,
+                spectral=None):
     """Trace one bounce-limited path per lane: returns (radiance [N, 3],
     aux, sampler) with aux = dict(albedo [N, 3], normal [N, 3], first_t
     [N]) of the first hit (zeros and RAY_TMAX where the camera ray missed).
@@ -221,8 +248,26 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
     depth_end bounds the bounce loop below max_depth; with finalize=False
     the raw state dict (the sampler under "sampler") is returned instead,
     before the last intersect and the clamp. resume_state and depth_beg
-    continue such a state (ray_o, ray_d and sampler are then ignored)."""
+    continue such a state (ray_o, ray_d and sampler are then ignored).
+
+    spectral: the lanes' SampledWavelengths (lambdas, pdf [N, W]) for
+    spectral transport (the module's docstring); the radiance returned is
+    then the sensor's linear sRGB."""
     a = scene.arrays
+    if spectral is not None and radiance_cb is not None:
+        raise NotImplementedError("spectral transport with per-depth taps")
+    if spectral is not None:
+        lam = spectral.lambdas
+        n_w = lam.shape[-1]
+        up_table = device_table(lam.device)  # raises if the table cannot be made
+        d65_at_lam = illuminant_d65(lam)
+
+        def up(rgb, lambdas):
+            """An RGB factor -> its spectrum at the lanes' wavelengths."""
+            c, sc = uplift_unbounded(up_table, rgb)
+            return eval_reflectance(c, lambdas) * sc[..., None]
+
+        dispersion = scene.has_dispersion
     if resume_state is not None:
         st = dict(resume_state)
         sampler = st.pop("sampler")
@@ -242,16 +287,22 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
             "first_normal": torch.zeros((n, 3), device=dev),
             "first_t": torch.full((n,), RAY_TMAX, device=dev),
         }
+        if spectral is not None:
+            st.update(radiance_s=torch.zeros((n, n_w), device=dev),
+                      beta_s=torch.ones((n, n_w), device=dev),
+                      base_replay_s=torch.zeros((n, n_w), device=dev))
+            if dispersion:  # lanes whose secondary wavelengths have terminated
+                st["sec_dead"] = torch.zeros((n,), dtype=torch.bool, device=dev)
     n = st["ray_o"].shape[0]
     dev = st["ray_o"].device
     zeros_n = torch.zeros((n,), device=dev)
     nee = settings.use_nee and a.lights.num_lights > 0
-    fused = uses_fused_shade(scene, settings)
+    fused = spectral is None and uses_fused_shade(scene, settings)
     fuse_rays = radiance_cb is None and uses_fused_rays(scene, settings)
     if fuse_rays:
         zeros_2n = torch.zeros((2 * n,), device=dev)
         if "p_valid" not in st:
-            st.update(pending_rows(n, dev))
+            st.update(pending_rows(n, dev, n_w if spectral is not None else 0))
 
     def intersect_live():
         if fuse_rays:  # also lands the previous bounce's pending shadows
@@ -279,6 +330,9 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
             w = torch.zeros_like(w)
         contrib = st["beta"] * le * w[..., None]
         st["radiance"] = st["radiance"] + torch.where(ok[..., None], contrib, 0.0)
+        if spectral is not None:  # emission uplifts through the D65 white
+            contrib_s = st["beta_s"] * (up(le, lam) * d65_at_lam) * w[..., None]
+            st["radiance_s"] = st["radiance_s"] + torch.where(ok[..., None], contrib_s, 0.0)
         if radiance_cb is not None:
             radiance_cb(depth, "emission", contrib, ok)
 
@@ -293,7 +347,15 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
             w = mis_weight(ex["ls_pdf"], pdf_l)
             wp = (w / torch.clamp(ex["ls_pdf"], min=1e-20))[..., None]
             out["direct"] = ex["ls_li"] * f_l * wp
+            if "lambdas" in ex:  # the BSDF factor and the light's radiance uplift apart
+                lams = ex["lambdas"]
+                out["direct_s"] = up(f_l, lams) * up(ex["ls_li"], lams) * illuminant_d65(lams) * wp
         out.update(closure.sample(ex["wo"], ex["u_bsdf"][..., 0], ex["u_bsdf"][..., 1:]))
+        if "lambdas" in ex:
+            out["f_s"] = up(out["f"], ex["lambdas"])
+            if dispersion:  # the kind's static flag, a column a lane
+                out["disp"] = torch.full(ex["wo"].shape[:-1], closure.dispersive,
+                                         dtype=torch.bool, device=ex["wo"].device)
         if albedo:  # the first bounce records it (aux)
             out["albedo"] = closure.albedo(ex["wo"])
         return out
@@ -312,6 +374,8 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
         add_emission(depth, si, lane_hit, wo)
         if depth == 0:
             st["base_replay"] = st["radiance"]
+            if spectral is not None:
+                st["base_replay_s"] = st["radiance_s"]
         cur_depth = depth + 1
 
         sampler, u_light = sampler.next_3d()
@@ -327,6 +391,8 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
         extra = {"wo": wo, "u_bsdf": u_bsdf}
         if ls is not None:
             extra.update(ls_wi=ls.wi, ls_li=ls.li, ls_pdf=ls.pdf)
+        if spectral is not None:
+            extra["lambdas"] = lam
         if fused:  # fused implies NEE, so ls is set
             sh = _fused_shade_live(scene.shade_bake, si, extra, st["active"])
         else:
@@ -337,6 +403,21 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
                 ("wi", (3,), torch.float32), ("f", (3,), torch.float32),
                 ("pdf", (), torch.float32), ("valid", (), torch.bool),
                 ("direct", (3,), torch.float32), ("albedo", (3,), torch.float32))}
+            if spectral is not None:
+                sh.update(direct_s=torch.zeros((n, n_w), device=dev),
+                          f_s=torch.zeros((n, n_w), device=dev),
+                          disp=torch.zeros((n,), dtype=torch.bool, device=dev))
+        if spectral is not None and dispersion:
+            # hero-wavelength dispersion: a lane that newly meets a
+            # dispersive closure (its IOR taken at lambda0) terminates its
+            # secondary wavelengths and weights the hero by their count, once
+            hero_w = torch.zeros((1, n_w), device=dev)
+            hero_w[0, 0] = float(n_w)
+            mult = torch.where((sh["disp"] & ~st["sec_dead"])[..., None], hero_w, 1.0)
+            sh["f_s"] = sh["f_s"] * mult
+            if "direct_s" in sh:
+                sh["direct_s"] = sh["direct_s"] * mult
+            st["sec_dead"] = st["sec_dead"] | sh["disp"]
         if depth == 0:
             st["first_albedo"] = torch.where(lane_hit[..., None], sh["albedo"],
                                              st["first_albedo"])
@@ -346,6 +427,8 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
             st.update(p_ro=ls.shadow_ro, p_wi=ls.wi, p_dist=ls.shadow_dist, p_valid=light_valid,
                       p_contrib=st["beta"] * sh["direct"],
                       p_ex0=si["tri_id"].to(torch.int32), p_ex1=ls.dest_tri)
+            if spectral is not None:
+                st["p_contrib_s"] = st["beta_s"] * sh["direct_s"]
         elif ls is not None:
             occluded = scene.occlude_alpha(
                 ls.shadow_ro, ls.wi, zeros_n, torch.where(light_valid, ls.shadow_dist, -1.0),
@@ -354,6 +437,9 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
             direct_ok = light_valid & ~occluded
             contrib = st["beta"] * sh["direct"]
             st["radiance"] = st["radiance"] + torch.where(direct_ok[..., None], contrib, 0.0)
+            if spectral is not None:
+                st["radiance_s"] = st["radiance_s"] + torch.where(
+                    direct_ok[..., None], st["beta_s"] * sh["direct_s"], 0.0)
             if radiance_cb is not None:
                 radiance_cb(cur_depth, "nee", contrib, direct_ok)
 
@@ -363,6 +449,10 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
         st["beta"] = st["beta"] * torch.where(
             st["active"][..., None], sh["f"] / torch.clamp(sh["pdf"], min=1e-20)[..., None], 1.0
         )
+        if spectral is not None:
+            st["beta_s"] = st["beta_s"] * torch.where(
+                st["active"][..., None], sh["f_s"] / torch.clamp(sh["pdf"], min=1e-20)[..., None],
+                1.0)
         # russian roulette (pt.rs:210-224, 843-850)
         sampler, u_rr = sampler.next_1d()
         if cur_depth > settings.rr_depth:
@@ -371,6 +461,8 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
             cont_prob = torch.ones((n,), device=dev)
         st["active"] = st["active"] & (u_rr < cont_prob)
         st["beta"] = st["beta"] / torch.clamp(cont_prob, min=1e-20)[..., None]
+        if spectral is not None:
+            st["beta_s"] = st["beta_s"] / torch.clamp(cont_prob, min=1e-20)[..., None]
         st["prev_bsdf_pdf"] = sh["pdf"]
         st["ray_o"] = offset_ray_origin(si["p"], face_forward(si["ng"], sh["wi"]))
         st["ray_d"] = sh["wi"]
@@ -387,7 +479,11 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
         record_first_hit(hit, si, lane_hit)
     add_emission(settings.max_depth, si, lane_hit, -st["ray_d"])
 
-    radiance = clamp_radiance(settings, st["radiance"], st["base_replay"])
+    if spectral is not None:  # the clamp acts on the spectrum, then the sensor
+        radiance = spectral_to_rgb(
+            clamp_radiance(settings, st["radiance_s"], st["base_replay_s"]), lam, spectral.pdf)
+    else:
+        radiance = clamp_radiance(settings, st["radiance"], st["base_replay"])
     aux = {"albedo": st["first_albedo"], "normal": st["first_normal"], "first_t": st["first_t"]}
     return radiance, aux, sampler
 

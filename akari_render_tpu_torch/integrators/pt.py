@@ -7,10 +7,10 @@ series (time, spp) as the JAX package. Classroom's 1920x1080 wavefront
 peaks at 2.1 GiB on an 80 GB H100, so nothing splits the pixels.
 
 render_pt routes as the JAX package does, in its order:
-- AKR_MEGAKERNEL=1 and an eligible scene (megakernel.megakernel_eligible):
-  the path megakernel K8, one launch per pass;
-- AKR_PERSISTENT=1: the persistent wavefront (wavefront.py), one pool of
-  lanes at mixed depths refilled from the (pixel, sample) queue;
+- AKR_MEGAKERNEL=1 and an eligible scene (megakernel.megakernel_eligible)
+  in RGB: the path megakernel K8, one launch per pass;
+- AKR_PERSISTENT=1 in RGB: the persistent wavefront (wavefront.py), one
+  pool of lanes at mixed depths refilled from the (pixel, sample) queue;
 - else the pass, split-compacted when AKR_SPLIT_DEPTH=d is set with
   0 < d < max_depth (_split_depth): depths [0, d) trace over one
   wavefront of all pixels (or AKR_MAX_LANES pixels a block), then the
@@ -19,6 +19,12 @@ render_pt routes as the JAX package does, in its order:
   of independent lanes, so the image is the unsplit one bit for bit. The
   JAX package's default split (rr_depth + 1 on a TPU cluster-tier scene)
   is a TPU default; the port splits only when asked.
+A method with "color": "spectral" renders by hero-wavelength spectral
+transport (trace_paths' `spectral`): each sample draws one more 1D value
+after the film sample for the lane's wavelengths, so the RGB draw order is
+untouched. Like the JAX package, spectral renders take the pass, unsplit:
+neither K8, the persistent wavefront nor the split takes them, and the
+shade is the per-kind dispatch (never K9).
 The stats say which tier rendered ("tier": wavefront, persistent or
 megakernel), which shade ran ("shade") and which traversal the rays took
 ("traversal": Scene.traversal, or "megakernel (K8)"); a split pass adds
@@ -29,7 +35,7 @@ Not ported, on purpose or not yet:
   (AKR_MAX_PASS_SECONDS) and the SMEM / 128k-lane lids of
   max_wavefront_lanes: TPU workarounds with no counterpart on a GPU;
 - AKR_SPLIT_VERBOSE's stderr line (the live counts are in the stats);
-- checkpoint/resume, the live preview and spectral transport.
+- checkpoint/resume and the live preview.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from ..core.film import Film, add_samples_aligned, develop
 from ..core.filters import filter_from_config
 from ..core.lds import make_sampler
 from ..core.math import disable_tf32
+from ..core.spectral import sample_wavelengths
 from ..scene import Scene
 from .common import (
     PTSettings, clamp_radiance, take_rows, trace_paths, uses_fused_rays, uses_fused_shade,
@@ -62,7 +69,10 @@ def lane_cap(npix: int) -> int:
 
 def _split_depth(settings: PTSettings) -> int | None:
     """The split-compacted pass's depth: AKR_SPLIT_DEPTH=d with
-    0 < d < max_depth, else None (unsplit)."""
+    0 < d < max_depth, else None (unsplit). Spectral renders stay unsplit,
+    as in the JAX package: the resume state carries no wavelengths."""
+    if settings.color == "spectral":
+        return None
     v = os.environ.get("AKR_SPLIT_DEPTH", "")
     if v:
         d = int(v)
@@ -90,9 +100,16 @@ def camera_sample(scene: Scene, filt, sample_index: int, seed: int, sampler_conf
 
 def render_sample(scene: Scene, settings: PTSettings, filt, sample_index: int, seed: int,
                   sampler_config: dict | None):
-    """One sample for every pixel: (radiance [H*W, 3], filter weight [H*W])."""
+    """One sample for every pixel: (radiance [H*W, 3], filter weight [H*W]).
+    In spectral mode the lanes' wavelengths take one 1D draw after the
+    film sample."""
     ray_o, ray_d, fw, sampler = camera_sample(scene, filt, sample_index, seed, sampler_config)
-    radiance, _aux, _sampler = trace_paths(scene, settings, ray_o, ray_d, sampler)
+    spectral = None
+    if settings.color == "spectral":
+        sampler, u_lam = sampler.next_1d()
+        spectral = sample_wavelengths(u_lam)
+    radiance, _aux, _sampler = trace_paths(scene, settings, ray_o, ray_d, sampler,
+                                           spectral=spectral)
     return radiance, fw
 
 
@@ -133,8 +150,6 @@ def render_sample_split(scene: Scene, settings: PTSettings, filt, sample_index: 
 
 def render_pt(scene: Scene, config: PTConfig, task=None, progress_cb=None, session=None):
     """Render; returns (image [H, W, 3] numpy float32, stats dict)."""
-    if getattr(config, "color", "rgb") == "spectral":
-        raise NotImplementedError("spectral transport is not yet ported")
     disable_tf32()
     width, height = scene.camera.width, scene.camera.height
     filt = filter_from_config(task.filter_config if task else None)
@@ -145,17 +160,22 @@ def render_pt(scene: Scene, config: PTConfig, task=None, progress_cb=None, sessi
         indirect_only=config.indirect_only,
         force_diffuse=config.force_diffuse,
         clamp_indirect=config.clamp_indirect,
+        color=config.color,
     )
+    spectral = settings.color == "spectral"
     sampler_config = task.sampler if task else None
-    if (os.environ.get("AKR_MEGAKERNEL", "0") == "1"
+    if (os.environ.get("AKR_MEGAKERNEL", "0") == "1" and not spectral
             and megakernel_eligible(scene, settings, sampler_config, filt)):
         img, stats = render_pt_megakernel(scene, config, task, progress_cb, session)
-        stats.update(tier="megakernel", shade="megakernel (K8)", traversal="megakernel (K8)")
+        stats.update(tier="megakernel", shade="megakernel (K8)", traversal="megakernel (K8)",
+                     color="rgb")
         return img, stats
-    if os.environ.get("AKR_PERSISTENT", "0") == "1":
+    if os.environ.get("AKR_PERSISTENT", "0") == "1" and not spectral:
         from .wavefront import render_pt_wavefront
 
-        return render_pt_wavefront(scene, config, task, progress_cb, session)
+        img, stats = render_pt_wavefront(scene, config, task, progress_cb, session)
+        stats["color"] = "rgb"
+        return img, stats
     split_d = _split_depth(settings)
     spp_chunk = min(config.spp, config.spp_per_pass)
     # the task seed rides as seed_extra, exactly as in the JAX package
@@ -168,7 +188,8 @@ def render_pt(scene: Scene, config: PTConfig, task=None, progress_cb=None, sessi
     done = 0  # samples accumulated; the absolute sample index keys the sampler
     stats = {"time": [], "spp": [], "tier": "wavefront",
              "shade": "fused (K9)" if uses_fused_shade(scene, settings) else "dispatch",
-             "traversal": scene.traversal, "fused_rays": uses_fused_rays(scene, settings)}
+             "traversal": scene.traversal, "fused_rays": uses_fused_rays(scene, settings),
+             "color": settings.color}
     if split_d is not None:
         stats.update(split_depth=split_d, split_live=[])
     t0 = time.time()

@@ -1,5 +1,5 @@
-"""The native (C++) binned-SAH BVH builder, loaded with ctypes (port of
-akari_render_tpu/native.py).
+"""The native (C++) binned-SAH BVH builder and rgb2spec optimizer, loaded
+with ctypes (port of akari_render_tpu/native.py).
 
 The repo's own native/*.cpp are compiled once per source hash with the JAX
 package's g++ flags into build/native/ and loaded with ctypes. There is no
@@ -56,6 +56,9 @@ def get_lib() -> ctypes.CDLL:
         lib.akr_build_bvh.argtypes = [fp] * 3 + [ctypes.c_int64] + [
             ctypes.POINTER(fp)] * 2 + [ctypes.POINTER(ip)] * 4
         lib.akr_free.argtypes = [ctypes.c_void_p]
+        # rgb2spec_opt(res, out_path, gamut) -> 0 on success
+        lib.akr_rgb2spec_opt.restype = ctypes.c_int
+        lib.akr_rgb2spec_opt.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_char_p]
         _lib = lib
         return lib
 

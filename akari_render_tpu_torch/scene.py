@@ -60,7 +60,9 @@ from .lights import LightArrays
 from .native import build_bvh_order
 from .scenegraph.model import SceneGraph, load_scene_json, load_transform
 from .svm.compiler import CompiledKind, CompilerDriver, _image_key
-from .svm.eval import EvalContext, check_kind, dispatch_alpha, dispatch_closure
+from .svm.eval import (
+    EvalContext, check_kind, dispatch_alpha, dispatch_closure, kind_is_dispersive,
+)
 from .svm.precompute import get_table
 from .svm.reduced import bake_shading
 from .svm.surface import frame_from_n_t
@@ -149,6 +151,12 @@ class Scene:
     @property
     def device(self):
         return self.arrays.v0.device
+
+    @property
+    def has_dispersion(self) -> bool:
+        """Some kind holds a dispersive (Cauchy) glass: spectral transport
+        then terminates the secondary wavelengths at its hits."""
+        return any(kind_is_dispersive(k) for k in self.kinds)
 
     @property
     def traversal(self) -> str:
@@ -384,9 +392,10 @@ class Scene:
             "tri_id": t,
         }
 
-    def eval_context(self, si, kind_idx: int) -> EvalContext:
+    def eval_context(self, si, kind_idx: int, lambda0=None) -> EvalContext:
         """Per-lane shader constants of one kind: a row gather of its
-        [num_materials, kind_width] matrix by material id."""
+        [num_materials, kind_width] matrix by material id. lambda0: the
+        lanes' hero wavelengths in spectral mode (dispersive glass)."""
         return EvalContext(
             params=self.arrays.param_mats[kind_idx][si["mat"].long()],
             uv=si["uv"],
@@ -399,15 +408,18 @@ class Scene:
             const_ranges=(
                 self.kind_const_ranges[kind_idx] if self.kind_const_ranges is not None else None
             ),
+            lambda0=lambda0,
         )
 
-    def kind_closure(self, si, kind_idx: int, rows):
-        """The world-space closure of one kind over the lanes `rows`."""
+    def kind_closure(self, si, kind_idx: int, rows, lambda0=None):
+        """The world-space closure of one kind over the lanes `rows`;
+        lambda0, if given, holds those lanes' hero wavelengths."""
         sub = {
             "mat": si["mat"][rows], "uv": si["uv"][rows], "p": si["p"][rows],
             "ng": si["ng"][rows], "frame": tuple(f[rows] for f in si["frame"]),
         }
-        return dispatch_closure(self.kinds[kind_idx], self.eval_context(sub, kind_idx))
+        return dispatch_closure(self.kinds[kind_idx],
+                                self.eval_context(sub, kind_idx, lambda0=lambda0))
 
 
 def _kind_may_have_alpha(kind: CompiledKind) -> bool:

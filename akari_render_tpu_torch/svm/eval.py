@@ -5,15 +5,19 @@ Each bytecode node of a kind is evaluated once per call, in SSA order,
 over the lanes of that kind; BSDF nodes become Surface combinator trees
 (surface.py). Tagged Python values carry the dynamic types.
 
-Ported ops: float, float3, float4, rgb, uplift, math, image, checker,
-mapping, texcoords, separate_color, extract, normal_map, output, diffuse,
-emission, glass, mix_bsdf and principled (the fused form, which is the JAX
-package's default). Not yet ported: noise, plastic and metal; load_scene
-refuses kinds that use them (check_kind).
+Every op of the JAX package's compiler is ported: float, float3, float4,
+rgb, uplift, math, image, checker, noise, mapping, texcoords,
+separate_color, extract, normal_map, output, diffuse, emission, glass
+(with its Cauchy dispersion at the hero wavelength in spectral mode),
+plastic, metal, mix_bsdf and principled. The principled BSDF is the fused
+form unless AKR_FUSED_PRINCIPLED=0 (read at each build, as in the JAX
+package) asks for the combinator tree. check_kind still refuses an op that
+is not in PORTED_OPS, should the compiler ever emit one.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -23,23 +27,34 @@ from ..core.color import convert_colorspace, srgb_to_linear
 from ..core.math import Frame
 from ..core.sampling import INV_PI
 from .compiler import CompiledKind
-from .microfacet import TrowbridgeReitz, f0_from_ior, fr_dielectric, ior_from_f0
+from .microfacet import (
+    TrowbridgeReitz,
+    artistic_to_conductor_fresnel,
+    f0_from_ior,
+    fr_complex,
+    fr_dielectric,
+    ior_from_f0,
+)
 from .precompute import albedo_curve, albedo_curve_np, curve_eval
 from .surface import (
     BsdfMixture,
+    CoatedBsdf,
+    ConductorReflection,
     DiffuseBsdf,
     EmissiveSurface,
     MicrofacetReflection,
     MicrofacetTransmission,
+    PlasticBsdf,
+    ScaledBsdf,
     Surface,
     SurfaceClosure,
     normal_map,
 )
 
 PORTED_OPS = frozenset({
-    "float", "float3", "float4", "rgb", "uplift", "math", "image", "checker",
+    "float", "float3", "float4", "rgb", "uplift", "math", "image", "checker", "noise",
     "mapping", "texcoords", "separate_color", "extract", "normal_map", "output",
-    "diffuse", "emission", "glass", "mix_bsdf", "principled",
+    "diffuse", "emission", "glass", "plastic", "metal", "mix_bsdf", "principled",
 })
 
 
@@ -64,10 +79,14 @@ class EvalContext(NamedTuple):
     # host [kind_width, 2] min/max of each constant column over the kind's
     # parameter matrix: statically-constant lobes are eliminated
     const_ranges: object = None
+    # [N] hero wavelength (nm) in spectral mode, None in RGB mode: a
+    # dispersive glass evaluates its IOR there
+    lambda0: object = None
 
 
 # the closure ops: in alpha mode each evaluates to its alpha instead
-_CLOSURE_OPS = frozenset({"diffuse", "emission", "glass", "mix_bsdf", "principled"})
+_CLOSURE_OPS = frozenset({"diffuse", "emission", "glass", "plastic", "metal", "mix_bsdf",
+                          "principled"})
 
 
 class _Evaluator:
@@ -200,6 +219,20 @@ class _Evaluator:
             pos = torch.floor(uv * scale[..., None] * 2.0).to(torch.int32)
             first = (pos[..., 0] + pos[..., 1]) % 2 == 0
             return "color", (torch.where(first[..., None], c1, c2), torch.where(first, a1, a2))
+        if op == "noise":
+            from .texture import perlin_noise
+
+            scale = self.f(node[2])
+            dim = int(node[1])
+            # Blender: 1-2D sample texture space (uv), 3D the position, 4D
+            # the position with a w phase of 0 (no socket)
+            if dim <= 2:
+                coords = ctx.uv[..., :dim]
+            elif dim == 3:
+                coords = ctx.p
+            else:
+                coords = torch.cat([ctx.p, torch.zeros_like(ctx.p[..., :1])], dim=-1)
+            return "f", perlin_noise(coords * scale[..., None], dim=dim)
         if op == "mapping":
             v = self.f3(node[2])
             loc = self.f3(node[3])
@@ -232,6 +265,10 @@ class _Evaluator:
             return "surface", EmissiveSurface(None, self.color(node[1]) * self.f(node[2])[..., None])
         if op == "glass":
             return "surface", self._glass(node)
+        if op == "plastic":
+            return "surface", self._plastic(node)
+        if op == "metal":
+            return "surface", self._metal(node)
         if op == "mix_bsdf":
             a, b, fac = self.surface(node[1]), self.surface(node[2]), self.f(node[3])
             return "surface", BsdfMixture(lambda wo: fac, a, b, "mix")
@@ -249,11 +286,19 @@ class _Evaluator:
         return torch.ones(self.ctx.uv.shape[:-1], device=self.ctx.uv.device)
 
     def _glass(self, node) -> Surface:
-        """Fresnel-weighted reflection plus transmission. The dispersion
-        term acts in spectral mode only, which is not ported."""
+        """Fresnel-weighted reflection plus transmission. Dispersion (spectral
+        mode only): with a Cauchy B coefficient on the node and a hero
+        wavelength in the context, the IOR is evaluated at lambda0 per lane,
+        n(l) = n_d + B (1/l^2 - 1/l_d^2) with l in um, anchored at the
+        Fraunhofer d line (587.6 nm) where the scene's ior holds."""
         kr = self.color(node[1])
         kt = torch.sqrt(torch.clamp(self.color(node[2]), min=0.0))
         eta = self.f(node[3])
+        cauchy_b = float(node[5]) if len(node) > 5 else 0.0
+        if cauchy_b > 0.0 and self.ctx.lambda0 is not None:
+            lam_um = self.ctx.lambda0 * 1e-3
+            eta = eta + cauchy_b * (1.0 / torch.clamp(lam_um * lam_um, min=1e-4)
+                                    - 1.0 / 0.5876**2)
         dist = TrowbridgeReitz.from_roughness(self.f(node[4]))
 
         def fresnel(c):
@@ -263,8 +308,45 @@ class _Evaluator:
         trans = MicrofacetTransmission(kt, eta, fresnel, dist)
         return BsdfMixture(lambda wo: fr_dielectric(Frame.cos_theta(wo), eta), trans, refl, "add")
 
+    # named complex IORs (n, k) as linear-RGB triples (~615/535/465 nm); the
+    # scene graph's metal node carries a preset name (shader.rs:156-160)
+    METAL_IOR = {
+        "Au": ((0.143, 0.375, 1.442), (3.983, 2.386, 1.603)),
+        "Ag": ((0.155, 0.116, 0.138), (3.602, 3.131, 2.621)),
+        "Cu": ((0.200, 0.924, 1.102), (3.910, 2.448, 2.331)),
+        "Al": ((1.345, 0.965, 0.617), (7.475, 6.400, 5.303)),
+        "Fe": ((2.911, 2.950, 2.585), (3.089, 2.931, 2.767)),
+        "Cr": ((3.180, 3.182, 2.441), (3.330, 3.330, 3.038)),
+        "Ni": ((1.965, 1.824, 1.657), (3.714, 3.382, 3.048)),
+        "Ti": ((2.741, 2.542, 2.267), (3.814, 3.435, 3.039)),
+    }
+
+    def _metal(self, node) -> Surface:
+        """Conductor GGX: complex-Fresnel microfacet reflection with a named
+        IOR preset (Al for an unknown name)."""
+        name = node[1] if isinstance(node[1], str) else "Al"
+        n_rgb, k_rgb = self.METAL_IOR.get(name, self.METAL_IOR["Al"])
+        roughness = self.f(node[2])
+        shape = roughness.shape + (3,)
+        dev = roughness.device
+        n_c = torch.tensor(n_rgb, dtype=torch.float32, device=dev).expand(shape)
+        k_c = torch.tensor(k_rgb, dtype=torch.float32, device=dev).expand(shape)
+        return ConductorReflection(torch.ones(shape, device=dev),
+                                   lambda c: fr_complex(c, n_c, k_c),
+                                   TrowbridgeReitz.from_roughness(roughness))
+
+    def _plastic(self, node) -> Surface:
+        """Tungsten's rough plastic with internal scattering; the scene
+        graph's ks socket is unused, as in the reference (the coat is
+        white)."""
+        kd = self.color(node[1])
+        sigma_a = self.color(node[5]) if len(node) > 5 and node[5] != -1 else None
+        thickness = self.f(node[6]) if len(node) > 6 and node[6] != -1 else None
+        return PlasticBsdf(kd, self.f(node[3]), self.f(node[4]), sigma_a, thickness)
+
     def _principled(self, inp: dict) -> Surface:
-        """Blender 4.0 Principled BSDF, fused form."""
+        """Blender 4.0 Principled BSDF (principled.rs:11-215): the fused
+        form, or the combinator tree under AKR_FUSED_PRINCIPLED=0."""
         ctx = self.ctx
         color, _alpha = self.color_alpha(inp["base_color"])
         emission = self.color(inp["emission_color"]) * self.f(inp["emission_strength"])[..., None]
@@ -322,12 +404,24 @@ def _albedo_fn(ctx: EvalContext, roughness, eta, roughness_c=None, eta_c=None):
     return fn
 
 
+def fused_principled_enabled() -> bool:
+    """AKR_FUSED_PRINCIPLED (default on): the fused principled closure; =0
+    builds the combinator tree, the JAX package's correctness anchor."""
+    return os.environ.get("AKR_FUSED_PRINCIPLED", "1") != "0"
+
+
 def build_principled_surface(ctx: EvalContext, *, color, emission, metallic, roughness, eta,
                              transmission, specular_ior_level, specular_tint, coat_weight,
-                             coat_roughness, coat_ior, coat_tint, static_zero=frozenset(),
-                             static_consts=None) -> Surface:
-    """Principled BSDF lobes (principled.rs:11-199), before normal mapping."""
+                             coat_roughness, coat_ior, coat_tint, fused: bool | None = None,
+                             static_zero=frozenset(), static_consts=None) -> Surface:
+    """Principled BSDF lobes (principled.rs:11-199), before normal mapping:
+    FusedPrincipled, or with fused=False (by default AKR_FUSED_PRINCIPLED=0)
+    the combinator tree of five microfacet lobes. Both give the same
+    closure to float rounding."""
     from .principled_fused import FusedPrincipled
+
+    if fused is None:
+        fused = fused_principled_enabled()
 
     sc = static_consts or {}
     f0 = f0_from_ior(eta)
@@ -342,6 +436,13 @@ def build_principled_surface(ctx: EvalContext, *, color, emission, metallic, rou
             t = (ior_c - 1.0) / (ior_c + 1.0)
             s = math.sqrt(min(max(t * t * 2.0 * siol_c, 0.0), 0.99))
             spec_eta_c = (1.0 + s) / (1.0 - s)
+    spec_albedo = _albedo_fn(ctx, roughness, spec_eta, sc.get("roughness"), spec_eta_c)
+    coat_albedo = _albedo_fn(ctx, coat_roughness, coat_ior, sc.get("coat_roughness"),
+                             sc.get("coat_ior"))
+    if not fused:
+        return _principled_tree(color, emission, metallic, roughness, eta, transmission, f0,
+                                spec_eta, specular_tint, coat_weight, coat_roughness, coat_ior,
+                                coat_tint, spec_albedo, coat_albedo)
     return FusedPrincipled(
         static_zero=static_zero,
         base_color=color,
@@ -357,18 +458,68 @@ def build_principled_surface(ctx: EvalContext, *, color, emission, metallic, rou
         coat_ior=coat_ior,
         coat_tint=coat_tint,
         emission=emission,
-        spec_albedo_fn=_albedo_fn(ctx, roughness, spec_eta, sc.get("roughness"), spec_eta_c),
-        coat_albedo_fn=_albedo_fn(ctx, coat_roughness, coat_ior, sc.get("coat_roughness"),
-                                  sc.get("coat_ior")),
+        spec_albedo_fn=spec_albedo,
+        coat_albedo_fn=coat_albedo,
     )
 
 
+def _principled_tree(color, emission, metallic, roughness, eta, transmission, f0, spec_eta,
+                     specular_tint, coat_weight, coat_roughness, coat_ior, coat_tint,
+                     spec_albedo, coat_albedo) -> Surface:
+    """The combinator form of the principled BSDF (principled.rs:44-199)."""
+    ones3 = torch.ones(3, device=color.device)
+
+    def dielectric_fresnel(e):
+        return lambda c: fr_dielectric(c, e)[..., None] * ones3
+
+    diffuse = DiffuseBsdf(color * INV_PI)
+    # the specular layer: f0 tweaked by specular_ior_level (principled.rs:55-80)
+    specular_brdf = MicrofacetReflection(specular_tint * f0[..., None],
+                                         dielectric_fresnel(spec_eta),
+                                         TrowbridgeReitz.from_roughness(roughness))
+    clearcoat_brdf = MicrofacetReflection(torch.ones_like(color) * coat_weight[..., None],
+                                          dielectric_fresnel(coat_ior),
+                                          TrowbridgeReitz.from_roughness(coat_roughness))
+    # the dielectric: Fresnel-weighted reflection plus transmission
+    diel_dist = TrowbridgeReitz.from_roughness(roughness)
+    dielectric = BsdfMixture(
+        lambda wo: fr_dielectric(Frame.cos_theta(wo), eta),
+        MicrofacetTransmission(torch.sqrt(torch.clamp(color, min=0.0)), eta,
+                               dielectric_fresnel(eta), diel_dist),
+        MicrofacetReflection(color, dielectric_fresnel(eta), diel_dist), "add")
+    n_m, k_m = artistic_to_conductor_fresnel(color, specular_tint)
+    metal = MicrofacetReflection(torch.ones_like(color),
+                                 lambda c: fr_complex(torch.abs(c), n_m, k_m),
+                                 TrowbridgeReitz.from_roughness(roughness))
+    bsdf = BsdfMixture(lambda wo: transmission, diffuse, dielectric, "mix")
+    bsdf = CoatedBsdf(
+        specular_brdf, bsdf,
+        lambda wo: specular_tint * (spec_albedo(Frame.abs_cos_theta(wo)) * f0)[..., None])
+    bsdf = BsdfMixture(lambda wo: metallic, bsdf, metal, "mix")
+    bsdf = EmissiveSurface(bsdf, emission)
+    return CoatedBsdf(
+        clearcoat_brdf,
+        ScaledBsdf(bsdf, lambda wo: 1.0 + (coat_tint - 1.0) * coat_weight[..., None]),
+        lambda wo: (coat_weight * coat_albedo(Frame.abs_cos_theta(wo)))[..., None] * ones3)
+
+
+def kind_is_dispersive(kind: CompiledKind) -> bool:
+    """Whether a kind holds a glass node with a Cauchy dispersion term (a
+    static flag: it decides the hero wavelength's termination of the
+    secondary wavelengths)."""
+    return any(n is not None and n[0] == "glass" and len(n) > 5 and float(n[5]) > 0.0
+               for n in kind.nodes)
+
+
 def dispatch_closure(kind: CompiledKind, ctx: EvalContext) -> SurfaceClosure:
-    """Evaluate a kind over its lanes and wrap it in the world-space closure."""
+    """Evaluate a kind over its lanes and wrap it in the world-space
+    closure, with the kind's static `dispersive` flag."""
     tag, surf = _Evaluator(kind, ctx)._get(kind.output)
     if tag != "surface":
         raise TypeError(f"shader output is {tag}, expected surface")
-    return SurfaceClosure(surf, ctx.frame, ctx.ng)
+    closure = SurfaceClosure(surf, ctx.frame, ctx.ng)
+    closure.dispersive = kind_is_dispersive(kind)
+    return closure
 
 
 def dispatch_alpha(kind: CompiledKind, ctx: EvalContext) -> torch.Tensor:

@@ -1,28 +1,31 @@
 """Trowbridge-Reitz (GGX) microfacet distribution and Fresnel terms (port of
-akari_render_tpu/svm/microfacet.py, visible-normal sampling only; the
-classic sampler and its inverse, _sample_wh_classic and invert_wh, are not
-ported: no integrator of either package calls them, only the JAX tests).
-Local shading space: +z is the normal."""
+akari_render_tpu/svm/microfacet.py): visible-normal sampling (the default,
+the one every closure builds) and the classic NDF sampler with its
+analytic inverse (sample_visible=False; only tests build it, in either
+package). Local shading space: +z is the normal."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
 
-from ..core.math import Frame, cross, normalize
-from ..core.sampling import PI, uniform_sample_disk
+from ..core.math import Frame, cross, face_forward, normalize
+from ..core.sampling import INV_2PI, PI, TWO_PI, uniform_sample_disk
 
 MIN_ALPHA = 1e-4
 
 
 class TrowbridgeReitz(NamedTuple):
     alpha: torch.Tensor  # [..., 2] anisotropic alphas
+    sample_visible: bool = True
 
     @staticmethod
-    def from_roughness(roughness) -> "TrowbridgeReitz":
-        """alpha = roughness^2, isotropic from a [...] roughness."""
+    def from_roughness(roughness, sample_visible: bool = True) -> "TrowbridgeReitz":
+        """alpha = roughness^2, isotropic from a [...] roughness (the JAX
+        package also takes [..., 2]; a shader's roughness is one value a
+        lane, and a kind's group of two lanes must not read as [..., 2])."""
         r = torch.stack([roughness, roughness], dim=-1)
-        return TrowbridgeReitz(torch.clamp(r * r, min=MIN_ALPHA))
+        return TrowbridgeReitz(torch.clamp(r * r, min=MIN_ALPHA), sample_visible)
 
     @property
     def roughness(self):
@@ -49,7 +52,12 @@ class TrowbridgeReitz(NamedTuple):
     def g(self, wo, wi):
         return 1.0 / (1.0 + self.lambda_(wo) + self.lambda_(wi))
 
-    def sample_wh(self, w, u):
+    def sample_wh(self, wo, u):
+        if self.sample_visible:
+            return self._sample_wh_vndf(wo, u)
+        return self._sample_wh_classic(u)
+
+    def _sample_wh_vndf(self, w, u):
         """Heitz 2018 visible-normal sampling."""
         ax, ay = self.alpha[..., 0], self.alpha[..., 1]
         wh = normalize(torch.stack([ax * w[..., 0], ay * w[..., 1], w[..., 2]], dim=-1))
@@ -70,7 +78,53 @@ class TrowbridgeReitz(NamedTuple):
             torch.stack([ax * nh[..., 0], ay * nh[..., 1], torch.clamp(nh[..., 2], min=1e-6)], dim=-1)
         )
 
+    def _sample_wh_classic(self, u):
+        """Classic NDF sampling, isotropic or anisotropic."""
+        ax, ay = self.alpha[..., 0], self.alpha[..., 1]
+        phi_i = TWO_PI * u[..., 1]
+        tan2_i = ax * ax * u[..., 0] / torch.clamp(1.0 - u[..., 0], min=1e-12)
+        cos_i = 1.0 / torch.sqrt(1.0 + tan2_i)
+        phi_a = torch.arctan(ay / ax * torch.tan(TWO_PI * u[..., 1] + 0.5 * PI))
+        phi_a = torch.where(u[..., 1] > 0.5, phi_a + PI, phi_a)
+        sp, cp = torch.sin(phi_a), torch.cos(phi_a)
+        a2 = 1.0 / (cp**2 / torch.clamp(ax * ax, min=1e-12) + sp**2 / torch.clamp(ay * ay, min=1e-12))
+        tan2_a = a2 * u[..., 0] / torch.clamp(1.0 - u[..., 0], min=1e-12)
+        cos_a = 1.0 / torch.sqrt(1.0 + tan2_a)
+        is_iso = ax == ay
+        phi = torch.where(is_iso, phi_i, phi_a)
+        cos_t = torch.where(is_iso, cos_i, cos_a)
+        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t**2, min=0.0))
+        wh = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t], dim=-1)
+        z_axis = torch.zeros_like(wh)
+        z_axis[..., 2] = 1.0
+        return face_forward(wh, z_axis)
+
+    def invert_wh(self, wo, wh):
+        """The classic sampler's analytic inverse: wh -> u [..., 2],
+        isotropic and anisotropic."""
+        if self.sample_visible:
+            raise ValueError("invert_wh requires classic sampling")
+        ax, ay = self.alpha[..., 0], self.alpha[..., 1]
+        x, y, cos_t = wh[..., 0], wh[..., 1], wh[..., 2]
+        tan2 = 1.0 / torch.clamp(cos_t**2, min=1e-12) - 1.0
+        uy_i = torch.remainder(torch.atan2(y, x) * INV_2PI, 1.0)
+        ga_i = tan2 / torch.clamp(ax * ax, min=1e-12)
+        ux_i = ga_i / (1.0 + ga_i)
+        # sampling sets tan(phi) = (ay/ax) tan(psi), psi = 2 pi u1 + pi/2, and
+        # the arctan maps psi to the opposite quadrant of phi
+        psi = torch.atan2(ax * y, ay * x) + PI
+        uy_a = torch.remainder((psi - 0.5 * PI) * INV_2PI, 1.0)
+        r2 = torch.clamp(x * x + y * y, min=1e-24)
+        inv_a2 = (x * x / r2) / torch.clamp(ax * ax, min=1e-12) + (y * y / r2) / torch.clamp(
+            ay * ay, min=1e-12)
+        ga_a = tan2 * inv_a2
+        ux_a = ga_a / (1.0 + ga_a)
+        is_iso = ax == ay
+        return torch.stack([torch.where(is_iso, ux_i, ux_a), torch.where(is_iso, uy_i, uy_a)], -1)
+
     def pdf(self, wo, wh):
+        if not self.sample_visible:
+            return self.d(wh) * Frame.abs_cos_theta(wh)
         return (
             self.d(wh) * self.g1(wo) * torch.abs(torch.sum(wo * wh, -1))
             / torch.clamp(Frame.abs_cos_theta(wo), min=1e-12)
@@ -131,6 +185,11 @@ def f0_from_ior(ior):
 def ior_from_f0(f0):
     s = torch.sqrt(torch.clamp(f0, 0.0, 0.99))
     return (1.0 + s) / (1.0 - s)
+
+
+def fr_schlick(f0, f90, cos_theta_i):
+    c = torch.abs(torch.clamp(cos_theta_i, -1.0, 1.0))
+    return f0 + (f90 - f0) * (1.0 - c)[..., None] ** 5
 
 
 def artistic_to_conductor_fresnel(color, tint):

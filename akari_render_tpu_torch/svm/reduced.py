@@ -350,7 +350,7 @@ def bake_shading(scene):
             tab[rows, _MT_REFL:_MT_REFL + 3] = host(inner.reflectance)[rows]
             tab[rows, _MT_ALPHA] = 1.0
         elif isinstance(inner, FusedPrincipled):
-            if not {"transmission", "coat"} <= inner.static_zero:
+            if not {"transmission", "coat"} <= inner.static_zero or not inner.dist_r.sample_visible:
                 return None
             al = host(inner.dist_r.alpha)
             if not np.allclose(al[:, 0], al[:, 1]):

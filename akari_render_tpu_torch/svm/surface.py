@@ -1,22 +1,23 @@
 """Surface (BSDF) combinator tree, batched over shading lanes (port of
-akari_render_tpu/svm/surface.py, the lobes the ported shader ops build).
+akari_render_tpu/svm/surface.py).
 
 The tree structure is built in Python per shader kind; every method is a
 batched torch computation over the kind's lanes. Conventions as in the JAX
 package: local shading space with +z the shading normal; evaluate(wo, wi)
 returns (f * |cos_theta(wi)|, pdf); sample_wi returns (wi, valid).
 
-Not ported yet: PlasticBsdf, ConductorReflection, TransparentSurface and
-the combinator form of the principled BSDF (CoatedBsdf, ScaledBsdf); the
-shader ops that need them are refused at load_scene.
+Not ported: NullSurface and TransparentSurface, the JAX package's closures
+of its alpha mode. The port's alpha mode (svm/eval.py::dispatch_alpha)
+evaluates a kind straight to its alpha, so nothing builds them.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.color import luminance
 from ..core.math import Frame, cross, face_forward, normalize, orthonormal_basis, reflect, refract
 from ..core.sampling import INV_PI, PI, cos_sample_hemisphere, weighted_discrete_choice2_and_remap
-from .microfacet import TrowbridgeReitz
+from .microfacet import TrowbridgeReitz, fr_dielectric
 
 
 def z_axis_like(v):
@@ -249,6 +250,154 @@ class BsdfMixture(Surface):
 
     def ns(self, shape, device):
         return normalize(self.a.ns(shape, device) + self.b.ns(shape, device))
+
+
+class ScaledBsdf(Surface):
+    """An inner closure's response scaled by weight_fn(wo) [N, 3]."""
+
+    def __init__(self, inner: Surface, weight_fn):
+        self.inner = inner
+        self.weight_fn = weight_fn
+
+    def evaluate(self, wo, wi):
+        f, pdf = self.inner.evaluate(wo, wi)
+        return f * self.weight_fn(wo), pdf
+
+    def sample_wi(self, wo, u_select, u_sample):
+        return self.inner.sample_wi(wo, u_select, u_sample)
+
+    def albedo(self, wo):
+        return self.inner.albedo(wo) * self.weight_fn(wo)
+
+    def emission(self, wo):
+        return self.inner.emission(wo) * self.weight_fn(wo)
+
+    def roughness(self, wo, u_select):
+        return self.inner.roughness(wo, u_select)
+
+    def ns(self, shape, device):
+        return self.inner.ns(shape, device)
+
+
+class CoatedBsdf(Surface):
+    """Energy-split layering: the top lobe plus (1 - E_top) of the bottom
+    (surface/mod.rs:476-567); e_top_fn(wo) is the top's directional albedo
+    [N, 3]."""
+
+    def __init__(self, top: Surface, bottom: Surface, e_top_fn):
+        self.top = top
+        self.bottom = bottom
+        self.e_top_fn = e_top_fn
+
+    def evaluate(self, wo, wi):
+        ft, pt = self.top.evaluate(wo, wi)
+        fb, pb = self.bottom.evaluate(wo, wi)
+        eo = self.e_top_fn(wo)
+        ei = self.e_top_fn(wi)
+        p_top = torch.mean(eo, dim=-1)
+        return ft + fb * torch.minimum(1.0 - eo, 1.0 - ei), pt * p_top + pb * (1.0 - p_top)
+
+    def sample_wi(self, wo, u_select, u_sample):
+        p_top = torch.mean(self.e_top_fn(wo), dim=-1)
+        pick_top, remapped = weighted_discrete_choice2_and_remap(p_top, u_select)
+        wt, vt = self.top.sample_wi(wo, remapped, u_sample)
+        wb, vb = self.bottom.sample_wi(wo, remapped, u_sample)
+        return torch.where(pick_top[..., None], wt, wb), torch.where(pick_top, vt, vb)
+
+    def albedo(self, wo):
+        eo = self.e_top_fn(wo)
+        return self.top.albedo(wo) * eo + self.bottom.albedo(wo) * (1.0 - eo)
+
+    def emission(self, wo):
+        eo = self.e_top_fn(wo)
+        return self.top.emission(wo) * eo + self.bottom.emission(wo) * (1.0 - eo)
+
+    def roughness(self, wo, u_select):
+        p_top = torch.mean(self.e_top_fn(wo), dim=-1)
+        pick_top, remapped = weighted_discrete_choice2_and_remap(p_top, u_select)
+        return torch.where(pick_top, self.top.roughness(wo, remapped),
+                           self.bottom.roughness(wo, remapped))
+
+    def ns(self, shape, device):
+        return self.bottom.ns(shape, device)
+
+
+class ConductorReflection(MicrofacetReflection):
+    """Metal GGX lobe whose tint is all in its complex Fresnel: the albedo
+    reports F(|cos_o|), the metal's own reflectance, not the white lobe
+    colour."""
+
+    def albedo(self, wo):
+        return self.fresnel(Frame.abs_cos_theta(wo))
+
+
+def fr_dielectric_integral(eta):
+    """Hemispherical (diffuse) Fresnel reflectance Fdr(eta), the polynomial
+    fits of surface/mod.rs:1127-1144. eta: [N]."""
+    lt = eta * (eta * (eta * -0.90663979 + 2.23559031) + -2.09069066) + 0.75985009
+    inv = 1.0 / torch.clamp(eta, min=1e-6)
+    gt = inv * (inv * -1.18995376 + 0.21762732) + 0.97945724
+    return torch.where(eta == 1.0, 0.0, torch.where(eta < 1.0, lt, gt))
+
+
+class PlasticBsdf(Surface):
+    """Tungsten's rough plastic with internal scattering (ref
+    svm/surface/plastic.rs:38-178): a dielectric GGX coat over a diffuse
+    substrate scaled by the both-way Fresnel transmission (1-Fi)(1-Fo), the
+    1/eta^2 compression, the multiple-scattering compensation
+    kd/(1 - kd Fdr) and the absorption exp(-sigma_a thickness (1/cos_i +
+    1/cos_o)). The exps are torch's, which may differ from XLA's in the
+    last bit; without sigma_a (the scene graph's default) they are exp(0)."""
+
+    def __init__(self, kd, eta, roughness, sigma_a=None, thickness=None):
+        n = kd.shape[:-1]
+        dev = kd.device
+        sigma_a = torch.zeros(n + (3,), device=dev) if sigma_a is None else sigma_a
+        thickness = torch.ones(n, device=dev) if thickness is None else thickness
+        fdr = fr_dielectric_integral(eta)
+        self.substrate = DiffuseBsdf(kd / torch.clamp(1.0 - kd * fdr[..., None], min=1e-4) * INV_PI)
+        dist = TrowbridgeReitz.from_roughness(roughness)
+        self._fr = lambda c: fr_dielectric(c, eta)
+        self.coat = MicrofacetReflection(
+            torch.ones(n + (3,), device=dev),
+            lambda c: self._fr(c)[..., None] * torch.ones(3, device=c.device), dist)
+        self.eta = eta
+        self.sigma_a = sigma_a * thickness[..., None]
+        avg_transmittance = torch.exp(-2.0 * luminance(sigma_a) * thickness)
+        self.kd_weight = luminance(kd) * avg_transmittance
+
+    def _substrate_weight(self, fo):
+        w = self.kd_weight * (1.0 - fo)
+        return torch.where(w == 0.0, 0.0, w / torch.clamp(w + fo, min=1e-20))
+
+    def evaluate(self, wo, wi):
+        f_coat, pdf_coat = self.coat.evaluate(wo, wi)
+        fi = self._fr(Frame.abs_cos_theta(wi))
+        fo = self._fr(Frame.abs_cos_theta(wo))
+        a = torch.exp(-self.sigma_a * (
+            1.0 / torch.clamp(Frame.abs_cos_theta(wi), min=1e-6)
+            + 1.0 / torch.clamp(Frame.abs_cos_theta(wo), min=1e-6))[..., None])
+        f_sub, pdf_sub = self.substrate.evaluate(wo, wi)
+        scale = ((1.0 - fi) * (1.0 - fo) / torch.clamp(self.eta**2, min=1e-6))[..., None]
+        w = self._substrate_weight(fo)
+        return f_coat + f_sub * scale * a, pdf_coat * (1.0 - w) + pdf_sub * w
+
+    def sample_wi(self, wo, u_select, u_sample):
+        w = self._substrate_weight(self._fr(Frame.abs_cos_theta(wo)))
+        pick_sub, remapped = weighted_discrete_choice2_and_remap(w, u_select)
+        ws, vs = self.substrate.sample_wi(wo, remapped, u_sample)
+        wc, vc = self.coat.sample_wi(wo, remapped, u_sample)
+        return torch.where(pick_sub[..., None], ws, wc), torch.where(pick_sub, vs, vc)
+
+    def albedo(self, wo):
+        w = self._substrate_weight(self._fr(Frame.abs_cos_theta(wo)))
+        return self.coat.albedo(wo) * (1.0 - w)[..., None] + self.substrate.albedo(wo) * w[..., None]
+
+    def roughness(self, wo, u_select):
+        w = self._substrate_weight(self._fr(Frame.abs_cos_theta(wo)))
+        pick_sub, remapped = weighted_discrete_choice2_and_remap(w, u_select)
+        return torch.where(pick_sub, self.substrate.roughness(wo, remapped),
+                           self.coat.roughness(wo, remapped))
 
 
 class SurfaceClosure(Surface):

@@ -1,8 +1,9 @@
-"""Texture sampling from an atlas of 2D images (port of
-akari_render_tpu/svm/texture.py::TextureAtlas and sample_texture).
+"""Texture sampling from an atlas of 2D images and Blender-compatible
+Perlin noise in 1-4D (port of akari_render_tpu/svm/texture.py).
 
-Perlin noise is not ported yet: scenes with a noise node are refused at
-load_scene (svm/eval.py::check_kind).
+The noise's hashes are Jenkins lookup3 (Blender's hash_uint{,2,3,4}) in
+wrapping uint32 arithmetic; uint32 values live in int64 tensors masked to
+0xFFFFFFFF, as in core/pcg.py, so they are the JAX package's bit for bit.
 """
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..core.pcg import MASK32
 
 
 class TextureAtlas(NamedTuple):
@@ -79,3 +82,138 @@ def sample_texture(atlas: TextureAtlas | None, layer, uv, extension: str, interp
     c01 = fetch(x0, y0 + 1)
     c11 = fetch(x0 + 1, y0 + 1)
     return c00 * (1 - fx) * (1 - fy) + c10 * fx * (1 - fy) + c01 * (1 - fx) * fy + c11 * fx * fy
+
+
+# ---- Perlin noise, Blender-compatible 1-4D ----------------------------------
+def _rot(x, k: int):
+    return ((x << k) | (x >> (32 - k))) & MASK32
+
+
+def _jenkins_final(a, b, c):
+    c = ((c ^ b) - _rot(b, 14)) & MASK32
+    a = ((a ^ c) - _rot(c, 11)) & MASK32
+    b = ((b ^ a) - _rot(a, 25)) & MASK32
+    c = ((c ^ b) - _rot(b, 16)) & MASK32
+    a = ((a ^ c) - _rot(c, 4)) & MASK32
+    b = ((b ^ a) - _rot(a, 14)) & MASK32
+    c = ((c ^ b) - _rot(b, 24)) & MASK32
+    return a, b, c
+
+
+def _jenkins_mix(a, b, c):
+    a = ((a - c) & MASK32) ^ _rot(c, 4)
+    c = (c + b) & MASK32
+    b = ((b - a) & MASK32) ^ _rot(a, 6)
+    a = (a + c) & MASK32
+    c = ((c - b) & MASK32) ^ _rot(b, 8)
+    b = (b + a) & MASK32
+    a = ((a - c) & MASK32) ^ _rot(c, 16)
+    c = (c + b) & MASK32
+    b = ((b - a) & MASK32) ^ _rot(a, 19)
+    a = (a + c) & MASK32
+    c = ((c - b) & MASK32) ^ _rot(b, 4)
+    b = (b + a) & MASK32
+    return a, b, c
+
+
+def _init(n: int) -> int:
+    return (0xDEADBEEF + (n << 2) + 13) & MASK32
+
+
+def hash_uint(kx):
+    init = _init(1)
+    return _jenkins_final((init + kx) & MASK32, torch.full_like(kx, init),
+                          torch.full_like(kx, init))[2]
+
+
+def hash_uint2(kx, ky):
+    init = _init(2)
+    # y goes into a and x into b, as in the JAX package (hash.rs:143-155)
+    return _jenkins_final((init + ky) & MASK32, (init + kx) & MASK32,
+                          torch.full_like(kx, init))[2]
+
+
+def hash_uint3(kx, ky, kz):
+    init = _init(3)
+    return _jenkins_final((init + kx) & MASK32, (init + ky) & MASK32, (init + kz) & MASK32)[2]
+
+
+def hash_uint4(kx, ky, kz, kw):
+    init = _init(4)
+    a, b, c = _jenkins_mix((init + kx) & MASK32, (init + ky) & MASK32, (init + kz) & MASK32)
+    return _jenkins_final((a + kw) & MASK32, b, c)[2]
+
+
+def _fade(t):
+    return t * t * t * (t * (t * 6.0 - 15.0) + 10.0)
+
+
+def _negate_if(v, cond):
+    return torch.where(cond, -v, v)
+
+
+def _grad1(h, x):
+    hh = h & 15
+    g = 1.0 + (hh & 7).to(torch.float32)
+    return _negate_if(g, (hh & 8) != 0) * x
+
+
+def _grad2(h, x, y):
+    hh = h & 7
+    u = torch.where(hh < 4, x, y)
+    v = 2.0 * torch.where(hh < 4, y, x)
+    return _negate_if(u, (hh & 1) != 0) + _negate_if(v, (hh & 2) != 0)
+
+
+def _grad3(h, x, y, z):
+    hh = h & 15
+    u = torch.where(hh < 8, x, y)
+    vt = torch.where((hh == 12) | (hh == 14), x, z)
+    v = torch.where(hh < 4, y, vt)
+    return _negate_if(u, (hh & 1) != 0) + _negate_if(v, (hh & 2) != 0)
+
+
+def _grad4(h, x, y, z, w):
+    hh = h & 31
+    u = torch.where(hh < 24, x, y)
+    v = torch.where(hh < 16, y, z)
+    s = torch.where(hh < 8, z, w)
+    return (_negate_if(u, (hh & 1) != 0) + _negate_if(v, (hh & 2) != 0)
+            + _negate_if(s, (hh & 4) != 0))
+
+
+def _floor_split(x):
+    """(floor(x) as uint32 bits in int64, the fraction)."""
+    i = torch.floor(x)
+    return i.to(torch.int32).to(torch.int64) & MASK32, x - i
+
+
+def _lerp(a, b, t):
+    return a * (1 - t) + b * t
+
+
+def lattice_hashes(p, dim: int) -> list:
+    """The hash of each of the 2^dim lattice corners around p [..., dim], in
+    the order perlin_noise visits them (x fastest)."""
+    cell = [_floor_split(p[..., i])[0] for i in range(dim)]
+    fn = (hash_uint, hash_uint2, hash_uint3, hash_uint4)[dim - 1]
+    out = []
+    for corner in range(1 << dim):
+        ks = [(cell[i] + ((corner >> i) & 1)) & MASK32 for i in range(dim)]
+        out.append(fn(*ks))
+    return out
+
+
+def perlin_noise(p, dim: int = 2):
+    """Blender-compatible Perlin noise in [0, 1]. p: [..., dim]."""
+    if not 1 <= dim <= 4:
+        raise ValueError(f"perlin dim {dim} unsupported (1-4)")
+    fr = [_floor_split(p[..., i])[1] for i in range(dim)]
+    grad = (_grad1, _grad2, _grad3, _grad4)[dim - 1]
+    vals = [grad(h, *(fr[i] - ((corner >> i) & 1) for i in range(dim)))
+            for corner, h in enumerate(lattice_hashes(p, dim))]
+    # lerp along x, then y, z and w: adjacent pairs of the corner list
+    for i in range(dim):
+        t = _fade(fr[i])
+        vals = [_lerp(vals[j], vals[j + 1], t) for j in range(0, len(vals), 2)]
+    return vals[0] * (0.2500, 0.6616, 0.9820, 0.8344)[dim - 1] * 0.5 + 0.5

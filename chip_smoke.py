@@ -147,11 +147,32 @@ Phases (any failure exits non-zero; nothing is caught):
    sequential and fused, and fused-rays PT; classroom 1920x1080 at 1 spp
    with fused rays and with the split at d = 6: Mpaths/s (median and
    spread), K1's and K4's launches a sample, peak device bytes a lane, and
-   one sample of each by torch.profiler (device events, idle share).
+   one sample of each by torch.profiler (device events, idle share);
+28. spectral correctness: the cbox fixture at 64x64, 16 spp, pmj02bn, d12
+   (scenes/cbox/pt.json with "color": "spectral") and the dispersive prism
+   at 64x64, 16 spp, d12 (scenes/prism/spectral.json) through the CLI, each
+   held to phase 4's gates against the committed JAX spectral images
+   (testdata/{cbox,prism}64_spectral_spp{16,256}.npy); blinds 64^2 spectral
+   under AKR_PALLAS_SHADE=1, AKR_MEGAKERNEL=1 and AKR_PERSISTENT=1 takes
+   the pass (no K8 or K9 launch; the image bit-equal to the pass's) where
+   the RGB render takes each switch's route; the spectral functions
+   (wavelengths, the uplift, the reflectance, the CIE sensor, D65) on the
+   card against the CPU on 2^18 seeded inputs; the shader-ops fixture
+   (tests/torch_shader_scene.py: Perlin noise, plastic, metal, a
+   principled panel with every lobe, fused and combinator) at 64x64 on the
+   card against the CPU;
+29. spectral at full width: cbox 1024x1024, pmj02bn, d12, 4 spp, three
+   renders after a warm-up (Mpaths/s median and range, K1's launches a
+   sample, peak device bytes a lane), beside phase 21's RGB row of the same
+   call; classroom 1920x1080, 1 spp, d12 through the static pair sweep,
+   one render (K2-K4's launches, peak bytes a lane); prism 256x256, 16
+   spp, d12, one render; one sample each of cbox and classroom by
+   torch.profiler (device events, busy time, idle share).
 
 `python3 chip_smoke.py --only 26,27` runs the build and the listed phases
-alone (26 after phase 8's image) and prints no result line: a quick check
-of them on the card.
+alone (26 after phase 8's image; likewise `--only 28,29`, 29 then without
+phase 21's RGB row) and prints no result line: a quick check of them on
+the card.
 
 Each phase prints the seconds since the start when it ends. After the
 build it prints what the compiler gave every kernel (registers a thread,
@@ -263,6 +284,33 @@ MCMC_CHAINS_64 = 256  # the 1024^2 configuration's chains a pixel, 1/16
 # phase 25: samples of the GPT render and spp-equivalents of the MCMC one
 GPT_SPP = 2
 MCMC_SPP = 1
+# spectral transport and the last shader ops (phases 28-29)
+PRISM = ROOT / "scenes" / "prism" / "scene.json"
+PRISM_SPECTRAL = ROOT / "scenes" / "prism" / "spectral.json"
+# phase 28: seeded inputs of the spectral functions on the card and the
+# CPU: the wavelengths and the uplift's scale equal, the rest within
+# SPECTRAL_TOL of each quantity's scale (tests/test_torch_spectral.py's
+# tolerance) but the reflectance and D65 within SPECTRAL_TOL_DIV: the
+# card divides a tensor by a Python constant as a product with its rounded
+# reciprocal (the wavelength's normalised position, D65's knot index), an
+# ulp that the reflectance's polynomial slope amplifies (measured 1.19e-6)
+SPECTRAL_LANES = 1 << 18
+SPECTRAL_TOL = 1e-6
+SPECTRAL_TOL_DIV = 1e-5
+# phase 28: the shader-ops fixture on the card against the CPU: its size,
+# samples and depth, and the gate: channel means within FIXTURE_MEAN_REL,
+# all but FIXTURE_PIX_FRAC of the pixels within 1e-3 of max(1, value) (a
+# lane whose float decision flips moves its pixel)
+FIXTURE_RES = 64
+FIXTURE_SPP = 1
+FIXTURE_DEPTH = 5
+FIXTURE_MEAN_REL = 1e-3
+FIXTURE_PIX_FRAC = 0.01
+# phase 28: samples of each blinds 64^2 render under the fused tiers' switches
+SWITCH_SPP = 2
+# phase 29: timed renders of spectral cbox 1024^2 (CBOX_SPP samples each)
+SPECTRAL_RENDERS = 3
+PRISM_SPP = 16
 # the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32 outside
 # the tensor cores, and HBM bandwidth
 FP32_PEAK = 67e12
@@ -3172,6 +3220,306 @@ def pass_shapes_full_width(device):
     return found
 
 
+def spectral_correctness(device):
+    """Phase 28 (the module's docstring). Returns the launches of the two
+    spectral 64^2 renders."""
+    import numpy as np
+
+    from akari_render_tpu_torch.cli import main as cli_main
+    from akari_render_tpu_torch.core.image_io import read_exr
+
+    testdata = ROOT / "akari_render_tpu_torch" / "testdata"
+    cbox_method = method_file("cbox_spectral.json", CBOX_METHOD, color="spectral")
+    launches = {}
+    for name, scene, method in (("cbox", CBOX, cbox_method), ("prism", PRISM, PRISM_SPECTRAL)):
+        out = OUT / f"{name}64_spectral.exr"
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = cli_main(["-s", str(scene), "-m", str(method), "--res", "64", "--spp", "16",
+                          "-o", str(out), "--device", device])
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        launches[f"{name} 64^2 spectral"] = got
+        check(stats["color"] == "spectral" and stats["tier"] == "wavefront"
+              and stats["shade"] == "dispatch", f"{name} 64^2 spectral: {stats['color']}, "
+                                                f"{stats['tier']}, {stats['shade']}")
+        check(got["K1"] > 0 and all(got[k] == 0 for k in ("K2", "K3", "K4", "K5", "K7", "K8",
+                                                           "K9")),
+              f"{name} 64^2 spectral launches {got}")
+        text = image_gates(f"{name} 64^2 spectral", read_exr(out),
+                           np.load(testdata / f"{name}64_spectral_spp16.npy"),
+                           np.load(testdata / f"{name}64_spectral_spp256.npy"), MEAN_TOL, MSE_RATIO)
+        print(f"{name} 64^2 16spp d12 spectral ({wall:.2f} s CLI): {text}; launches and counts "
+              f"{got}", flush=True)
+
+    # the routes the JAX package keeps spectral renders off (pt.py:401-431,
+    # common.py:592-596), on blinds, which takes each of them in RGB
+    spectral_blinds = method_file("blinds_spectral.json", BLINDS_METHOD, color="spectral")
+    images = {}
+    for switch, rgb_route in (("", None), ("AKR_PALLAS_SHADE", "K9"), ("AKR_MEGAKERNEL", "K8"),
+                              ("AKR_PERSISTENT", "persistent")):
+        with env_switch(**({switch: "1"} if switch else {})):
+            for method in ((BLINDS_METHOD,) if switch else ()) + (spectral_blinds,):
+                spectral = method == spectral_blinds
+                out = OUT / f"blinds64_{'spectral' if spectral else 'rgb'}_{switch or 'pass'}.exr"
+                reset_launches()
+                stats = cli_main(["-s", str(BLINDS), "-m", str(method), "--res", "64", "--spp",
+                                  str(SWITCH_SPP), "-o", str(out), "--device", device])
+                got = read_launches()
+                took = {"K9": got["K9"] > 0, "K8": got["K8"] > 0,
+                        "persistent": stats["tier"] == "persistent"}
+                if spectral:
+                    images[switch] = read_exr(out)
+                    check(stats["tier"] == "wavefront" and stats["shade"] == "dispatch"
+                          and got["K8"] == got["K9"] == 0 and got["K1"] > 0,
+                          f"blinds 64^2 spectral under {switch or 'no switch'}: {stats['tier']}, "
+                          f"{stats['shade']}, launches {got}")
+                else:
+                    check(took[rgb_route], f"blinds 64^2 RGB under {switch} did not take "
+                                           f"{rgb_route}: {stats['tier']}, launches {got}")
+                print(f"blinds 64^2 {SWITCH_SPP}spp {'spectral' if spectral else 'RGB'} under "
+                      f"{switch or 'no switch'}: {stats['tier']} tier, {stats['shade']} shade, "
+                      f"K1 {got['K1']}, K8 {got['K8']}, K9 {got['K9']}", flush=True)
+    for switch, img in images.items():
+        check(np.array_equal(img, images[""]), f"blinds 64^2 spectral under {switch} differs "
+                                               f"from the pass's image")
+    spectral_functions_on_card(device)
+    shader_fixture_on_card(device)
+    return launches
+
+
+def spectral_functions_on_card(device):
+    """Phase 28: core/spectral.py on SPECTRAL_LANES seeded inputs, card
+    against the CPU."""
+    import numpy as np
+    import torch
+
+    from akari_render_tpu_torch.core import spectral as sp
+
+    rng = np.random.default_rng(28)
+    n = SPECTRAL_LANES
+    rgb = rng.uniform(0.0, 3.0, (n, 3)).astype(np.float32)
+    rgb[:256] = 0.0
+    rgb[256:1024, 0] = 0.0
+    u = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    spec = rng.uniform(0.0, 5.0, (n, 4)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", device):
+        table = sp.device_table(dev)
+        sw = sp.sample_wavelengths(torch.as_tensor(u, device=dev))
+        c, scale = sp.uplift_unbounded(table, torch.as_tensor(rgb, device=dev))
+        out[dev] = {k: v.cpu().numpy().astype(np.float64) for k, v in {
+            "wavelengths": sw.lambdas, "uplift scale": scale, "uplift coefficients": c,
+            "reflectance": sp.eval_reflectance(c, sw.lambdas), "CIE": sp.cie_xyz_bar(sw.lambdas),
+            "D65": sp.illuminant_d65(sw.lambdas),
+            "sRGB": sp.spectral_to_rgb(torch.as_tensor(spec, device=dev), sw.lambdas, sw.pdf),
+        }.items()}
+    want, got = out["cpu"], out[device]
+    xyz = np.abs(want["CIE"] * (spec / (1.0 / 470.0))[..., None]).mean(-2).max(-1, keepdims=True)
+    # (scale, tolerance); a lane's coefficients go by their largest
+    scales = {"wavelengths": (None, 0.0), "uplift scale": (None, 0.0),
+              "uplift coefficients": (np.abs(want["uplift coefficients"]).max(-1, keepdims=True),
+                                      SPECTRAL_TOL),
+              "reflectance": (1.0, SPECTRAL_TOL_DIV), "CIE": (1.0, SPECTRAL_TOL),
+              "D65": (1.0, SPECTRAL_TOL_DIV), "sRGB": (xyz, SPECTRAL_TOL)}
+    ratios = {}
+    for k, (scale, _) in scales.items():
+        if scale is None:
+            ratios[k] = 0.0 if np.array_equal(got[k], want[k]) else float("inf")
+        else:
+            ratios[k] = float(np.max(np.abs(got[k] - want[k])
+                                     / np.maximum(np.maximum(np.abs(want[k]), scale), 1e-30)))
+    print(f"spectral functions on the card against the CPU, {n} seeded inputs (largest error "
+          f"over the quantity's scale, 0 where equal): "
+          + ", ".join(f"{k} {r:.3g}" for k, r in ratios.items()), flush=True)
+    for k, (_, tol) in scales.items():
+        check(ratios[k] <= tol, f"spectral {k}: the card is {ratios[k]:.3g} of its scale from "
+                                f"the CPU (tolerance {tol:g})")
+
+
+def shader_fixture_on_card(device):
+    """Phase 28: the shader-ops fixture at FIXTURE_RES^2 on the card against
+    the CPU, with the fused and the combinator principled."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_shader_scene import write_shader_scene
+
+    from akari_render_tpu_torch.config import PTConfig
+    from akari_render_tpu_torch.integrators.pt import render_pt
+    from akari_render_tpu_torch.scene import load_scene
+
+    path = write_shader_scene(OUT, FIXTURE_RES)
+    table = load_scene(path, device=device).ggx_table_np
+    cfg = PTConfig(spp=FIXTURE_SPP, spp_per_pass=FIXTURE_SPP, max_depth=FIXTURE_DEPTH)
+    for fused in ("1", "0"):
+        imgs, secs = [], []
+        with env_switch(AKR_FUSED_PRINCIPLED=fused):
+            for dev in ("cpu", device):
+                scene = load_scene(path, device=dev, ggx_table=table)
+                check(scene.shade_bake is None, "the shader-ops fixture baked")
+                reset_launches()
+                t0 = time.perf_counter()
+                img, _ = render_pt(scene, cfg)
+                secs.append(time.perf_counter() - t0)
+                got = read_launches()
+                check((got["K1"] > 0) == (dev != "cpu") and got["K8"] == got["K9"] == 0,
+                      f"the shader-ops fixture on {dev} launched {got}")
+                imgs.append(img)
+        cpu, card = imgs
+        check(bool(np.all(np.isfinite(card))) and float(card.mean()) > 0.0,
+              "the shader-ops fixture's image on the card")
+        m_rel = float(np.max(np.abs(card.mean((0, 1)) - cpu.mean((0, 1)))
+                             / np.abs(cpu.mean((0, 1)))))
+        off = float(np.mean(np.abs(card - cpu).max(-1)
+                            > 1e-3 * np.maximum(np.abs(cpu).max(-1), 1.0)))
+        print(f"shader-ops fixture {FIXTURE_RES}^2 {FIXTURE_SPP}spp d{FIXTURE_DEPTH}, "
+              f"AKR_FUSED_PRINCIPLED={fused}: card against the CPU, means {card.mean((0, 1))} "
+              f"(max rel {m_rel:.3g}), pixels off {off:.4g}, max abs "
+              f"{float(np.abs(card - cpu).max()):.3g}; CPU {secs[0]:.2f} s, card {secs[1]:.2f} s",
+              flush=True)
+        check(m_rel <= FIXTURE_MEAN_REL and off <= FIXTURE_PIX_FRAC,
+              f"the shader-ops fixture (AKR_FUSED_PRINCIPLED={fused}) on the card differs from "
+              f"the CPU: means {m_rel:.3g}, pixels off {off:.4g}")
+
+
+def spectral_full_width(device, rgb=None):
+    """Phase 29 (the module's docstring); `rgb` is phase 21's result, the
+    RGB row of the same call. Returns the spectral launches of K1 (cbox)
+    and K2-K4 (classroom) and the printed numbers."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from akari_render_tpu_torch.config import RenderTask
+    from akari_render_tpu_torch.core.filters import filter_from_config
+    from akari_render_tpu_torch.integrators.common import PTSettings
+    from akari_render_tpu_torch.integrators.pt import render_pt, render_sample
+    from akari_render_tpu_torch.scene import load_scene
+
+    def spectral_cfg(task, spp):
+        cfg = copy.copy(task.method)
+        cfg.spp = cfg.spp_per_pass = spp
+        cfg.color = "spectral"
+        return cfg
+
+    def settings_of(task):
+        m = task.method
+        return PTSettings(max_depth=m.max_depth, rr_depth=m.rr_depth, use_nee=m.use_nee,
+                          clamp_indirect=m.clamp_indirect, color="spectral")
+
+    def checked(label, img, stats, got, kernels):
+        check(stats["color"] == "spectral" and stats["tier"] == "wavefront"
+              and stats["shade"] == "dispatch", f"{label}: {stats['tier']}, {stats['shade']}")
+        check(all(got[k] > 0 for k in kernels) and got["K8"] == got["K9"] == 0,
+              f"{label} launches {got}")
+        check(bool(np.all(np.isfinite(img))) and float(img.mean()) > 0.0, f"{label} image")
+
+    found, samples = {}, {}
+    # cbox 1024^2, pmj02bn, d12, CBOX_SPP samples a render
+    scene, task, _, filt = cbox_setup(device)
+    npix = 1024 * 1024
+    render_pt(scene, spectral_cfg(task, 1), task)  # the warm-up
+    runs = []
+    for r in range(SPECTRAL_RENDERS):
+        if r == 0:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        img, stats = render_pt(scene, spectral_cfg(task, CBOX_SPP), task)
+        got = read_launches()
+        if r == 0:
+            peak = torch.cuda.max_memory_allocated()
+        checked("cbox 1024^2 spectral", img, stats, got, ("K1",))
+        runs.append({"mpaths_s": npix * CBOX_SPP / stats["total_time"] / 1e6, "launches": got})
+    rates = sorted(r["mpaths_s"] for r in runs)
+    found["cbox"] = {"mpaths_s_median": rates[len(rates) // 2], "mpaths_s": rates,
+                     "k1_per_sample": runs[0]["launches"]["K1"] / CBOX_SPP,
+                     "peak_bytes_per_lane": peak / npix, "launches": runs[0]["launches"]}
+    print(f"cbox 1024^2 {CBOX_SPP}spp pmj02bn d12 spectral: Mpaths/s median "
+          f"{rates[len(rates) // 2]:.4f} over {SPECTRAL_RENDERS} renders ({rates[0]:.4f}-"
+          f"{rates[-1]:.4f}), K1 {found['cbox']['k1_per_sample']:g} launches a sample, peak "
+          f"device memory {peak / 2**30:.3f} GiB ({peak / npix:.0f} B a lane); launches and "
+          f"counts {runs[0]['launches']}", flush=True)
+    cbox_settings = settings_of(task)
+    samples["cbox spectral"] = lambda: render_sample(scene, cbox_settings, filt, 0, task.seed,
+                                                     task.sampler)
+
+    # classroom 1080p, 1 spp, d12, the static pair sweep
+    ctask = RenderTask.from_file(CLASSROOM_METHOD)
+    with env_switch(**TRAVERSALS["pairs-static"]):
+        cscene = load_scene(str(CLASSROOM), device=device)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        img, stats = render_pt(cscene, spectral_cfg(ctask, 1), ctask)
+        got = read_launches()
+    cpix = 1920 * 1080
+    cpeak = torch.cuda.max_memory_allocated()
+    checked("classroom 1080p spectral", img, stats, got, ("K2", "K3", "K4"))
+    check(stats["traversal"] == "pairs-static", f"classroom took {stats['traversal']}")
+    found["classroom"] = {"mpaths_s": cpix / stats["total_time"] / 1e6,
+                          "peak_bytes_per_lane": cpeak / cpix, "launches": got}
+    print(f"classroom 1920x1080 1spp d12 spectral (pairs-static): render "
+          f"{stats['total_time']:.3f} s ({cpix / stats['total_time'] / 1e6:.4f} Mpaths/s), "
+          f"K2 {got['K2']}, K3 {got['K3']}, K4 {got['K4']} launches, peak device memory "
+          f"{cpeak / 2**30:.3f} GiB ({cpeak / cpix:.0f} B a lane), image mean "
+          f"{img.mean(axis=(0, 1))}", flush=True)
+    cl_settings, cl_filt = settings_of(ctask), filter_from_config(ctask.filter_config)
+
+    def classroom_sample():
+        with env_switch(**TRAVERSALS["pairs-static"]):
+            render_sample(cscene, cl_settings, cl_filt, 0, ctask.seed, ctask.sampler)
+
+    samples["classroom spectral"] = classroom_sample
+
+    # prism at its sensor's 256^2, PRISM_SPP samples, d12, dispersion
+    ptask = RenderTask.from_file(PRISM_SPECTRAL)
+    pscene = load_scene(str(PRISM), device=device)
+    reset_launches()
+    img, stats = render_pt(pscene, spectral_cfg(ptask, PRISM_SPP), ptask)
+    got = read_launches()
+    checked("prism 256^2 spectral", img, stats, got, ("K1",))
+    check(pscene.has_dispersion, "prism has no dispersive glass")
+    ppix = pscene.camera.width * pscene.camera.height
+    m, mn = img.max(-1), img.min(-1)
+    sat = float(((m - mn) / np.maximum(m, 1e-6))[m > 0.5].mean())
+    found["prism"] = {"mpaths_s": ppix * PRISM_SPP / stats["total_time"] / 1e6, "launches": got}
+    print(f"prism {pscene.camera.width}x{pscene.camera.height} {PRISM_SPP}spp d12 spectral: "
+          f"render {stats['total_time']:.3f} s ({found['prism']['mpaths_s']:.4f} Mpaths/s), "
+          f"K1 {got['K1']} launches, image mean {img.mean(axis=(0, 1))}, mean chroma of the "
+          f"bright pixels {sat:.3f}", flush=True)
+
+    t0 = time.perf_counter()
+    events = device_events_per_call(samples, busy=True)
+    for key, (count, busy_ms) in events.items():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        samples[key]()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+        found[key.split()[0]].update(events_per_sample=count, busy_ms=busy_ms, sample_ms=wall_ms,
+                                     idle_share=1.0 - busy_ms / wall_ms)
+        print(f"{key}, one sample (torch.profiler, device activity only): {count} device events, "
+              f"device busy {busy_ms:.3f} ms; unprofiled {wall_ms:.3f} ms, device idle "
+              f"{100 * (1.0 - busy_ms / wall_ms):.1f} %", flush=True)
+    print(f"spectral profile: {time.perf_counter() - t0:.1f} s", flush=True)
+    if rgb is not None:
+        r = rgb["pmj02bn"]
+        rr = sorted(x["mpaths_s"] for x in r["runs"])
+        c = found["cbox"]
+        print(f"cbox 1024^2 pmj02bn d12, spectral against RGB (phase 21, this call): Mpaths/s "
+              f"{c['mpaths_s_median']:.4f} ({c['mpaths_s'][0]:.4f}-{c['mpaths_s'][-1]:.4f}) "
+              f"against {rr[len(rr) // 2]:.4f} ({rr[0]:.4f}-{rr[-1]:.4f}); device events a "
+              f"sample {c['events_per_sample']} against {r['launches_per_sample']} "
+              f"({c['events_per_sample'] / r['launches_per_sample']:.3f}x); busy "
+              f"{c['busy_ms']:.3f} against {r['busy_ms']:.3f} ms; idle "
+              f"{100 * c['idle_share']:.1f} against {100 * r['idle_share']:.1f} %; peak "
+              f"{c['peak_bytes_per_lane']:.0f} against {r['runs'][0]['peak_bytes_per_lane']:.0f} B "
+              f"a lane; K1 {c['k1_per_sample']:g} against "
+              f"{r['runs'][0]['k1_launches'] / CBOX_SPP:g} launches a sample", flush=True)
+    return found
+
+
 def build_all():
     """Phases 2, 6, 10 and 15: one nvcc per kernel source, started together,
     and beside them the host's pmj02 tables (core/pmj02.py, cached in
@@ -3244,6 +3592,12 @@ def main():
         if 27 in ONLY:
             pass_shapes_full_width(device)
             lap("phase 27")
+        if 28 in ONLY:
+            spectral_correctness(device)
+            lap("phase 28")
+        if 29 in ONLY:
+            spectral_full_width(device)
+            lap("phase 29")
         return
     scene = load_scene(str(SCENE), device=device)
     entry = k1_parity(scene, device)
@@ -3290,7 +3644,7 @@ def main():
     lap("phase 19 (sampler parity)")
     cbox_correctness(device)
     lap("phase 20 (cbox 64^2)")
-    cbox_full_width(device)
+    rgb_cbox = cbox_full_width(device)
     lap("phase 21 (cbox 1024^2)")
     aov_phase(device)
     lap("phase 22 (AOV)")
@@ -3304,6 +3658,10 @@ def main():
     lap("phase 26 (the pass shapes at cbox 64^2 and classroom 96^2; alpha)")
     shapes = pass_shapes_full_width(device)
     lap("phase 27 (the pass shapes at full width)")
+    spectral_launches = spectral_correctness(device)
+    lap("phase 28 (spectral cbox and prism 64^2, the routes, the functions, the shader ops)")
+    spectral = spectral_full_width(device, rgb_cbox)
+    lap("phase 29 (spectral at full width)")
 
     kernels = [entry, *pair_entries.values(), other["K5"], other["K7"], fused["K8"], fused["K9"]]
     for k in kernels:  # the new routes' traffic and launches
@@ -3312,6 +3670,13 @@ def main():
             k["pass_shapes"] = {"max_abs_err": shape_errs[name], "launches": {
                 **{r: c[name] for r, c in shape_launches.items() if c[name]},
                 **{r: v["launches"][name] for r, v in shapes.items() if v["launches"][name]}}}
+    for k in kernels:  # the spectral renders' launches
+        name = k["name"].split()[0]
+        got = {**{r: c[name] for r, c in spectral_launches.items() if c[name]},
+               **{f"{w} full width": v["launches"][name] for w, v in spectral.items()
+                  if v["launches"][name]}}
+        if got:
+            k["spectral"] = {"launches": got}
     for k in kernels:  # K6 is K4's kernel
         res = info[k["name"].split()[0].replace("K6", "K4")]
         k["registers"], k["blocks_per_sm"] = res["registers"], res["blocks_per_sm"]

@@ -833,3 +833,107 @@ def test_alpha_traversal_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
             out.append((hit.tri_id.cpu(), hit.valid.cpu(), occ.cpu()))
         for a, b in zip(*out):
             assert torch.equal(a, b), force
+
+
+def test_spectral_functions_on_card_match_cpu(cuda):
+    """The uplift, eval_reflectance, the CIE sensor and D65 on the card
+    against the CPU on 2^16 seeded inputs: the wavelengths and the uplift's
+    scale equal, the rest within 1e-6 of the quantity's scale
+    (tests/test_torch_spectral.py's tolerances) but the reflectance and D65
+    within 1e-5: the card divides a tensor by a Python constant as a
+    product with its rounded reciprocal, and the reflectance's polynomial
+    slope amplifies that ulp of the wavelength's position (chip_smoke.py
+    phase 28 measured 1.19e-6)."""
+    from akari_render_tpu_torch.core import spectral as sp
+
+    rng = np.random.default_rng(31)
+    n = 1 << 16
+    rgb = rng.uniform(0.0, 3.0, (n, 3)).astype(np.float32)
+    rgb[:64] = 0.0
+    u = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    spec = rng.uniform(0.0, 5.0, (n, 4)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        table = sp.device_table(dev)
+        sw = sp.sample_wavelengths(torch.as_tensor(u, device=dev))
+        c, s = sp.uplift_unbounded(table, torch.as_tensor(rgb, device=dev))
+        out[str(dev)] = {k: v.cpu().numpy() for k, v in {
+            "lam": sw.lambdas, "c": c, "s": s, "refl": sp.eval_reflectance(c, sw.lambdas),
+            "cmf": sp.cie_xyz_bar(sw.lambdas), "d65": sp.illuminant_d65(sw.lambdas),
+            "rgb": sp.spectral_to_rgb(torch.as_tensor(spec, device=dev), sw.lambdas, sw.pdf),
+        }.items()}
+    want, got = out["cpu"], out[str(cuda)]
+    for k in ("lam", "s"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    c_scale = np.abs(want["c"]).max(-1, keepdims=True)
+    for k, scale, tol in (("c", c_scale, 1e-6), ("refl", 1.0, 1e-5), ("cmf", 1.0, 1e-6),
+                          ("d65", 1.0, 1e-5)):
+        err = np.abs(got[k] - want[k])
+        assert np.all(err <= tol * np.maximum(np.abs(want[k]), scale)), k
+    xyz = np.abs(want["cmf"] * (spec / (1.0 / 470.0))[..., None]).mean(-2).max(-1, keepdims=True)
+    assert np.all(np.abs(got["rgb"] - want["rgb"]) <= 1e-6 * np.maximum(np.abs(want["rgb"]), xyz))
+
+
+@pytest.mark.parametrize("dim", [1, 2, 3, 4])
+def test_perlin_hashes_on_card_match_cpu(cuda, dim):
+    """Perlin noise's lattice hashes (wrapping uint32 in int64) bit-equal on
+    the card and the CPU, and the noise within 1e-6."""
+    from akari_render_tpu_torch.svm.texture import lattice_hashes, perlin_noise
+
+    p = np.random.default_rng(dim).uniform(-60.0, 60.0, (1 << 16, dim)).astype(np.float32)
+    pc, pg = torch.as_tensor(p), torch.as_tensor(p, device=cuda)
+    for a, b in zip(lattice_hashes(pc, dim), lattice_hashes(pg, dim)):
+        assert torch.equal(a, b.cpu())
+    assert float((perlin_noise(pg, dim).cpu() - perlin_noise(pc, dim)).abs().max()) <= 1e-6
+
+
+def test_spectral_render_on_card_matches_cpu(cuda, monkeypatch):
+    """cbox 16x16, 4 spp, pmj02bn, d12, spectral, on the card and on the CPU
+    (the same samples, the same GGX table): within fp-accumulation
+    tolerance (channel means within 1e-3, all but 1 % of the pixels within
+    1e-3 of max(1, its value): a lane whose float decision flips moves its
+    pixel); K1 launched on the card, K8 and K9 never, even
+    with AKR_PALLAS_SHADE=1 and AKR_MEGAKERNEL=1 set (spectral takes the
+    pass and the per-kind dispatch)."""
+    monkeypatch.setenv("AKR_PALLAS_SHADE", "1")
+    monkeypatch.setenv("AKR_MEGAKERNEL", "1")
+    task = RenderTask.from_file(ROOT / "scenes/cbox/pt.json")
+    task.method.spp = task.method.spp_per_pass = 4
+    task.method.color = "spectral"
+    cbox = ROOT / "scenes/cbox/scene.json"
+    table = load_scene(str(cbox), 16, 16, device=cuda).ggx_table_np
+    out = []
+    for dev in ("cpu", cuda):
+        before = (k1.launches, mk.launches, fs.launches)
+        img, stats = render_pt(load_scene(str(cbox), 16, 16, device=dev, ggx_table=table),
+                               task.method, task)
+        assert stats["color"] == "spectral" and stats["tier"] == "wavefront"
+        assert stats["shade"] == "dispatch"
+        assert (k1.launches > before[0]) == (dev == cuda)
+        assert (mk.launches, fs.launches) == before[1:]
+        out.append(img)
+    _card_matches_cpu(*out)
+
+
+def _card_matches_cpu(cpu, card, label=""):
+    assert np.all(np.isfinite(card)) and card.mean() > 0.0, label
+    np.testing.assert_allclose(card.mean(axis=(0, 1)), cpu.mean(axis=(0, 1)), rtol=1e-3,
+                               err_msg=label)
+    off = np.abs(card - cpu).max(-1) > 1e-3 * np.maximum(np.abs(cpu).max(-1), 1.0)
+    assert off.mean() <= 0.01, (label, off.mean())
+
+
+def test_shader_fixture_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The noise/plastic/metal/principled fixture (tests/torch_shader_scene.py)
+    at 16x16, 4 spp, d5 on the card and the CPU, with the fused and the
+    combinator principled, to the spectral cbox test's tolerance."""
+    from akari_render_tpu_torch.config import PTConfig
+    from torch_shader_scene import write_shader_scene
+
+    path = write_shader_scene(tmp_path, 16)
+    table = load_scene(path, device=cuda).ggx_table_np
+    for fused in ("1", "0"):
+        monkeypatch.setenv("AKR_FUSED_PRINCIPLED", fused)
+        out = [render_pt(load_scene(path, device=dev, ggx_table=table),
+                         PTConfig(spp=4, spp_per_pass=4, max_depth=5))[0] for dev in ("cpu", cuda)]
+        _card_matches_cpu(*out, label=f"AKR_FUSED_PRINCIPLED={fused}")

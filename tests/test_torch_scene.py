@@ -124,7 +124,13 @@ def _scene_copy(tmp_path, edit):
     return dst / "scene.json"
 
 
-def test_unported_shader_op_is_refused(tmp_path, scenes):
+def test_unported_shader_op_is_refused(tmp_path, scenes, monkeypatch):
+    """load_scene refuses a kind with an op outside svm/eval.py's
+    PORTED_OPS. Every op of the compiler is ported now (noise, which this
+    scene uses, since PR 12), so the scene loads; with noise taken out of
+    PORTED_OPS the same scene is refused."""
+    from akari_render_tpu_torch.svm import eval as t_eval
+
     _, _, table = scenes
 
     def to_noise(doc):
@@ -135,8 +141,12 @@ def test_unported_shader_op_is_refused(tmp_path, scenes):
             if n["type"] == "checkerboard":
                 n["color1"] = {"id": "noise_tex"}
 
+    path = str(_scene_copy(tmp_path, to_noise))
+    scene = t_scene.load_scene(path, 8, 8, device="cpu", ggx_table=table)
+    assert any(node[0] == "noise" for kind in scene.kinds for node in kind.nodes)
+    monkeypatch.setattr(t_eval, "PORTED_OPS", t_eval.PORTED_OPS - {"noise"})
     with pytest.raises(NotImplementedError, match="noise"):
-        t_scene.load_scene(str(_scene_copy(tmp_path, to_noise)), 8, 8, device="cpu", ggx_table=table)
+        t_scene.load_scene(path, 8, 8, device="cpu", ggx_table=table)
 
 
 def test_instanced_geometry_takes_unified_sweep(tmp_path, scenes):

@@ -29,11 +29,19 @@ Writes into akari_render_tpu_torch/testdata/, as [H, W, 3] float32:
   the 64-spp direct pass) with 256 chains (the 1024x1024 ratio of 1/16 a
   pixel) at 16 spp-equivalents, and its b and acceptance in
   cbox64_mcmc_stats.json (about 5 minutes: the mutation steps run
-  eagerly, _render_mcmc_eager_steps).
+  eagerly, _render_mcmc_eager_steps);
+- cbox64_spectral_spp{16,256}.npy (--only cbox_spectral): the cbox
+  fixture at 64x64 through scenes/cbox/pt.json with "color": "spectral"
+  (hero-wavelength transport; pmj02bn seed 0, d12) at 16 and 256 spp
+  (about 50 s for the two);
+- prism64_spectral_spp{16,256}.npy (--only prism_spectral): scenes/prism
+  at 64x64 through scenes/prism/spectral.json (spectral, the Cauchy
+  dispersion of its glass; independent seed 0, d12, Gaussian r 1.5) at 16
+  and 256 spp (about 50 s for the two).
 
 Usage:
     python tools/make_torch_port_golden.py
-        [--only matbox|classroom|blinds|cbox|cbox_gpt|cbox_mcmc]
+        [--only matbox|classroom|blinds|cbox|cbox_gpt|cbox_mcmc|cbox_spectral|prism_spectral]
 """
 from __future__ import annotations
 
@@ -61,6 +69,11 @@ AOV_SETS = {"cbox": ("matbox", 64, 2)}
 METHOD_SETS = {
     "cbox_gpt": ("gpt.json", {"spp": 4}),
     "cbox_mcmc": ("mcmc.json", {"spp": 16, "n_chains": 256}),
+}
+# spectral PT at 64x64: name -> (scene dir, method file, spp list)
+SPECTRAL_SETS = {
+    "cbox_spectral": ("cbox", "pt.json", (16, 256)),
+    "prism_spectral": ("prism", "spectral.json", (16, 256)),
 }
 
 
@@ -98,7 +111,8 @@ def _render_mcmc_eager_steps(render_mcmc, scene, task):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=sorted(SETS) + sorted(METHOD_SETS), default=None)
+    ap.add_argument("--only", choices=sorted(SETS) + sorted(METHOD_SETS) + sorted(SPECTRAL_SETS),
+                    default=None)
     args = ap.parse_args(argv)
 
     import jax
@@ -158,6 +172,20 @@ def main(argv=None):
                 {k: float(stats[k]) for k in ("b", "acceptance", "spp_total")}))
         print(f"wrote {path}: mean {np.asarray(img).mean(axis=(0, 1))} "
               f"({time.time() - t0:.1f}s)")
+    for name, (scene_dir, method, spps) in SPECTRAL_SETS.items():
+        if args.only not in (None, name):
+            continue
+        scene = load_scene(str(ROOT / "scenes" / scene_dir / "scene.json"), width=64, height=64)
+        for spp in spps:
+            task = RenderTask.from_file(ROOT / "scenes" / scene_dir / method)
+            task.method.spp = spp
+            task.method.color = "spectral"
+            t0 = time.time()
+            img, _ = render_pt(scene, task.method, task)
+            path = out_dir / f"{scene_dir}64_spectral_spp{spp}.npy"
+            np.save(path, np.asarray(img, np.float32))
+            print(f"wrote {path}: mean {np.asarray(img).mean(axis=(0, 1))} "
+                  f"({time.time() - t0:.1f}s)")
 
 
 if __name__ == "__main__":
