@@ -1,0 +1,115 @@
+"""The control of the comparison, and the sound readings it is held against,
+at a cell's own size, in one process.
+
+    python3 bench_torch/control.py --workload <cell> --seeds 1,2,3 [--control] [--jobs N]
+        [--samples S]
+
+For each seed: N checked jobs of the cell's traffic (the jobs a run checks,
+at the timed sizes), then check.compare's numbers and the tile_chi2 of the
+N jobs' mean image, one JSON line a seed. With --control the reference is
+put in the program's place, computed in the nearest precisions below the
+configuration's float32 with TF32 off: the camera rays come from the
+reference camera in TF32 (patched in for the program's ray generation),
+every kept traversal answer is the reference's TF32 cast of the same ray
+(check.control_answers), and the image is the reference path tracer's
+with TF32 traversal and bfloat16 shading (reference/render.py, "control"),
+of S samples a pixel (by default as many as the N jobs render; a run's
+image is the mean of every job of its window, a preview run's some 150). Its numbers set the limits' upper
+readings; the program's set the lower ones. Needs a CUDA device, as run.py
+does.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from bench_torch import check, harness, loop  # noqa: E402
+from bench_torch.reference import scene as ref_scene  # noqa: E402
+from bench_torch.reference.camera import directions  # noqa: E402
+
+
+def control_camera(ref):
+    """A stand-in for the program's ray generation: the reference camera in
+    TF32."""
+    import torch
+
+    def generate_rays(camera, p_film):
+        d = directions(ref.camera, p_film, "tf32").to(torch.float32)
+        o = torch.as_tensor(ref.camera.origin, dtype=torch.float32, device=p_film.device)
+        return o.expand(d.shape[0], 3), d
+
+    return generate_rays
+
+
+def readings(workload: str, seeds: list[int], control: bool, jobs: int | None,
+             device: str = "cuda", width: int | None = None, height: int | None = None,
+             out=print, samples: int | None = None) -> list[dict]:
+    import torch
+
+    spec = harness.benchmark()
+    cell = harness.cell(workload, spec)
+    conf = harness.load_config(cell["config"], spec)
+    traffic = harness.load_traffic(cell["traffic"])
+    harness.clear_route_switches()
+    prog = harness.Program(conf, device, width, height)
+    ref = ref_scene.load(harness.ROOT / conf["scene"], prog.width, prog.height)
+    spp = loop.job_spp(traffic, conf)
+    n = jobs or traffic["checked_first"]
+    traffic = dict(traffic, checked_first=n)
+    real = prog.pt.generate_rays
+    if control:
+        prog.pt.generate_rays = control_camera(ref)
+    dev = torch.device(device)
+    rows = []
+    try:
+        for seed in seeds:
+            ic = harness.Intercept(prog.scene, traffic["lanes_checked"], seed)
+            t0 = time.perf_counter()
+            warm = loop.warm_up(prog, ic, seed, spp)
+            win = loop.run_window(prog, ic, traffic, seed, 1e9, spp, max_jobs=n)
+            checked = check.control_answers(ref, win["checked"], dev) if control else win["checked"]
+            nums = check.compare(ref, checked, prog.width, prog.height, dev, prior=warm["image"])
+            if control:
+                n_img = samples or spp * n
+                mean = check.reference_image(ref, conf, prog.width, prog.height, seed + 1, dev,
+                                             "control", n_img)["mean"].cpu().numpy()
+            else:
+                n_img, mean = spp * n, check.mean_image(win["images"])
+            nums["tile_chi2"] = check.tile_chi2(
+                mean, n_img, check.reference_image(ref, conf, prog.width, prog.height, seed, dev),
+                prog.width, prog.height, conf["reference"]["tiles"])
+            row = {"workload": workload, "seed": seed, "control": control, "jobs": n,
+                   "seconds": time.perf_counter() - t0, **nums}
+            out(json.dumps(row), flush=True)
+            rows.append(row)
+    finally:
+        prog.pt.generate_rays = real
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", required=True, help="comma-separated")
+    ap.add_argument("--control", action="store_true")
+    ap.add_argument("--jobs", type=int, default=None, help="checked jobs a seed")
+    ap.add_argument("--samples", type=int, default=None,
+                    help="the control image's samples a pixel (default: the jobs')")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    readings(args.workload, [int(s) for s in args.seeds.split(",")], args.control, args.jobs,
+             samples=args.samples)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

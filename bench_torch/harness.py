@@ -1,0 +1,204 @@
+"""What the benchmark knows of a cell: its entries in BENCHMARK.json, its
+configuration, traffic and metric files (found by name), the sampler key
+each job gets from the seed, and the system under test, driven through its
+public entry `integrators.pt.render_pt`.
+
+Nothing here imports the system under test at module level: the self-check
+and the tests import this file on any machine.
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import time
+from pathlib import Path
+from types import SimpleNamespace
+
+BENCH = Path(__file__).resolve().parent
+ROOT = BENCH.parent  # the checkout: BENCHMARK.json and the system under test
+MASK32 = 0xFFFFFFFF
+TRAVERSAL_RANGE = "bench.traversal"
+
+
+def benchmark() -> dict:
+    return json.loads((ROOT / "BENCHMARK.json").read_text())
+
+
+def cell(name: str, spec: dict | None = None) -> dict:
+    spec = spec or benchmark()
+    for w in spec["workloads"]:
+        if w["name"] == name:
+            return w
+    raise SystemExit(f"no workload named {name!r} in BENCHMARK.json")
+
+
+def config_file(name: str, spec: dict | None = None) -> Path:
+    spec = spec or benchmark()
+    for c in spec["configs"]:
+        if c["name"] == name:
+            return ROOT / c["file"]
+    raise SystemExit(f"no config named {name!r} in BENCHMARK.json")
+
+
+def load_config(name: str, spec: dict | None = None) -> dict:
+    return json.loads(config_file(name, spec).read_text())
+
+
+def traffic_file(name: str) -> Path:
+    return BENCH / "traffic" / f"{name}.json"
+
+
+def load_traffic(name: str) -> dict:
+    return json.loads(traffic_file(name).read_text())
+
+
+def metric_file(name: str) -> Path:
+    return BENCH / "metrics" / f"{name}.py"
+
+
+def metric_reader(name: str):
+    """The `read(run) -> float | None` of bench_torch/metrics/<name>.py."""
+    spec = importlib.util.spec_from_file_location(f"bench_metric_{name}", metric_file(name))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def mix64(x: int) -> int:
+    """splitmix64's finaliser: a well-mixed 64-bit value of x."""
+    x &= (1 << 64) - 1
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & ((1 << 64) - 1)
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & ((1 << 64) - 1)
+    return x ^ (x >> 31)
+
+
+def job_key(seed: int, job: int) -> int:
+    """The sampler seed of job `job` of a run with --seed `seed`: 32 bits,
+    as the samplers keep their seed."""
+    return mix64(mix64(seed) ^ (job + 1) * 0x9E3779B97F4A7C15) & MASK32
+
+
+def unit_draw(seed: int, job: int, salt: int) -> float:
+    """A uniform draw in [0, 1) from (seed, job, salt)."""
+    return (mix64(job_key(seed, job) ^ mix64(salt)) >> 11) / float(1 << 53)
+
+
+def clear_route_switches() -> list[str]:
+    """Unset every AKR_* switch, so the default route runs; returns the
+    names that were set."""
+    found = sorted(k for k in os.environ if k.startswith("AKR_"))
+    for k in found:
+        del os.environ[k]
+    return found
+
+
+class Program:
+    """The system under test: the scene loaded onto `device` and one
+    render job = one render_pt call of `spp` samples of every pixel, keyed
+    by the job's sampler seed, ending with the developed image on the host."""
+
+    def __init__(self, conf: dict, device, width: int | None = None, height: int | None = None):
+        import torch
+
+        from akari_render_tpu_torch.config import PTConfig
+        from akari_render_tpu_torch.integrators import pt
+        from akari_render_tpu_torch.scene import load_scene
+
+        self.torch, self.pt, self.conf = torch, pt, conf
+        self.device = torch.device(device)
+        t0 = time.perf_counter()
+        self.scene = load_scene(str(ROOT / conf["scene"]), width or conf["width"],
+                                height or conf["height"], device=self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+        self.load_s = time.perf_counter() - t0
+        self.width, self.height = self.scene.camera.width, self.scene.camera.height
+        self.method = conf["method"]
+        self.config_cls = PTConfig
+
+    def render(self, key: int, spp: int):
+        """(image [H, W, 3] numpy float32, render_pt's stats)."""
+        m = dict(self.method, spp=spp, spp_per_pass=spp)
+        task = SimpleNamespace(filter_config=self.conf["film"]["filter"], seed=0,
+                               sampler=dict(self.conf["sampler"], seed=key))
+        return self.pt.render_pt(self.scene, self.config_cls.from_json(m), task)
+
+    def free(self):
+        """Drop the scene and every cached block of device memory."""
+        self.scene = None
+        if self.device.type == "cuda":
+            self.torch.cuda.synchronize()
+            self.torch.cuda.empty_cache()
+
+
+class Intercept:
+    """Harness-owned wrappers around the scene's public traversal methods
+    (Scene.intersect, Scene.occlude), set as instance attributes for one
+    job and removed after it. `capture` keeps, for a fixed sample of lanes
+    of each call (the same lanes for every call of one size), the rays and
+    the answers the program gave, and counts each call's live rays, all on
+    the device without a host read; `ranges` opens a profiler range named
+    TRAVERSAL_RANGE around each call."""
+
+    def __init__(self, scene, lanes: int, seed: int):
+        self.scene, self.lanes, self.seed = scene, lanes, seed
+        self.index: dict[int, object] = {}
+        self.records: list = []
+        self.live: list = []
+
+    def lane_index(self, n: int):
+        if n not in self.index:
+            import torch
+
+            g = torch.Generator(device="cpu").manual_seed(mix64(self.seed) & ((1 << 63) - 1))
+            idx = torch.randperm(n, generator=g)[:min(n, self.lanes)]
+            self.index[n] = idx.sort().values.to(self.scene.device)
+        return self.index[n]
+
+    def install(self, capture: bool, ranges: bool):
+        import torch
+
+        scene = self.scene
+        real = {"intersect": type(scene).intersect, "occlude": type(scene).occlude}
+
+        def wrap(kind):
+            def call(o, d, tmin, tmax, *args, **kw):
+                if ranges:
+                    with torch.profiler.record_function(TRAVERSAL_RANGE):
+                        out = real[kind](scene, o, d, tmin, tmax, *args, **kw)
+                else:
+                    out = real[kind](scene, o, d, tmin, tmax, *args, **kw)
+                if capture:
+                    self._keep(kind, o, d, tmin, tmax, out)
+                return out
+            return call
+
+        scene.intersect = wrap("intersect")
+        scene.occlude = wrap("occlude")
+
+    def remove(self):
+        for k in ("intersect", "occlude"):
+            self.scene.__dict__.pop(k, None)
+
+    def _keep(self, kind, o, d, tmin, tmax, out):
+        import torch
+
+        n = o.shape[0]
+        idx = self.lane_index(n)
+        tmin = torch.as_tensor(tmin, dtype=torch.float32, device=o.device).expand(n)
+        rays = torch.cat([o.expand(n, 3), d, tmin[:, None], tmax[:, None]], 1).index_select(0, idx)
+        if kind == "intersect":
+            ans = torch.stack([out.t, out.valid.to(torch.float32)], 1).index_select(0, idx)
+        else:
+            ans = out.to(torch.float32).index_select(0, idx)[:, None]
+        self.records.append((kind, n, rays, ans))
+        self.live.append((tmax > tmin).sum())
+
+    def take(self):
+        """The records of the job (moved to the host) and its live rays."""
+        recs = [(k, n, r.cpu(), a.cpu()) for k, n, r, a in self.records]
+        live = int(sum(self.live).item()) if self.live else 0
+        calls = len(self.records)
+        self.records, self.live = [], []
+        return recs, live, calls

@@ -1,0 +1,130 @@
+"""The comparison that decides `correct`, at a size a CPU test run holds.
+
+    python -m pytest bench_torch/test_checks.py -q
+
+The harness's look for a card is skipped (run.measure on the CPU, the
+kernels' plain versions, 64x64); everything else of a run is driven. A
+sound run is correct; the control (the reference in TF32 and bfloat16 in
+the program's place) and each fault a render job can have, planted
+underneath the timed path, make `correct` false.
+"""
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import pytest
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+SIZE = 64
+CELL = "cbox-pt-final"
+
+
+def measure(size: int = SIZE):
+    from bench_torch import run
+
+    return run.measure(CELL, 987654321012, 0.1, False, device="cpu", width=size, height=size,
+                       log=lambda *a, **k: None)
+
+
+def failed(out) -> list[str]:
+    return [k for k, c in out["checks"].items() if c["value"] > c["limit"]]
+
+
+def test_sound_run_is_correct():
+    out = measure()
+    assert out["correct"], out["checks"]
+
+
+def test_control_fails():
+    from bench_torch import control
+
+    rows = control.readings(CELL, [5, 6, 7], True, 2, device="cpu", width=SIZE, height=SIZE,
+                            out=lambda *a, **k: None)
+    from bench_torch import harness
+
+    limits = harness.load_config("cbox-1024-pmj02")["correct_limits"]
+    for row in rows:
+        assert any(row[k] > v for k, v in limits.items()), row
+
+
+def _zero_image(pt, monkeypatch):
+    real = pt.render_pt
+
+    def render_pt(*a, **k):  # a job that leaves its film as it found it
+        img, stats = real(*a, **k)
+        return img * 0.0, stats
+    monkeypatch.setattr(pt, "render_pt", render_pt)
+
+
+def _stale_image(pt, monkeypatch):
+    real, last = pt.render_pt, {}
+
+    def render_pt(*a, **k):  # every job returns the first job's image
+        img, stats = real(*a, **k)
+        return last.setdefault("img", img), stats
+    monkeypatch.setattr(pt, "render_pt", render_pt)
+
+
+def _half_batch(pt, monkeypatch):
+    real = pt.render_sample
+
+    def render_sample(*a, **k):  # odd lanes left out, filled with the mean of the rest
+        radiance, fw = real(*a, **k)
+        radiance = radiance.clone()
+        radiance[1::2] = radiance[0::2].mean(0)
+        return radiance, fw
+    monkeypatch.setattr(pt, "render_sample", render_sample)
+
+
+def _light_dropped(pt, monkeypatch):
+    from akari_render_tpu_torch.integrators import common
+
+    real = common.nee_light_sample
+
+    def nee_light_sample(*a, **k):  # the light that NEE brings is lost where it is sampled
+        ls = real(*a, **k)
+        return ls._replace(li=ls.li * 0.0)
+    monkeypatch.setattr(common, "nee_light_sample", nee_light_sample)
+
+
+def _hit_altered(pt, monkeypatch):
+    from akari_render_tpu_torch.accel.trace import Hit
+    from akari_render_tpu_torch.scene import Scene
+
+    real = Scene.intersect
+
+    def intersect(self, *a, **k):  # t moved by 0.1 % on every fourth lane
+        h = real(self, *a, **k)
+        t = h.t.clone()
+        t[::4] = t[::4] * 1.001
+        return Hit(t, h.tri_id, h.bary, h.valid)
+    monkeypatch.setattr(Scene, "intersect", intersect)
+
+
+def _camera_altered(pt, monkeypatch):
+    real = pt.generate_rays
+
+    def generate_rays(camera, p_film):  # every ray aimed two pixels to the right
+        return real(camera, p_film + p_film.new_tensor([2.0, 0.0]))
+    monkeypatch.setattr(pt, "generate_rays", generate_rays)
+
+
+# at 64x64 a tile holds 16 pixels of one 16-spp job: too few to see a
+# lane-level fault; at 128x128 it holds 64
+@pytest.mark.parametrize("fault,expect,size", [
+    (_zero_image, "tile_chi2", SIZE),
+    (_stale_image, "repeat_pct", SIZE),
+    (_half_batch, "tile_chi2", 2 * SIZE),
+    (_light_dropped, "tile_chi2", SIZE),
+    (_hit_altered, "hit_gap_pct", SIZE),
+    (_camera_altered, "camera_px", SIZE),
+])
+def test_fault_fails(fault, expect, size, monkeypatch):
+    from akari_render_tpu_torch.integrators import pt
+
+    fault(pt, monkeypatch)
+    out = measure(size)
+    assert not out["correct"]
+    assert expect in failed(out), out["checks"]
