@@ -36,6 +36,14 @@ of a state (take_rows) resumes bit-exactly.
 Rays go through Scene.intersect_alpha / occlude_alpha, which are
 intersect / occlude on opaque scenes.
 
+Spans and counters (stats.py): each bounce is a `bounce` span (the last
+intersect too) holding bounce.surface, .emission, .nee, .shade (with
+shade.<kind> a group), .shadow and .continue; traversal.intersect and
+traversal.occlude wrap the calls here, not Scene's methods, so a
+benchmark's own range inside them stays the innermost one. The host reads
+are read.any_live (the loop condition) and read.kind_rows (each kind's
+nonzero).
+
 Spectral transport (`spectral`: the lanes' SampledWavelengths, four hero
 wavelengths a lane): the path decisions (BSDF sampling, RR, MIS) run in
 RGB exactly as in RGB mode, while a spectral throughput beside the RGB one
@@ -57,6 +65,7 @@ from typing import Callable
 
 import torch
 
+from .. import stats
 from ..accel.trace import Hit
 from ..core.math import RAY_TMAX, dot, face_forward, offset_ray_origin
 from ..core.sampling import INV_PI, mis_weight
@@ -68,10 +77,19 @@ from ..scene import Scene
 from ..svm.surface import DiffuseBsdf, SurfaceClosure
 from .fused_shade import fused_shade, fused_shade_enabled
 
-# since the last reset: iterations of trace_paths' bounce loop, and groups
-# of lanes (one shader kind of one bounce) shaded by dispatch_shade's
-# per-kind closures; neither adds a device sync
-counts = {"bounces": 0, "dispatch_groups": 0}
+_shade_spans: list[str] = []  # "shade.<k>", the span of kind k's group
+
+
+def _shade_span(k: int) -> str:
+    while len(_shade_spans) <= k:
+        _shade_spans.append(f"shade.{len(_shade_spans)}")
+    return _shade_spans[k]
+
+
+def kind_rows(mask):
+    """The ids of the lanes where `mask` is True (a host read)."""
+    with stats.read("kind_rows"):
+        return torch.nonzero(mask).squeeze(1)
 
 
 def fuse_rays_enabled() -> bool:
@@ -161,21 +179,23 @@ def dispatch_shade(scene: Scene, si, extra: dict, fn, lanes, force_diffuse: bool
             out[key][rows] = v
 
     if force_diffuse:  # every material becomes Lambert 0.8 (pt.rs:268-280)
-        rows = torch.nonzero(lanes).squeeze(1)
-        counts["dispatch_groups"] += int(rows.numel() > 0)
-        refl = torch.full((rows.shape[0], 3), 0.8 * INV_PI, device=lanes.device)
-        frame = tuple(f[rows] for f in si["frame"])
-        closure = SurfaceClosure(DiffuseBsdf(refl), frame, si["ng"][rows])
-        scatter(rows, fn(closure, {k: v[rows] for k, v in extra.items()}))
+        rows = kind_rows(lanes)
+        stats.counts["dispatch_groups"] += int(rows.numel() > 0)
+        with stats.span("shade.diffuse"):
+            refl = torch.full((rows.shape[0], 3), 0.8 * INV_PI, device=lanes.device)
+            frame = tuple(f[rows] for f in si["frame"])
+            closure = SurfaceClosure(DiffuseBsdf(refl), frame, si["ng"][rows])
+            scatter(rows, fn(closure, {k: v[rows] for k, v in extra.items()}))
         return out
     for k in range(len(scene.kinds)):
-        rows = torch.nonzero(lanes & (si["kind"] == k)).squeeze(1)
+        rows = kind_rows(lanes & (si["kind"] == k))
         if rows.numel() == 0:
             continue
-        counts["dispatch_groups"] += 1
-        lam0 = extra["lambdas"][rows, 0] if "lambdas" in extra else None
-        closure = scene.kind_closure(si, k, rows, lambda0=lam0)
-        scatter(rows, fn(closure, {key: v[rows] for key, v in extra.items()}))
+        stats.counts["dispatch_groups"] += 1
+        with stats.span(_shade_span(k)):
+            lam0 = extra["lambdas"][rows, 0] if "lambdas" in extra else None
+            closure = scene.kind_closure(si, k, rows, lambda0=lam0)
+            scatter(rows, fn(closure, {key: v[rows] for key, v in extra.items()}))
     return out
 
 
@@ -205,7 +225,7 @@ def _emission_at(scene: Scene, si, wo, lanes):
         return ce[si["mat"].long()]
     le = torch.zeros_like(wo)
     for k in range(len(scene.kinds)):
-        rows = torch.nonzero(lanes & (si["kind"] == k)).squeeze(1)
+        rows = kind_rows(lanes & (si["kind"] == k))
         if rows.numel():
             le[rows] = scene.kind_closure(si, k, rows).emission(wo[rows])
     return le
@@ -305,14 +325,15 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
             st.update(pending_rows(n, dev, n_w if spectral is not None else 0))
 
     def intersect_live():
-        if fuse_rays:  # also lands the previous bounce's pending shadows
-            hit, occluded = fused_trace(scene, st, zeros_2n)
-            resolve_pending(st, occluded)
-            return hit
-        return scene.intersect_alpha(
-            st["ray_o"], st["ray_d"], zeros_n,
-            torch.where(st["active"], RAY_TMAX, -1.0), exclude0=st["exclude"],
-        )
+        with stats.span("traversal.intersect"):
+            if fuse_rays:  # also lands the previous bounce's pending shadows
+                hit, occluded = fused_trace(scene, st, zeros_2n)
+                resolve_pending(st, occluded)
+                return hit
+            return scene.intersect_alpha(
+                st["ray_o"], st["ray_d"], zeros_n,
+                torch.where(st["active"], RAY_TMAX, -1.0), exclude0=st["exclude"],
+            )
 
     def add_emission(depth: int, si, lane_hit, wo):
         """Surface-light hit with MIS weighting (pt.rs:230-258)."""
@@ -360,124 +381,142 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
             out["albedo"] = closure.albedo(ex["wo"])
         return out
 
+    def any_live():
+        with stats.read("any_live"):
+            return bool(torch.any(st["active"]))
+
     d_end = settings.max_depth if depth_end is None else min(depth_end, settings.max_depth)
     depth = depth_beg
-    while depth < d_end and (radiance_cb is not None or bool(torch.any(st["active"]))):
-        counts["bounces"] += 1
-        hit = intersect_live()
-        lane_hit = st["active"] & hit.valid
-        st["active"] = lane_hit
-        si = scene.surface_interaction(hit.tri_id, hit.bary)
-        wo = -st["ray_d"]
-        if depth == 0:
-            record_first_hit(hit, si, lane_hit)
-        add_emission(depth, si, lane_hit, wo)
-        if depth == 0:
-            st["base_replay"] = st["radiance"]
-            if spectral is not None:
-                st["base_replay_s"] = st["radiance_s"]
-        cur_depth = depth + 1
+    while depth < d_end and (radiance_cb is not None or any_live()):
+        with stats.span("bounce"):
+            stats.counts["bounces"] += 1
+            hit = intersect_live()
+            lane_hit = st["active"] & hit.valid
+            st["active"] = lane_hit
+            with stats.span("bounce.surface"):
+                si = scene.surface_interaction(hit.tri_id, hit.bary)
+            wo = -st["ray_d"]
+            if depth == 0:
+                record_first_hit(hit, si, lane_hit)
+            with stats.span("bounce.emission"):
+                add_emission(depth, si, lane_hit, wo)
+            if depth == 0:
+                st["base_replay"] = st["radiance"]
+                if spectral is not None:
+                    st["base_replay_s"] = st["radiance_s"]
+            cur_depth = depth + 1
 
-        sampler, u_light = sampler.next_3d()
-        ls = None
-        light_valid = torch.zeros((n,), dtype=torch.bool, device=dev)
-        if nee:
-            ls = nee_light_sample(scene, si, u_light, st["active"])
-            light_valid = ls.valid & st["active"]
-            if settings.indirect_only and cur_depth <= 1:
-                light_valid = torch.zeros_like(light_valid)
+            sampler, u_light = sampler.next_3d()
+            ls = None
+            light_valid = torch.zeros((n,), dtype=torch.bool, device=dev)
+            if nee:
+                with stats.span("bounce.nee"):
+                    ls = nee_light_sample(scene, si, u_light, st["active"])
+                    light_valid = ls.valid & st["active"]
+                    if settings.indirect_only and cur_depth <= 1:
+                        light_valid = torch.zeros_like(light_valid)
 
-        sampler, u_bsdf = sampler.next_3d()
-        extra = {"wo": wo, "u_bsdf": u_bsdf}
-        if ls is not None:
-            extra.update(ls_wi=ls.wi, ls_li=ls.li, ls_pdf=ls.pdf)
-        if spectral is not None:
-            extra["lambdas"] = lam
-        if fused:  # fused implies NEE, so ls is set
-            sh = _fused_shade_live(scene.shade_bake, si, extra, st["active"])
-        else:
-            sh = dispatch_shade(scene, si, extra, partial(shade, albedo=depth == 0), st["active"],
-                                settings.force_diffuse)
-        if not sh:  # no live lane: every output is zero
-            sh = {k: torch.zeros((n,) + s, dtype=dt, device=dev) for k, s, dt in (
-                ("wi", (3,), torch.float32), ("f", (3,), torch.float32),
-                ("pdf", (), torch.float32), ("valid", (), torch.bool),
-                ("direct", (3,), torch.float32), ("albedo", (3,), torch.float32))}
+            sampler, u_bsdf = sampler.next_3d()
+            extra = {"wo": wo, "u_bsdf": u_bsdf}
+            if ls is not None:
+                extra.update(ls_wi=ls.wi, ls_li=ls.li, ls_pdf=ls.pdf)
             if spectral is not None:
-                sh.update(direct_s=torch.zeros((n, n_w), device=dev),
-                          f_s=torch.zeros((n, n_w), device=dev),
-                          disp=torch.zeros((n,), dtype=torch.bool, device=dev))
-        if spectral is not None and dispersion:
-            # hero-wavelength dispersion: a lane that newly meets a
-            # dispersive closure (its IOR taken at lambda0) terminates its
-            # secondary wavelengths and weights the hero by their count, once
-            hero_w = torch.zeros((1, n_w), device=dev)
-            hero_w[0, 0] = float(n_w)
-            mult = torch.where((sh["disp"] & ~st["sec_dead"])[..., None], hero_w, 1.0)
-            sh["f_s"] = sh["f_s"] * mult
-            if "direct_s" in sh:
-                sh["direct_s"] = sh["direct_s"] * mult
-            st["sec_dead"] = st["sec_dead"] | sh["disp"]
-        if depth == 0:
-            st["first_albedo"] = torch.where(lane_hit[..., None], sh["albedo"],
-                                             st["first_albedo"])
+                extra["lambdas"] = lam
+            with stats.span("bounce.shade"):
+                if fused:  # fused implies NEE, so ls is set
+                    sh = _fused_shade_live(scene.shade_bake, si, extra, st["active"])
+                else:
+                    sh = dispatch_shade(scene, si, extra, partial(shade, albedo=depth == 0),
+                                        st["active"], settings.force_diffuse)
+                if not sh:  # no live lane: every output is zero
+                    sh = {k: torch.zeros((n,) + s, dtype=dt, device=dev) for k, s, dt in (
+                        ("wi", (3,), torch.float32), ("f", (3,), torch.float32),
+                        ("pdf", (), torch.float32), ("valid", (), torch.bool),
+                        ("direct", (3,), torch.float32), ("albedo", (3,), torch.float32))}
+                    if spectral is not None:
+                        sh.update(direct_s=torch.zeros((n, n_w), device=dev),
+                                  f_s=torch.zeros((n, n_w), device=dev),
+                                  disp=torch.zeros((n,), dtype=torch.bool, device=dev))
+            if spectral is not None and dispersion:
+                # hero-wavelength dispersion: a lane that newly meets a
+                # dispersive closure (its IOR taken at lambda0) terminates its
+                # secondary wavelengths and weights the hero by their count, once
+                hero_w = torch.zeros((1, n_w), device=dev)
+                hero_w[0, 0] = float(n_w)
+                mult = torch.where((sh["disp"] & ~st["sec_dead"])[..., None], hero_w, 1.0)
+                sh["f_s"] = sh["f_s"] * mult
+                if "direct_s" in sh:
+                    sh["direct_s"] = sh["direct_s"] * mult
+                st["sec_dead"] = st["sec_dead"] | sh["disp"]
+            if depth == 0:
+                st["first_albedo"] = torch.where(lane_hit[..., None], sh["albedo"],
+                                                 st["first_albedo"])
 
-        if ls is not None and fuse_rays:
-            # the next bounce's traversal (or the last intersect) lands it
-            st.update(p_ro=ls.shadow_ro, p_wi=ls.wi, p_dist=ls.shadow_dist, p_valid=light_valid,
-                      p_contrib=st["beta"] * sh["direct"],
-                      p_ex0=si["tri_id"].to(torch.int32), p_ex1=ls.dest_tri)
-            if spectral is not None:
-                st["p_contrib_s"] = st["beta_s"] * sh["direct_s"]
-        elif ls is not None:
-            occluded = scene.occlude_alpha(
-                ls.shadow_ro, ls.wi, zeros_n, torch.where(light_valid, ls.shadow_dist, -1.0),
-                exclude0=si["tri_id"].to(torch.int32), exclude1=ls.dest_tri,
-            )
-            direct_ok = light_valid & ~occluded
-            contrib = st["beta"] * sh["direct"]
-            st["radiance"] = st["radiance"] + torch.where(direct_ok[..., None], contrib, 0.0)
-            if spectral is not None:
-                st["radiance_s"] = st["radiance_s"] + torch.where(
-                    direct_ok[..., None], st["beta_s"] * sh["direct_s"], 0.0)
-            if radiance_cb is not None:
-                radiance_cb(cur_depth, "nee", contrib, direct_ok)
+            if ls is not None and fuse_rays:
+                # the next bounce's traversal (or the last intersect) lands it
+                st.update(p_ro=ls.shadow_ro, p_wi=ls.wi, p_dist=ls.shadow_dist,
+                          p_valid=light_valid, p_contrib=st["beta"] * sh["direct"],
+                          p_ex0=si["tri_id"].to(torch.int32), p_ex1=ls.dest_tri)
+                if spectral is not None:
+                    st["p_contrib_s"] = st["beta_s"] * sh["direct_s"]
+            elif ls is not None:
+                with stats.span("bounce.shadow"):
+                    with stats.span("traversal.occlude"):
+                        occluded = scene.occlude_alpha(
+                            ls.shadow_ro, ls.wi, zeros_n,
+                            torch.where(light_valid, ls.shadow_dist, -1.0),
+                            exclude0=si["tri_id"].to(torch.int32), exclude1=ls.dest_tri,
+                        )
+                    direct_ok = light_valid & ~occluded
+                    contrib = st["beta"] * sh["direct"]
+                    st["radiance"] = st["radiance"] + torch.where(direct_ok[..., None], contrib,
+                                                                  0.0)
+                    if spectral is not None:
+                        st["radiance_s"] = st["radiance_s"] + torch.where(
+                            direct_ok[..., None], st["beta_s"] * sh["direct_s"], 0.0)
+                    if radiance_cb is not None:
+                        radiance_cb(cur_depth, "nee", contrib, direct_ok)
 
-        # continue the path (pt.rs:778-866)
-        sample_ok = sh["valid"] & (sh["pdf"] > 0.0) & (torch.min(sh["f"], -1).values >= 0.0)
-        st["active"] = st["active"] & sample_ok
-        st["beta"] = st["beta"] * torch.where(
-            st["active"][..., None], sh["f"] / torch.clamp(sh["pdf"], min=1e-20)[..., None], 1.0
-        )
-        if spectral is not None:
-            st["beta_s"] = st["beta_s"] * torch.where(
-                st["active"][..., None], sh["f_s"] / torch.clamp(sh["pdf"], min=1e-20)[..., None],
-                1.0)
-        # russian roulette (pt.rs:210-224, 843-850)
-        sampler, u_rr = sampler.next_1d()
-        if cur_depth > settings.rr_depth:
-            cont_prob = torch.clamp(torch.max(st["beta"], -1).values, 0.0, 1.0) * 0.95
-        else:
-            cont_prob = torch.ones((n,), device=dev)
-        st["active"] = st["active"] & (u_rr < cont_prob)
-        st["beta"] = st["beta"] / torch.clamp(cont_prob, min=1e-20)[..., None]
-        if spectral is not None:
-            st["beta_s"] = st["beta_s"] / torch.clamp(cont_prob, min=1e-20)[..., None]
-        st["prev_bsdf_pdf"] = sh["pdf"]
-        st["ray_o"] = offset_ray_origin(si["p"], face_forward(si["ng"], sh["wi"]))
-        st["ray_d"] = sh["wi"]
-        st["exclude"] = si["tri_id"].to(torch.int32)
+            # continue the path (pt.rs:778-866)
+            with stats.span("bounce.continue"):
+                sample_ok = (sh["valid"] & (sh["pdf"] > 0.0)
+                             & (torch.min(sh["f"], -1).values >= 0.0))
+                st["active"] = st["active"] & sample_ok
+                st["beta"] = st["beta"] * torch.where(
+                    st["active"][..., None], sh["f"] / torch.clamp(sh["pdf"], min=1e-20)[..., None],
+                    1.0)
+                if spectral is not None:
+                    st["beta_s"] = st["beta_s"] * torch.where(
+                        st["active"][..., None],
+                        sh["f_s"] / torch.clamp(sh["pdf"], min=1e-20)[..., None], 1.0)
+                # russian roulette (pt.rs:210-224, 843-850)
+                sampler, u_rr = sampler.next_1d()
+                if cur_depth > settings.rr_depth:
+                    cont_prob = torch.clamp(torch.max(st["beta"], -1).values, 0.0, 1.0) * 0.95
+                else:
+                    cont_prob = torch.ones((n,), device=dev)
+                st["active"] = st["active"] & (u_rr < cont_prob)
+                st["beta"] = st["beta"] / torch.clamp(cont_prob, min=1e-20)[..., None]
+                if spectral is not None:
+                    st["beta_s"] = st["beta_s"] / torch.clamp(cont_prob, min=1e-20)[..., None]
+                st["prev_bsdf_pdf"] = sh["pdf"]
+                st["ray_o"] = offset_ray_origin(si["p"], face_forward(si["ng"], sh["wi"]))
+                st["ray_d"] = sh["wi"]
+                st["exclude"] = si["tri_id"].to(torch.int32)
         depth += 1
     if not finalize:
         return {**st, "sampler": sampler}
 
     # last iteration: intersect plus surface emission only (depth == max_depth)
-    hit = intersect_live()
-    lane_hit = st["active"] & hit.valid
-    si = scene.surface_interaction(hit.tri_id, hit.bary)
-    if settings.max_depth == 0:
-        record_first_hit(hit, si, lane_hit)
-    add_emission(settings.max_depth, si, lane_hit, -st["ray_d"])
+    with stats.span("bounce"):
+        hit = intersect_live()
+        lane_hit = st["active"] & hit.valid
+        with stats.span("bounce.surface"):
+            si = scene.surface_interaction(hit.tri_id, hit.bary)
+        if settings.max_depth == 0:
+            record_first_hit(hit, si, lane_hit)
+        with stats.span("bounce.emission"):
+            add_emission(settings.max_depth, si, lane_hit, -st["ray_d"])
 
     if spectral is not None:  # the clamp acts on the spectrum, then the sensor
         radiance = spectral_to_rgb(

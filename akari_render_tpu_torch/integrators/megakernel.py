@@ -514,7 +514,7 @@ def render_pt_megakernel(scene, config, task=None, progress_cb=None, session=Non
     from ..core.filters import filter_from_config
     from ..stats import RenderStats
     from .common import PTSettings
-    from .pt import _sync
+    from .pt import _sync, to_host
 
     width, height = scene.camera.width, scene.camera.height
     filt = filter_from_config(task.filter_config if task else None)
@@ -547,5 +547,5 @@ def render_pt_megakernel(scene, config, task=None, progress_cb=None, session=Non
         if session.save_stats:
             render_stats.write(session)
     film = Film(accum=acc[:3].T.contiguous(), weight=acc[3].contiguous())
-    img = develop(film, width, height).cpu().numpy().astype(np.float32)
+    img = to_host(develop(film, width, height))
     return img, stats

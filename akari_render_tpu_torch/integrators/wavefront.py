@@ -40,9 +40,9 @@ from __future__ import annotations
 
 import time
 
-import numpy as np
 import torch
 
+from .. import stats as akr_stats
 from ..camera import generate_rays
 from ..config import PTConfig
 from ..core.color import remove_nan
@@ -55,10 +55,10 @@ from ..core.sampling import mis_weight
 from ..lights import pdf_direct
 from ..scene import Scene
 from .common import (
-    PTSettings, _emission_at, clamp_radiance, counts, dispatch_shade, fused_trace,
+    PTSettings, _emission_at, clamp_radiance, dispatch_shade, fused_trace,
     nee_light_sample, pending_rows, resolve_pending, uses_fused_rays,
 )
-from .pt import lane_cap
+from .pt import _sync, lane_cap, to_host
 
 # a refill runs once this share of the pool is dead
 REFILL_DEAD_SHARE = 0.25
@@ -286,8 +286,9 @@ def render_pt_wavefront(scene: Scene, config: PTConfig, task=None, progress_cb=N
             dead = dead & ~lanes["p_valid"]
         pending = lanes["p_valid"].sum() if fused else torch.zeros((), dtype=torch.int64,
                                                                    device=scene.device)
-        n_active, n_dead, n_pending = torch.stack(
-            [lanes["active"].sum(), dead.sum(), pending]).tolist()  # the one host read
+        with akr_stats.read("pool_live"):  # the one host read
+            n_active, n_dead, n_pending = torch.stack(
+                [lanes["active"].sum(), dead.sum(), pending]).tolist()
         if qhead >= total and n_active == 0 and n_pending == 0:
             break
         if n_dead >= REFILL_DEAD_SHARE * pool or qhead == 0:
@@ -296,12 +297,11 @@ def render_pt_wavefront(scene: Scene, config: PTConfig, task=None, progress_cb=N
             qhead = min(qhead + n_dead, total)
             stats["refills"] += 1
         lanes = _bounce_perlane(scene, settings, lanes, fused)
-        counts["bounces"] += 1
+        akr_stats.counts["bounces"] += 1
         stats["bounces"] += 1
     # the lanes that died on the last bounce
     _retire(settings, film, lanes, ~lanes["active"] & (lanes["pix"] >= 0))
-    if scene.device.type == "cuda":
-        torch.cuda.synchronize(scene.device)
+    _sync(scene.device)
     stats["total_time"] = time.time() - t0
     stats["spp_total"] = config.spp
     stats["time"].append(stats["total_time"])
@@ -309,10 +309,8 @@ def render_pt_wavefront(scene: Scene, config: PTConfig, task=None, progress_cb=N
     if progress_cb is not None:
         progress_cb(config.spp, config.spp, stats)
     if session is not None and session.save_stats:
-        from ..stats import RenderStats
-
-        render_stats = RenderStats()
+        render_stats = akr_stats.RenderStats()
         render_stats.record(stats["total_time"], stats["spp_total"])
         render_stats.write(session)
-    img = develop(film, width, height).cpu().numpy().astype(np.float32)
+    img = to_host(develop(film, width, height))
     return img, stats

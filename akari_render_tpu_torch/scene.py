@@ -43,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import stats
 from .accel.cluster import build_clusters
 from .accel.flatten import TriangleSoup, flatten_scene, local_mesh_arrays
 from .accel.instanced import (
@@ -215,7 +216,9 @@ class Scene:
         for k in range(len(self.kinds)):
             if self.kind_alpha is not None and not self.kind_alpha[k]:
                 continue
-            rows = torch.nonzero(hit.valid & (si["kind"] == k)).squeeze(1)
+            mask = hit.valid & (si["kind"] == k)
+            with stats.read("alpha_rows"):
+                rows = torch.nonzero(mask).squeeze(1)
             if rows.numel():
                 sub = {key: si[key][rows] for key in ("mat", "uv", "p", "ng")}
                 sub["frame"] = tuple(f[rows] for f in si["frame"])
@@ -238,8 +241,9 @@ class Scene:
         hit = self.intersect(o, d, tmin, tmax, exclude0, exclude1)
         reject = self._alpha_reject(hit)
         for _ in range(self.MAX_ALPHA_RESTARTS):
-            if not bool(torch.any(reject)):
-                break
+            with stats.read("alpha_any"):
+                if not bool(torch.any(reject)):
+                    break
             rehit = self.intersect(o, d, torch.where(reject, hit.t, tmin),
                                    torch.where(reject, tmax, -1.0), exclude0, exclude1,
                                    exclude2=hit.tri_id)

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import stats
 from ..core.color import convert_colorspace, srgb_to_linear
 from ..core.math import Frame
 from ..core.sampling import INV_PI
@@ -329,8 +330,10 @@ class _Evaluator:
         roughness = self.f(node[2])
         shape = roughness.shape + (3,)
         dev = roughness.device
-        n_c = torch.tensor(n_rgb, dtype=torch.float32, device=dev).expand(shape)
-        k_c = torch.tensor(k_rgb, dtype=torch.float32, device=dev).expand(shape)
+        with stats.read("metal_ior"):  # copies to the device: stream syncs
+            n_c = torch.tensor(n_rgb, dtype=torch.float32, device=dev).expand(shape)
+        with stats.read("metal_ior"):
+            k_c = torch.tensor(k_rgb, dtype=torch.float32, device=dev).expand(shape)
         return ConductorReflection(torch.ones(shape, device=dev),
                                    lambda c: fr_complex(c, n_c, k_c),
                                    TrowbridgeReitz.from_roughness(roughness))
@@ -378,7 +381,8 @@ class _Evaluator:
             coat_tint=self.color(inp["coat_tint"]),
         )
         # tangent-space normal input: x/y negated (principled.rs:200-215)
-        sign = torch.tensor([-1.0, -1.0, 1.0], device=color.device)
+        with stats.read("normal_sign"):  # a copy to the device: a stream sync
+            sign = torch.tensor([-1.0, -1.0, 1.0], device=color.device)
         return normal_map(bsdf, self.f3(inp["normal"]) * sign, ctx.ng, ctx.frame)
 
 
@@ -391,7 +395,9 @@ def _albedo_fn(ctx: EvalContext, roughness, eta, roughness_c=None, eta_c=None):
 
     if roughness_c is not None and eta_c is not None:
         zc = math.sqrt(abs((eta_c - 1.0) / (eta_c + 1.0)))
-        curve = torch.as_tensor(albedo_curve_np(ctx.table_np, roughness_c, zc), device=roughness.device)
+        curve_np = albedo_curve_np(ctx.table_np, roughness_c, zc)
+        with stats.read("albedo_curve"):  # a copy to the device: a stream sync
+            curve = torch.as_tensor(curve_np, device=roughness.device)
         return lambda cos: curve_eval(curve, cmap(cos))
     z = torch.sqrt(torch.abs((eta - 1.0) / (eta + 1.0)))
     cell = {}

@@ -2236,8 +2236,8 @@ def blinds_correctness(device):
 def reset_launches():
     """Every kernel's launch count, and the bounce loop's counts, to 0."""
     from akari_render_tpu_torch.accel import intersect as k1
+    from akari_render_tpu_torch import stats
     from akari_render_tpu_torch.accel import pairs, wide
-    from akari_render_tpu_torch.integrators import common
     from akari_render_tpu_torch.integrators import fused_shade as fs
     from akari_render_tpu_torch.integrators import megakernel as mk
 
@@ -2245,18 +2245,18 @@ def reset_launches():
     for counts in (pairs.launches, wide.launches):
         for k in counts:
             counts[k] = 0
-    common.counts.update(bounces=0, dispatch_groups=0)
+    stats.counts.update(bounces=0, dispatch_groups=0)
 
 
 def read_launches() -> dict:
     from akari_render_tpu_torch.accel import intersect as k1
+    from akari_render_tpu_torch import stats
     from akari_render_tpu_torch.accel import pairs, wide
-    from akari_render_tpu_torch.integrators import common
     from akari_render_tpu_torch.integrators import fused_shade as fs
     from akari_render_tpu_torch.integrators import megakernel as mk
 
     return {"K1": k1.launches, **pairs.launches, **wide.launches, "K8": mk.launches,
-            "K9": fs.launches, **common.counts}
+            "K9": fs.launches, **stats.counts}
 
 
 def device_events_per_call(calls: dict, windows: int = 6, busy: bool = False) -> dict:
@@ -2292,10 +2292,12 @@ def device_events_per_call(calls: dict, windows: int = 6, busy: bool = False) ->
             pad_profiler_window()
         t1 = time.perf_counter()
         # the raw kineto records: prof.events() would first build the
-        # profiler's Python event tree over every record
+        # profiler's Python event tree over every record; the program's
+        # spans (annotations on the device's timeline) are no device work
         events = sorted((e.start_ns(), e.name(), e.duration_ns())
                         for e in prof.profiler.kineto_results.events()
-                        if e.device_type() == torch.autograd.DeviceType.CUDA)
+                        if e.device_type() == torch.autograd.DeviceType.CUDA
+                        and not e.is_user_annotation())
         head, counts, busy_ns = 0, [], []
         for _, name, dur in events:
             if "spin_kernel" in name:

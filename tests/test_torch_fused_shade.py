@@ -16,6 +16,7 @@ from akari_render_tpu.integrators.pallas_shade import pallas_shade
 from akari_render_tpu.integrators.pt import render_pt as j_render_pt
 from akari_render_tpu.scene import load_scene as j_load_scene
 from akari_render_tpu.svm.precompute import get_table as j_get_table
+from akari_render_tpu_torch import stats as akr_stats
 from akari_render_tpu_torch.config import RenderTask
 from akari_render_tpu_torch.core.sampling import mis_weight
 from akari_render_tpu_torch.integrators import common
@@ -147,10 +148,10 @@ def test_routed_render_matches_jax(table, monkeypatch):
     jimg = np.asarray(j_render_pt(j_load_scene(str(BLINDS), 16, 16), jtask.method, jtask)[0])
     monkeypatch.setenv("AKR_PALLAS_SHADE", "1")
     ts = load_scene(str(BLINDS), 16, 16, device="cpu", ggx_table=table)
-    common.counts.update(bounces=0, dispatch_groups=0)
+    akr_stats.counts.update(bounces=0, dispatch_groups=0)
     timg, stats = render_pt(ts, task.method, task)
     assert stats["shade"] == "fused (K9)" and stats["tier"] == "wavefront"
-    assert common.counts["bounces"] > 0 and common.counts["dispatch_groups"] == 0
+    assert akr_stats.counts["bounces"] > 0 and akr_stats.counts["dispatch_groups"] == 0
     assert np.all(np.isfinite(timg)) and os.environ["AKR_PALLAS_SHADE"] == "1"
     np.testing.assert_allclose(timg.mean(axis=(0, 1)), jimg.mean(axis=(0, 1)), rtol=0.01)
     rel = np.abs(timg - jimg) / np.maximum(np.abs(jimg), 1e-3)
@@ -168,6 +169,6 @@ def test_switch_off_and_force_diffuse_take_dispatch(table, monkeypatch):
     assert render_pt(ts, task.method, task)[1]["shade"] == "dispatch"
     monkeypatch.setenv("AKR_PALLAS_SHADE", "1")
     task.method.force_diffuse = True
-    common.counts.update(bounces=0, dispatch_groups=0)
+    akr_stats.counts.update(bounces=0, dispatch_groups=0)
     assert render_pt(ts, task.method, task)[1]["shade"] == "dispatch"
-    assert common.counts["bounces"] > 0 and common.counts["dispatch_groups"] > 0
+    assert akr_stats.counts["bounces"] > 0 and akr_stats.counts["dispatch_groups"] > 0

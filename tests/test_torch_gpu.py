@@ -937,3 +937,40 @@ def test_shader_fixture_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
         out = [render_pt(load_scene(path, device=dev, ggx_table=table),
                          PTConfig(spp=4, spp_per_pass=4, max_depth=5))[0] for dev in ("cpu", cuda)]
         _card_matches_cpu(*out, label=f"AKR_FUSED_PRINCIPLED={fused}")
+
+
+def test_syncs_on_card_only_at_read_sites(cuda):
+    """One cbox 1024^2 job of one sample (scenes/cbox/pt.json: pmj02bn, d12,
+    the per-kind dispatch) under torch.cuda's sync debug mode, with the
+    program's spans on (a host profiler collects): every sync it flags
+    happens inside a read.* span, and host_reads counts each."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from akari_render_tpu_torch import stats
+
+    scene = load_scene(str(ROOT / "scenes/cbox/scene.json"), device=cuda)
+    task = RenderTask.from_file(ROOT / "scenes/cbox/pt.json")
+    task.method.spp = task.method.spp_per_pass = 1
+    render_pt(scene, task.method, task)  # tables and kernels built
+    torch.cuda.synchronize()
+    flagged = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            flagged.append(stats._stack[-1].name if stats._stack else None)
+
+    stats.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                render_pt(scene, task.method, task)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    outside = [n for n in flagged if n is None or not n.startswith("read.")]
+    assert flagged and not outside, outside
+    assert len(flagged) <= stats.snapshot()["counts"]["host_reads"]

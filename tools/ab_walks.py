@@ -105,7 +105,7 @@ def span(fn, n, kernel):
         torch.cuda.synchronize()
         pad()
     ev = sorted((e.start_ns(), e.duration_ns(), e.name()) for e in prof.profiler.kineto_results.events()
-                if e.device_type() == torch.autograd.DeviceType.CUDA)
+                if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation())
     marks = [i for i, e in enumerate(ev) if "spin_kernel" in e[2]]
     if len(marks) != 2:
         return None, None, None

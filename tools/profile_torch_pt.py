@@ -3,7 +3,8 @@ time goes, on matbox (flat tier, K1), classroom (cluster tier and
 instancing: K2-K4, with AKR_WIDE=1 the wide-BVH walk K7, with
 AKR_PAIRS_STATIC=0 the windowed walk K2, K5 and K4) or blinds (flat tier; with AKR_PALLAS_SHADE=1 the
 fused shade K9 shades each bounce, with AKR_MEGAKERNEL=1 each sample is
-one pass of the path megakernel K8).
+one pass of the path megakernel K8) or cbox (the benchmark's scene: flat
+tier, one principled kind, pmj02bn).
 
 Renders a warm-up sample, then `--spp` samples under torch.profiler (CPU
 and CUDA activities), and reports the wall time per sample, the device's
@@ -11,17 +12,19 @@ busy and idle share, each hand-written kernel's share of the busy time
 and the sorts' share, the kernel launch count, and the top device kernels.
 A second, unprofiled sample brackets every Scene.intersect / occlude call
 with device synchronisations and reports the traversal layer's share of
-the wall time. With AKR_PALLAS_SHADE=1 it also splits the shade of each
-bounce (the bounce loop's `_fused_shade_live`, in a profiler range) into
-device time of the K9 kernel, of gathers, of fills and scatters, and of the
-rest (nonzero), per bounce. `--root` profiles the package of another
-checkout (e.g. a parent unpacked with `git archive`). The full tables go
-to `--out`.
+the wall time. It splits the shade of each bounce (the program's
+bounce.shade span: the per-kind dispatch, or K9 with AKR_PALLAS_SHADE=1)
+into device time of the K9 kernel, of gathers, of fills and scatters, and
+of the rest (nonzero), per bounce, and prints the program's span table
+(host ms a sample, total and self; device ms a sample, by the spans open
+at each record's launch) and counters (akari_render_tpu_torch.stats). `--root` profiles the package of another checkout (e.g. a parent
+unpacked with `git archive`; one without the spans reports neither). The
+full tables go to `--out`.
 
 Usage:
     [AKR_PALLAS_SHADE=1 | AKR_MEGAKERNEL=1 | AKR_WIDE=1 | AKR_PAIRS_STATIC=0]
     python tools/profile_torch_pt.py
-        [--scene matbox|classroom|blinds] [--res N] [--spp 2]
+        [--scene matbox|classroom|blinds|cbox] [--res N] [--spp 2]
         [--out build/profile_torch_pt.txt] [--root CHECKOUT]
 """
 from __future__ import annotations
@@ -42,49 +45,106 @@ KERNELS = {"K1": "flat_kernel", "K2": "cull_kernel", "K3": "refine_walk_kernel",
            "K8": "megakernel", "K9": "fused_shade_kernel"}
 
 
-# the profiler range around each call of the bounce loop's fused shade
-SHADE_RANGE = "fused shade (K9) call"
+# the program's span around each bounce's shade (akari_render_tpu_torch.stats)
+SHADE_SPAN = "bounce.shade"
 
 
-def shade_split(events, spp: int) -> dict:
-    """The device time of the shade's calls (SHADE_RANGE, on path B), a
-    bounce, split by kind of kernel: K9 itself, gathers (index), fills and
-    scatters (fill, index_put, scatter), the rest (nonzero and its
-    copies); with the calls a sample and their device events a call. A
-    kernel belongs to a call when it starts inside the call's range on the
-    device's timeline (the profiler's annotation of the range there): K9
-    launches through ctypes, which the profiler ties to no operator."""
-    cuda = torch_device_events(events)
-    spans = [(e.time_range.start, e.time_range.end) for e in cuda if e.name == SHADE_RANGE]
-    if not spans:
+def launched_in(kineto_events):
+    """Each device record of a profile (kernels, copies, fills; no
+    annotations) with the program spans open on the host when it was
+    launched: the host's runtime call that shares the record's correlation
+    id gives the launch time. A span's own annotation on the device's
+    timeline holds only the records launched directly inside it (the
+    profiler gives a record to the innermost range alone), so it would
+    miss the kernels of the spans and operators nested in it. Records
+    whose launch the profile lacks get the spans whose device annotation
+    they start in."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    dev, host, notes, launch = [], [], [], {}
+    for e in kineto_events:
+        start, end = e.start_ns(), e.start_ns() + e.duration_ns()
+        if e.device_type() == cuda:
+            (notes if e.is_user_annotation() else dev).append((start, end, e.name(),
+                                                               e.correlation_id()))
+        elif e.is_user_annotation():
+            host.append((start, end, e.name()))
+        elif e.name().startswith("cu"):
+            launch[e.correlation_id()] = start
+    host.sort()
+    out, stack, k = [], [], 0
+    linked = sorted((launch[r[3]], r) for r in dev if r[3] in launch)
+    for t, r in linked:
+        while k < len(host) and host[k][0] <= t:
+            stack.append(host[k])
+            k += 1
+        stack = [h for h in stack if h[1] > t]
+        out.append((r, [h[2] for h in stack]))
+    for r in dev:
+        if r[3] not in launch:
+            out.append((r, [n[2] for n in notes if n[0] <= r[0] < n[1]]))
+    return out, len(dev) - len(linked), len([h for h in host if h[2] == SHADE_SPAN])
+
+
+def device_ms_by_span(launched, spp: int) -> dict:
+    """Device ms a sample of each program span, the spans opened inside it
+    included (records that overlap count in full)."""
+    total = {}
+    for (s, e, _, _), names in launched:
+        for n in set(names):
+            total[n] = total.get(n, 0) + e - s
+    return {n: ns / 1e6 / spp for n, ns in sorted(total.items(), key=lambda kv: -kv[1])}
+
+
+def shade_split(launched, calls: int, spp: int) -> dict:
+    """The device time of the shade's calls (SHADE_SPAN), a bounce, split
+    by kind of kernel: K9 itself, gathers (index), fills and scatters
+    (fill, index_put, scatter), the rest (nonzero and its copies); with the
+    calls a sample and their device events a call. A record belongs to a
+    call when the call's span was open on the host at its launch."""
+    if not calls:
         return {}
     split = {"kernel": 0.0, "gathers": 0.0, "fills_scatters": 0.0, "rest": 0.0}
     n_kernels = 0
-    for e in cuda:
-        if e.name == SHADE_RANGE or not any(a <= e.time_range.start < b for a, b in spans):
+    for (s, e, name, _), names in launched:
+        if SHADE_SPAN not in names:
             continue
         n_kernels += 1
-        name = e.name.lower()
+        name = name.lower()
         kind = ("kernel" if "fused_shade_kernel" in name
                 else "fills_scatters" if any(w in name for w in ("fill", "index_put", "scatter"))
                 else "gathers" if "index" in name else "rest")
-        split[kind] += e.time_range.elapsed_us() / 1e3
-    calls = len(spans)
+        split[kind] += (e - s) / 1e6
     return {"shade_calls_per_sample": calls / spp, "shade_device_events_per_call": n_kernels / calls,
             **{f"shade_{k}_device_ms_per_bounce": v / calls for k, v in split.items()}}
 
 
 def torch_device_events(events):
-    """The device-side records of a profile: kernels, copies, fills, and
-    the ranges' annotations on the device's timeline."""
+    """The device work of a profile: kernels, copies, fills, without the
+    spans' annotations on the device's timeline."""
     import torch
 
-    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+
+
+def span_table(spp: int) -> dict:
+    """The program's span table as host ms a sample (total, self) and
+    calls a sample, and its counters; {} for a package without them."""
+    from akari_render_tpu_torch import stats
+
+    if not hasattr(stats, "snapshot"):
+        return {}
+    snap = stats.snapshot()
+    return {"spans": {k: {"calls": c / spp, "ms": t / 1e6 / spp, "self_ms": s / 1e6 / spp}
+                      for k, (c, t, s) in sorted(snap["spans"].items(), key=lambda kv: -kv[1][1])},
+            "counts": snap["counts"]}
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("matbox", "classroom", "blinds"), default="matbox")
+    ap.add_argument("--scene", choices=("matbox", "classroom", "blinds", "cbox"), default="matbox")
     ap.add_argument("--res", type=int, default=None,
                     help="square resolution (default: the scene camera's)")
     ap.add_argument("--spp", type=int, default=2)
@@ -99,7 +159,7 @@ def main():
     from akari_render_tpu_torch.config import RenderTask
     from akari_render_tpu_torch.core.filters import filter_from_config
     from akari_render_tpu_torch.core.math import disable_tf32
-    from akari_render_tpu_torch.integrators import common
+    from akari_render_tpu_torch import stats
     from akari_render_tpu_torch.integrators.common import PTSettings
     from akari_render_tpu_torch.integrators.megakernel import (
         megakernel_eligible, megakernel_pass, pass_tables,
@@ -129,22 +189,17 @@ def main():
         def sample(i):
             return render_sample(scene, settings, filt, i, task.seed, task.sampler)
 
-    real_shade = common._fused_shade_live
-
-    def shade_in_range(*a):
-        with torch.profiler.record_function(SHADE_RANGE):
-            return real_shade(*a)
-
-    common._fused_shade_live = shade_in_range
     sample(0)
     torch.cuda.synchronize()
+    if hasattr(stats, "reset"):
+        stats.reset()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(args.spp):
             sample(1 + i)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    common._fused_shade_live = real_shade
+    program = span_table(args.spp)
 
     # the traversal layer, unprofiled: every intersect / occlude call
     # bracketed by synchronisations
@@ -167,8 +222,7 @@ def main():
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
-    # the device's work, without the ranges' annotations on its timeline
-    kernels = [e for e in torch_device_events(prof.events()) if e.name != SHADE_RANGE]
+    kernels = torch_device_events(prof.events())
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
 
     def share(pred):
@@ -194,17 +248,29 @@ def main():
         # against the unprofiled sample is the one to read there
         "device_idle_share_of_unprofiled_sample": 1.0 - busy_us / 1e6 / args.spp / wall_timed,
         "traversal_share_of_unprofiled_sample": spent[0] / wall_timed,
-        **shade_split(prof.events(), args.spp),
     }
+    launched, unlinked, shade_calls = launched_in(prof.profiler.kineto_results.events())
+    summary.update(device_records_without_launch=unlinked,
+                   **shade_split(launched, shade_calls, args.spp))
+    program["device_ms_per_sample"] = device_ms_by_span(launched, args.spp)
     dev_key = "self_device_time_total" if hasattr(avg[0], "self_device_time_total") else "self_cuda_time_total"
     by_dev = avg.table(sort_by=dev_key, row_limit=40)
     by_cpu = avg.table(sort_by="self_cpu_time_total", row_limit=40)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(f"{json.dumps(summary)}\n\n# by device time\n{by_dev}\n\n# by host time\n{by_cpu}\n")
+    out.write_text(f"{json.dumps(summary)}\n\n# program spans and counters\n"
+                   f"{json.dumps(program, indent=1)}\n\n# by device time\n{by_dev}\n\n"
+                   f"# by host time\n{by_cpu}\n")
     top = sorted(avg, key=dev_us, reverse=True)[:12]
     for e in top:
         print(f"  {dev_us(e) / 1e3 / args.spp:9.3f} ms/sample  x{e.count // args.spp:<6} {e.key[:90]}")
+    for name, row in program.get("spans", {}).items():
+        print(f"  {row['ms']:9.3f} ms/sample host, self {row['self_ms']:9.3f}, "
+              f"x{row['calls']:<8g} {name}")
+    for name, ms in program["device_ms_per_sample"].items():
+        print(f"  {ms:9.3f} ms/sample device {name}")
+    if "counts" in program:
+        print(f"  counters: {program['counts']}")
     print(json.dumps(summary))
 
 
