@@ -5,7 +5,9 @@ Usage:
         -m scenes/matbox/pt.json --device cuda
 
 AKR_MEGAKERNEL=1 renders an eligible scene through the path megakernel
-(K8), AKR_PALLAS_SHADE=1 shades through the fused shade (K9); on a
+(K8); on the card the fused shade (K9) shades each bounce of a scene
+whose kinds bake (AKR_PALLAS_SHADE=0 takes the per-kind dispatch; on the
+CPU AKR_PALLAS_SHADE=1 opts in to K9's plain version); on a
 cluster-tier scene AKR_WIDE=1 traverses with the wide-BVH walk (K7) and
 AKR_PAIRS_STATIC=0 with the pair sweep's legacy windowed walk (K5). Each
 render prints which integrator, tier, shade and traversal ran.

@@ -11,10 +11,13 @@ Shading groups lanes by shader kind (torch.nonzero per kind, gather,
 evaluate, scatter back) in place of the sorted-chunk lax.switch: each lane
 still evaluates exactly its own kind's closure. Only live lanes are
 shaded; the JAX package shades dead lanes too and discards the results.
-With AKR_PALLAS_SHADE on (not "0"), a scene whose kinds all bake into the
-reduced principled closure (Scene.shade_bake), NEE on and force_diffuse
-off, the wavefront goes through K9 (fused_shade.py) in one launch per
-bounce instead, masked by the live lanes, as in the JAX package.
+Where a scene's kinds all bake into the reduced principled closure
+(Scene.shade_bake), with NEE and a light, force_diffuse off and RGB
+transport, the wavefront goes through K9 (fused_shade.py) in one launch per
+bounce instead, masked by the live lanes, with no host read: by default on
+the card (AKR_PALLAS_SHADE=0 keeps the dispatch there), opt-in with
+AKR_PALLAS_SHADE (not "0") on the CPU, as in the JAX package
+(uses_fused_shade, fused_shade.fused_shade_enabled).
 
 trace_paths returns (radiance, aux, sampler) and takes the per-depth taps
 `radiance_cb`, as in the JAX package. The aux is recorded at the first hit:
@@ -37,12 +40,14 @@ Rays go through Scene.intersect_alpha / occlude_alpha, which are
 intersect / occlude on opaque scenes.
 
 Spans and counters (stats.py): each bounce is a `bounce` span (the last
-intersect too) holding bounce.surface, .emission, .nee, .shade (with
-shade.<kind> a group), .shadow and .continue; traversal.intersect and
-traversal.occlude wrap the calls here, not Scene's methods, so a
-benchmark's own range inside them stays the innermost one. The host reads
-are read.any_live (the loop condition) and read.kind_rows (each kind's
-nonzero).
+intersect too) holding bounce.surface, .emission, .nee, .shade, .shadow
+and .continue. bounce.shade wraps either route: on the dispatch each kind's
+group is a shade.<kind> span and counts in dispatch_groups; a bounce shaded
+by K9 counts in fused_shades. traversal.intersect and traversal.occlude
+wrap the calls here, not Scene's methods, so a benchmark's own range
+inside them stays the innermost one. The host reads are read.any_live (the
+loop condition) and, on the dispatch, read.kind_rows (each kind's
+nonzero); K9 reads nothing.
 
 Spectral transport (`spectral`: the lanes' SampledWavelengths, four hero
 wavelengths a lane): the path decisions (BSDF sampling, RR, MIS) run in
@@ -199,11 +204,14 @@ def dispatch_shade(scene: Scene, si, extra: dict, fn, lanes, force_diffuse: bool
     return out
 
 
-def uses_fused_shade(scene: Scene, settings: PTSettings) -> bool:
-    """Whether trace_paths shades through K9 (the JAX package's rule):
-    AKR_PALLAS_SHADE on, a bake, NEE with a light, no force_diffuse, RGB
-    transport."""
-    return (fused_shade_enabled() and settings.color != "spectral" and settings.use_nee
+def uses_fused_shade(scene: Scene, settings: PTSettings, device=None) -> bool:
+    """Whether trace_paths shades lanes on `device` (the scene's by
+    default) through K9: the switch for that device
+    (fused_shade.fused_shade_enabled: the default on the card, opt-in on
+    the CPU), then the JAX package's rule: a bake, NEE with a light, no
+    force_diffuse, RGB transport."""
+    device = scene.device if device is None else device
+    return (fused_shade_enabled(device) and settings.color != "spectral" and settings.use_nee
             and scene.arrays.lights.num_lights > 0 and not settings.force_diffuse
             and scene.shade_bake is not None)
 
@@ -317,7 +325,7 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
     dev = st["ray_o"].device
     zeros_n = torch.zeros((n,), device=dev)
     nee = settings.use_nee and a.lights.num_lights > 0
-    fused = spectral is None and uses_fused_shade(scene, settings)
+    fused = spectral is None and uses_fused_shade(scene, settings, dev)
     fuse_rays = radiance_cb is None and uses_fused_rays(scene, settings)
     if fuse_rays:
         zeros_2n = torch.zeros((2 * n,), device=dev)
@@ -424,6 +432,7 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
                 extra["lambdas"] = lam
             with stats.span("bounce.shade"):
                 if fused:  # fused implies NEE, so ls is set
+                    stats.counts["fused_shades"] += 1
                     sh = _fused_shade_live(scene.shade_bake, si, extra, st["active"])
                 else:
                     sh = dispatch_shade(scene, si, extra, partial(shade, albedo=depth == 0),

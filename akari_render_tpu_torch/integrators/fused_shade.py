@@ -17,8 +17,21 @@ did; the JAX package's stacking of 26 input rows into one array is not
 ported, nor its block knob AKR_PSHADE_BLOCK or the id-keyed bake cache
 (_BAKES, for jit traces).
 
-Routing (integrators/common.py): AKR_PALLAS_SHADE other than "0", with a
-bake, NEE on, force_diffuse off, RGB transport.
+Routing (integrators/common.py::uses_fused_shade): a bake, NEE with a
+light, force_diffuse off, RGB transport, and the switch of
+`fused_shade_enabled`, which adapts to the lanes' device: on the card K9 is
+the default (AKR_PALLAS_SHADE=0 takes the per-kind dispatch instead), on
+the CPU it is opt-in (AKR_PALLAS_SHADE other than "0"), the JAX package's
+default off. The JAX package keeps K9 off by default for a TPU tool limit
+alone (its relay's compile helper ran out of memory on the Pallas kernel
+inside the bounce loop), which has no counterpart on the card. No measured
+workload runs on the CPU, and none there prefers the dispatch for speed:
+the CPU keeps the dispatch as its default only because the CPU's tests of
+the default route hold it against the JAX package's default render, which
+is the dispatch. K9's plain version, the math of the card's route, is held
+on the CPU by the tests that set the switch (tests/test_torch_fused_shade.py:
+against JAX's pallas_shade and the port's dispatch on blinds, metal and
+cbox, and rendered against JAX's routed render).
 """
 from __future__ import annotations
 
@@ -43,9 +56,14 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def fused_shade_enabled() -> bool:
-    """The JAX package's switch (AKR_PALLAS_SHADE, default off)."""
-    return os.environ.get("AKR_PALLAS_SHADE", "0") != "0"
+def fused_shade_enabled(device) -> bool:
+    """The switch AKR_PALLAS_SHADE (read at every call) for lanes on
+    `device`: on a CUDA device on unless it is "0", elsewhere (the CPU) on
+    only when it is set to anything other than "0"."""
+    v = os.environ.get("AKR_PALLAS_SHADE")
+    if torch.device(device).type == "cuda":
+        return v != "0"
+    return v is not None and v != "0"
 
 
 def _split(x):

@@ -12,11 +12,12 @@ reference's weighted mode with inverse-variance weights).
 Shift mapping: "reconnect" (the default, the method JSON's `reconnect`)
 replays the prefix and reconnects to the base path's recorded vertex
 (gpt_reconnect.py); "pss" replays the whole PSS vector through
-trace_paths (jacobian 1, weight 1/2), so with AKR_PALLAS_SHADE=1 its shade
-goes through K9. The five wavefronts of a sample run one after another;
-each shift of the reconnection mode clones the replay sampler from the
-same fallback-stream state (gpt.rs:141-351), in a Python loop over the four
-offsets where the JAX package maps them.
+trace_paths (jacobian 1, weight 1/2), so its shade goes through K9 where
+trace_paths routes it there (by default on the card for a scene that
+bakes; common.uses_fused_shade). The five wavefronts of a sample run one
+after another; each shift of the reconnection mode clones the replay
+sampler from the same fallback-stream state (gpt.rs:141-351), in a Python
+loop over the four offsets where the JAX package maps them.
 
 Not ported:
 - checkpoint_path/checkpoint_every and resume (with checkpoint.py,

@@ -6,8 +6,9 @@ One chain a lane. The bootstrap evaluates n_bootstrap primary-sample-space
 (PSS) vectors, resamples the chains from them on the host
 (resample_with_f64) and normalizes by their mean b; every mutation step
 proposes a large step (fresh PSS) or a Kelemen exponential small step on
-all D dimensions, traces it through trace_paths (so with AKR_PALLAS_SHADE=1
-its shade goes through K9), splats both states by expected value and
+all D dimensions, traces it through trace_paths (so its shade goes
+through K9 where trace_paths routes it there: by default on the card for a
+scene that bakes), splats both states by expected value and
 accepts by the Metropolis ratio. The readout scales the splats by b / spp,
 and a separate depth-1 pass of render_pt adds the direct light.
 

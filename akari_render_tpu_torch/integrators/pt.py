@@ -25,6 +25,10 @@ after the film sample for the lane's wavelengths, so the RGB draw order is
 untouched. Like the JAX package, spectral renders take the pass, unsplit:
 neither K8, the persistent wavefront nor the split takes them, and the
 shade is the per-kind dispatch (never K9).
+The pass and the split shade each bounce as trace_paths routes it
+(common.uses_fused_shade): on the card through K9 wherever the scene's
+kinds bake, unless AKR_PALLAS_SHADE=0; on the CPU through K9's plain
+version only with AKR_PALLAS_SHADE set (not "0").
 The stats say which tier rendered ("tier": wavefront, persistent or
 megakernel), which shade ran ("shade") and which traversal the rays took
 ("traversal": Scene.traversal, or "megakernel (K8)"); a split pass adds

@@ -10,6 +10,9 @@ never read the device:
 - bounces: iterations of trace_paths' bounce loop;
 - dispatch_groups: groups of lanes (one shader kind of one bounce) shaded
   by dispatch_shade's per-kind closures;
+- fused_shades: bounces of trace_paths shaded through K9, the fused shade
+  (one launch over the wavefront); fused_shades / bounces is that route's
+  share of the bounces;
 - samples: samples of every pixel rendered by render_pt's pass route;
 - host_reads: calls in the render path that block the host on the device,
   each at a `read(site)` (counted at the site on every device).
@@ -61,7 +64,7 @@ class RenderStats:
         return p
 
 
-counts = {"bounces": 0, "dispatch_groups": 0, "samples": 0, "host_reads": 0}
+counts = {"bounces": 0, "dispatch_groups": 0, "fused_shades": 0, "samples": 0, "host_reads": 0}
 spans: dict[str, list[int]] = {}
 _stack: list = []  # the open spans, innermost last
 

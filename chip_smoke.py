@@ -102,10 +102,14 @@ Phases (any failure exits non-zero; nothing is caught):
    phase 4's gates against testdata/cbox64_spp{16,256}.npy, and the first
    hit's aux albedo from K9 against the dispatch route's;
 21. cbox at full width: 1024x1024, scenes/cbox/pt.json's configuration
-   (pmj02bn, d12) at 4 spp after a warm-up, and the same with the
-   independent sampler: Mpaths/s, launches, K1's launches and mean time,
-   peak device bytes a lane, and one sample's device launches and idle
-   share (torch.profiler);
+   (pmj02bn, d12) at 4 spp after a warm-up, on the card's default shade
+   route (K9 on cbox, AKR_PALLAS_SHADE unset) and on the dispatch
+   (AKR_PALLAS_SHADE=0), and with the independent sampler on K9:
+   Mpaths/s, launches, K1's launches and mean time, peak device bytes a
+   lane, and one sample's device launches and idle share
+   (torch.profiler); on the first bounce of a sample (2^20 lanes), K9
+   against its plain version (bit-equal lanes, device time and bound) and
+   against the dispatch on the same inputs (valid, direct, albedo);
 22. AOV: the aov method through the CLI, matbox 64x64, 2 spp, against the
    committed JAX set (testdata/matbox64_aov_spp2.npz), then cbox
    1024x1024 at 1 spp: seven finite images, the depth above 5 where a ray
@@ -163,16 +167,16 @@ Phases (any failure exits non-zero; nothing is caught):
    card against the CPU;
 29. spectral at full width: cbox 1024x1024, pmj02bn, d12, 4 spp, three
    renders after a warm-up (Mpaths/s median and range, K1's launches a
-   sample, peak device bytes a lane), beside phase 21's RGB row of the same
-   call; classroom 1920x1080, 1 spp, d12 through the static pair sweep,
+   sample, peak device bytes a lane), beside phase 21's RGB pmj02bn row on
+   the dispatch (the shade spectral renders take) of the same call; classroom 1920x1080, 1 spp, d12 through the static pair sweep,
    one render (K2-K4's launches, peak bytes a lane); prism 256x256, 16
    spp, d12, one render; one sample each of cbox and classroom by
    torch.profiler (device events, busy time, idle share).
 
 `python3 chip_smoke.py --only 26,27` runs the build and the listed phases
-alone (26 after phase 8's image; likewise `--only 28,29`, 29 then without
-phase 21's RGB row) and prints no result line: a quick check of them on
-the card.
+alone (26 after phase 8's image; likewise 11, 14, 21, 28 and 29, 29 with
+phase 21's RGB row where 21 is named too) and prints no result line: a
+quick check of them on the card.
 
 Each phase prints the seconds since the start when it ends. After the
 build it prints what the compiler gave every kernel (registers a thread,
@@ -257,8 +261,20 @@ SAMPLER_DIMS = 24
 # phase 20: the first hit's albedo from K9 against the dispatch route's
 # closures (K9's plain version is within 5e-6 of them on the CPU)
 AUX_ALBEDO_TOL = 1e-5
-# phase 21: samples of the timed cbox render
+# phase 21: samples of the timed cbox render; its rows (sampler, shade
+# route) in turns, since the host's clock moves between renders; the
+# routes' AKR_PALLAS_SHADE (None: unset, the card's default) and the shade
+# the stats report
 CBOX_SPP = 4
+CBOX_ROWS = (("pmj02bn", "K9"), ("pmj02bn", "dispatch"), ("independent", "K9"),
+             ("independent", "K9"), ("pmj02bn", "dispatch"), ("pmj02bn", "K9"))
+SHADE_ROUTES = {"K9": (None, "fused (K9)"), "dispatch": ("0", "dispatch")}
+# phase 21: K9 against the dispatch on the first bounce of a cbox 1024^2
+# sample, with the tolerances of tests/test_pallas_shade.py: valid equal on
+# all but this fraction of live lanes, direct and albedo within these
+K9_DISPATCH_VALID_FRAC = 1e-3
+K9_DISPATCH_ATOL = 5e-5
+K9_DISPATCH_RTOL = 5e-4
 # phase 22: the AOVs of matbox 64^2, 2 spp, against the JAX set. Every
 # pixel but AOV_PIX_FRAC of them within AOV_ABS (the roughness: within
 # AOV_ABS on all but AOV_ROUGH_FRAC, since the lobe a sample picks reads
@@ -2175,7 +2191,8 @@ def k8_parity(device):
 
 
 class env_switch:
-    """Set environment switches for a block, then restore them."""
+    """Set environment switches for a block (None unsets one), then restore
+    them."""
 
     def __init__(self, **kv):
         self.kv = kv
@@ -2184,7 +2201,11 @@ class env_switch:
         import os
 
         self.old = {k: os.environ.get(k) for k in self.kv}
-        os.environ.update(self.kv)
+        for k, v in self.kv.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
     def __exit__(self, *exc):
         import os
@@ -2245,7 +2266,7 @@ def reset_launches():
     for counts in (pairs.launches, wide.launches):
         for k in counts:
             counts[k] = 0
-    stats.counts.update(bounces=0, dispatch_groups=0)
+    stats.counts.update(bounces=0, dispatch_groups=0, fused_shades=0)
 
 
 def read_launches() -> dict:
@@ -2342,7 +2363,8 @@ def blinds_full_width(device):
                                      ("path A", "AKR_MEGAKERNEL", "megakernel (K8)", m.spp)):
         out = OUT / f"blinds256_{name.replace(' ', '_')}.exr"
         out.unlink(missing_ok=True)
-        with env_switch(**({switch: "1"} if switch else {})):
+        # the card's default shade on blinds is K9: the wavefront row asks for the dispatch
+        with env_switch(**({switch: "1"} if switch else {"AKR_PALLAS_SHADE": "0"})):
             reset_launches()
             t0 = time.perf_counter()
             stats = cli_main(["-s", str(BLINDS), "-m", str(BLINDS_METHOD), "--spp", str(spp),
@@ -2377,7 +2399,7 @@ def blinds_full_width(device):
 
     def wavefront_sample(switch=None):
         def fn():
-            with env_switch(**({switch: "1"} if switch else {})):
+            with env_switch(**({switch: "1"} if switch else {"AKR_PALLAS_SHADE": "0"})):
                 render_sample(scene, settings, filt, 0, task.seed, task.sampler)
         return fn
 
@@ -2505,16 +2527,71 @@ def cbox_correctness(device):
         check(torch.equal(aux["0"][k], aux["1"][k]), f"the aux {k} differs between the routes")
 
 
+def k9_first_bounce(device, kind_method: Path) -> dict:
+    """K9 on the first bounce of a cbox 1024^2 sample, from one-sample
+    renders through the CLI (the phase's warm-ups): the default route's
+    first _fused_shade_live call held against K9's plain version
+    (k9_check: bit-equal lanes, the device time against the bound at 2^20
+    lanes), and the dispatch route's first dispatch_shade call shaded again
+    through K9, its valid flags, direct light and albedo against the
+    dispatch's on the live lanes. The captured inputs are dropped on
+    return, before any timed render."""
+    import torch
+
+    from akari_render_tpu_torch.cli import main as cli_main
+    from akari_render_tpu_torch.integrators import common
+
+    def first_call(route, target):
+        with env_switch(AKR_PALLAS_SHADE=SHADE_ROUTES[route][0]), \
+                captured(common, target, keep=(0,)) as first:
+            cli_main(["-s", str(CBOX), "-m", str(kind_method), "--spp", "1", "-o",
+                      str(OUT / "cbox1024_warmup.exr"), "--device", device])
+        check(len(first.calls) == 1, f"cbox 1024^2 on the {route} route made no {target} call")
+        return first.calls[0]
+
+    def against_plain():
+        (bake, si, extra, lanes), _ = first_call("K9", "_fused_shade_live")
+        args = (bake, *si["frame"], si["ng"], *(extra[k] for k in (
+            "wo", "ls_wi", "ls_li", "ls_pdf", "u_bsdf")), si["mat"])
+        return k9_check("the first bounce of a cbox 1024^2 sample (the card's default route)",
+                        args, live=lanes)
+
+    def against_dispatch():
+        a, kw = first_call("dispatch", "dispatch_shade")
+        scene, si, extra, _, lanes = a[:5]
+        want = common.dispatch_shade(*a, **kw)
+        got = common._fused_shade_live(scene.shade_bake, si, extra, lanes)
+        live = int(lanes.sum())
+        differ = int(((got["valid"] != want["valid"]) & lanes).sum())
+        errs = {k: max_abs_diff(got[k][lanes], want[k][lanes]) for k in ("direct", "albedo")}
+        share = float((want["valid"] & lanes).sum()) / live
+        print(f"cbox 1024^2 first bounce ({live} live lanes of {lanes.numel()}), K9 against the "
+              f"dispatch on the same inputs: valid differs on {differ} lanes (valid {share:.6f}), "
+              f"max abs err direct {errs['direct']:.3g}, albedo {errs['albedo']:.3g}", flush=True)
+        check(differ <= K9_DISPATCH_VALID_FRAC * live,
+              f"cbox 1024^2 first bounce: K9's valid differs from the dispatch's on {differ} lanes")
+        for k in errs:
+            check(bool(torch.allclose(got[k][lanes], want[k][lanes], atol=K9_DISPATCH_ATOL,
+                                      rtol=K9_DISPATCH_RTOL)),
+                  f"cbox 1024^2 first bounce: K9's {k} differs from the dispatch's")
+        return {"live": live, "valid_differ": differ, "valid_share": share, "max_abs_err": errs}
+
+    return {**against_plain(), "against_dispatch": against_dispatch()}
+
+
 def cbox_full_width(device):
     """Phase 21: cbox at its own 1024^2 with the reference's configuration
     (scenes/cbox/pt.json: pmj02bn, d12, rr 5, Gaussian r 1.5) through the
-    CLI, CBOX_SPP samples after a one-sample warm-up, and the same render
-    with the independent sampler beside it, in turns (pmj02bn, independent,
-    independent, pmj02bn: the host's clock moves between renders): Mpaths/s, every kernel's
-    launches, K1's launches and mean time a launch (CUDA events), peak
-    device bytes a lane; then one sample of each by torch.profiler: its
-    device launches and busy time, and the idle share against an
-    unprofiled sample. Returns the printed numbers."""
+    CLI, CBOX_SPP samples after a one-sample warm-up, with the independent
+    sampler beside it, each under a named shade route (K9, the card's
+    default, and the dispatch under AKR_PALLAS_SHADE=0) in the turns of
+    CBOX_ROWS: Mpaths/s, every kernel's launches, K1's launches and mean
+    time a launch (CUDA events), peak device bytes a lane; K9 on the first
+    bounce against its plain version and against the dispatch
+    (k9_first_bounce, from pmj02bn's warm-ups); then one sample of each row
+    by torch.profiler: its device launches and busy time, and the idle
+    share against an unprofiled sample. Returns the printed numbers, by
+    "<sampler> <route>", and K9's first-bounce numbers under "k9"."""
     import json as _json
 
     import numpy as np
@@ -2525,41 +2602,49 @@ def cbox_full_width(device):
     from akari_render_tpu_torch.integrators.pt import render_sample
 
     method = _json.loads(CBOX_METHOD.read_text())
-    found = {}
-    for kind in ("pmj02bn", "independent", "independent", "pmj02bn"):
-        path = CBOX_METHOD
+    methods = {}
+    for kind in {k for k, _ in CBOX_ROWS}:
+        methods[kind] = CBOX_METHOD
         if kind != method["sampler"]["type"]:
-            path = OUT / f"cbox_{kind}.json"
-            path.write_text(_json.dumps({**method, "sampler": {**method["sampler"],
-                                                               "type": kind}}))
-        out = OUT / f"cbox1024_{kind}.exr"
+            methods[kind] = OUT / f"cbox_{kind}.json"
+            methods[kind].write_text(_json.dumps({**method, "sampler": {**method["sampler"],
+                                                                        "type": kind}}))
+    k9 = k9_first_bounce(device, methods["pmj02bn"])
+    found = {}
+    for kind, route in CBOX_ROWS:
+        switch, shade = SHADE_ROUTES[route]
+        row = f"{kind} {route}"
+        out = OUT / f"cbox1024_{kind}_{route}.exr"
         out.unlink(missing_ok=True)
-        if kind not in found:
-            cli_main(["-s", str(CBOX), "-m", str(path), "--spp", "1", "-o", str(out),
-                      "--device", device])  # the warm-up
-        torch.cuda.reset_peak_memory_stats()
-        with timed_k1() as timing:
-            reset_launches()
-            t0 = time.perf_counter()
-            stats = cli_main(["-s", str(CBOX), "-m", str(path), "--spp", str(CBOX_SPP), "-o",
-                              str(out), "--device", device])
-            wall = time.perf_counter() - t0
-            got = read_launches()
+        with env_switch(AKR_PALLAS_SHADE=switch):
+            if row not in found:
+                cli_main(["-s", str(CBOX), "-m", str(methods[kind]), "--spp", "1", "-o",
+                          str(out), "--device", device])  # the warm-up
+            torch.cuda.reset_peak_memory_stats()
+            with timed_k1() as timing:
+                reset_launches()
+                t0 = time.perf_counter()
+                stats = cli_main(["-s", str(CBOX), "-m", str(methods[kind]), "--spp",
+                                  str(CBOX_SPP), "-o", str(out), "--device", device])
+                wall = time.perf_counter() - t0
+                got = read_launches()
         peak = torch.cuda.max_memory_allocated()
-        check(stats["tier"] == "wavefront" and stats["spp_total"] == CBOX_SPP,
-              f"cbox 1024^2 {kind}: {stats['tier']}, {stats['spp_total']} spp")
-        check(got["K1"] > 0 and all(got[k] == 0 for k in ("K2", "K3", "K4", "K5", "K7", "K8")),
-              f"cbox 1024^2 {kind} launches {got}")
+        check(stats["tier"] == "wavefront" and stats["spp_total"] == CBOX_SPP
+              and stats["shade"] == shade,
+              f"cbox 1024^2 {row}: {stats['tier']}, {stats['shade']}, {stats['spp_total']} spp")
+        check(got["K1"] > 0 and (got["K9"] > 0) == (route == "K9")
+              and all(got[k] == 0 for k in ("K2", "K3", "K4", "K5", "K7", "K8")),
+              f"cbox 1024^2 {row} launches {got}")
         img = read_exr(out)
         check(img.shape == (1024, 1024, 3) and bool(np.all(np.isfinite(img))),
-              f"cbox 1024^2 {kind} image shape / finiteness")
+              f"cbox 1024^2 {row} image shape / finiteness")
         k1 = timing.summary()
         check(k1["launches"] == got["K1"], f"K1: {k1['launches']} launches timed of {got['K1']}")
         paths = 1024 * 1024 * CBOX_SPP
         run = {"mpaths_s": paths / stats["total_time"] / 1e6, "render_s": stats["total_time"],
                "k1_launches": got["K1"], "k1_ms": k1["ms"], "k1_bound_ms": k1["bound_ms"],
                "bounces": got["bounces"], "peak_bytes_per_lane": peak / (1024 * 1024)}
-        found.setdefault(kind, {"runs": []})["runs"].append(run)
+        found.setdefault(row, {"runs": []})["runs"].append(run)
         print(f"cbox 1024^2 {CBOX_SPP}spp d12 {kind} ({stats['shade']}, {stats['traversal']}): "
               f"render {stats['total_time']:.4f} s ({run['mpaths_s']:.4f} Mpaths/s), CLI "
               f"wall {wall:.3f} s, launches and counts {got}, K1 mean {k1['ms']:.4f} ms a launch "
@@ -2570,27 +2655,32 @@ def cbox_full_width(device):
 
     scene, task, settings, filt = cbox_setup(device)
 
-    def sample(kind):
+    def sample(row):
+        kind, route = row.split()
+
         def fn():
-            render_sample(scene, settings, filt, 0, task.seed, {**task.sampler, "type": kind})
+            with env_switch(AKR_PALLAS_SHADE=SHADE_ROUTES[route][0]):
+                render_sample(scene, settings, filt, 0, task.seed, {**task.sampler, "type": kind})
         return fn
 
     t0 = time.perf_counter()
     events = device_events_per_call({k: sample(k) for k in found}, busy=True)
-    for kind, (count, busy_ms) in events.items():
+    for row, (count, busy_ms) in events.items():
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        sample(kind)()
+        sample(row)()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
-        found[kind].update(launches_per_sample=count, busy_ms=busy_ms, sample_ms=wall_ms,
-                           idle_share=1.0 - busy_ms / wall_ms)
-        print(f"cbox 1024^2 one {kind} sample (torch.profiler, device activity only): {count} "
+        found[row].update(launches_per_sample=count, busy_ms=busy_ms, sample_ms=wall_ms,
+                          idle_share=1.0 - busy_ms / wall_ms)
+        print(f"cbox 1024^2 one {row} sample (torch.profiler, device activity only): {count} "
               f"device events, device busy {busy_ms:.3f} ms; unprofiled sample {wall_ms:.3f} ms, "
               f"device idle {100 * (1.0 - busy_ms / wall_ms):.1f} %", flush=True)
-    print(f"cbox 1024^2 profile: {time.perf_counter() - t0:.1f} s; pmj02bn against independent: "
-          f"{events['pmj02bn'][0] - events['independent'][0]:+d} device events a sample",
-          flush=True)
+    print(f"cbox 1024^2 profile: {time.perf_counter() - t0:.1f} s; pmj02bn against independent "
+          f"on K9: {events['pmj02bn K9'][0] - events['independent K9'][0]:+d} device events a "
+          f"sample; K9 against the dispatch (pmj02bn): "
+          f"{events['pmj02bn K9'][0] - events['pmj02bn dispatch'][0]:+d}", flush=True)
+    found["k9"] = k9
     return found
 
 
@@ -3386,8 +3476,9 @@ def shader_fixture_on_card(device):
 
 
 def spectral_full_width(device, rgb=None):
-    """Phase 29 (the module's docstring); `rgb` is phase 21's result, the
-    RGB row of the same call. Returns the spectral launches of K1 (cbox)
+    """Phase 29 (the module's docstring); `rgb` is phase 21's result, whose
+    pmj02bn row on the dispatch (the shade route spectral renders take) is
+    the RGB row of the same call. Returns the spectral launches of K1 (cbox)
     and K2-K4 (classroom) and the printed numbers."""
     import copy
 
@@ -3506,10 +3597,11 @@ def spectral_full_width(device, rgb=None):
               f"{100 * (1.0 - busy_ms / wall_ms):.1f} %", flush=True)
     print(f"spectral profile: {time.perf_counter() - t0:.1f} s", flush=True)
     if rgb is not None:
-        r = rgb["pmj02bn"]
+        r = rgb["pmj02bn dispatch"]
         rr = sorted(x["mpaths_s"] for x in r["runs"])
         c = found["cbox"]
-        print(f"cbox 1024^2 pmj02bn d12, spectral against RGB (phase 21, this call): Mpaths/s "
+        print(f"cbox 1024^2 pmj02bn d12 on the dispatch, spectral against RGB (phase 21, this "
+              f"call): Mpaths/s "
               f"{c['mpaths_s_median']:.4f} ({c['mpaths_s'][0]:.4f}-{c['mpaths_s'][-1]:.4f}) "
               f"against {rr[len(rr) // 2]:.4f} ({rr[0]:.4f}-{rr[-1]:.4f}); device events a "
               f"sample {c['events_per_sample']} against {r['launches_per_sample']} "
@@ -3588,6 +3680,16 @@ def main():
     info = build_all()
     lap("phases 2, 6, 10 and 15 (build)")
     if ONLY:  # a quick check of some phases; prints no result
+        if 11 in ONLY:
+            k9_parity(device)
+            lap("phase 11")
+        if 14 in ONLY:
+            blinds_full_width(device)
+            lap("phase 14")
+        rgb_cbox = None
+        if 21 in ONLY:
+            rgb_cbox = cbox_full_width(device)
+            lap("phase 21")
         if 26 in ONLY:
             pass_shapes_correctness(device, classroom_correctness(device))
             lap("phase 26")
@@ -3598,7 +3700,7 @@ def main():
             spectral_correctness(device)
             lap("phase 28")
         if 29 in ONLY:
-            spectral_full_width(device)
+            spectral_full_width(device, rgb_cbox)
             lap("phase 29")
         return
     scene = load_scene(str(SCENE), device=device)
@@ -3647,6 +3749,7 @@ def main():
     cbox_correctness(device)
     lap("phase 20 (cbox 64^2)")
     rgb_cbox = cbox_full_width(device)
+    fused["K9"]["cbox_first_bounce"] = rgb_cbox.pop("k9")
     lap("phase 21 (cbox 1024^2)")
     aov_phase(device)
     lap("phase 22 (AOV)")
@@ -3689,7 +3792,8 @@ def main():
 
 
 # `--only 26,27`: the build and those phases alone (26 after phase 8's
-# image), for a quick check on the card; the full run takes no arguments
+# image; 11, 14, 21 and 26-29 can be named), for a quick check on the
+# card; the full run takes no arguments
 ONLY = ({int(x) for x in sys.argv[sys.argv.index("--only") + 1].split(",")}
         if "--only" in sys.argv else set())
 

@@ -1,8 +1,10 @@
 """PyTorch port, the fused shade (integrators/fused_shade.py): K9's plain
 version against the JAX package's pallas_shade (the Pallas kernel in
-interpret mode) and against the port's own per-kind dispatch_shade, and
-the AKR_PALLAS_SHADE routing against JAX's render. The CUDA kernel
-against its plain version is in test_torch_gpu.py and chip_smoke.py."""
+interpret mode) and against the port's own per-kind dispatch_shade, the
+route rule (K9 by default for lanes on the card, opt-in on the CPU) and
+its counters, and the AKR_PALLAS_SHADE routing against JAX's render. The
+CUDA kernel against its plain version is in test_torch_gpu.py and
+chip_smoke.py."""
 import os
 from pathlib import Path
 
@@ -27,6 +29,7 @@ from test_torch_megakernel import metal_blinds
 
 ROOT = Path(__file__).resolve().parents[1]
 BLINDS = ROOT / "scenes/blinds/scene.json"
+CBOX = ROOT / "scenes/cbox/scene.json"  # the source of the benchmark's scene
 N_LANES = 4096
 
 
@@ -72,15 +75,17 @@ def _port_shade(ts, tri, bary, extra):
     return si, ex, got
 
 
-@pytest.mark.parametrize("variant", ["blinds", "metal"])
+@pytest.mark.parametrize("variant", ["blinds", "metal", "cbox"])
 def test_plain_matches_pallas_shade(variant, table, tmp_path):
     """fused_shade on CPU tensors (the plain version) against JAX's
     pallas_shade in interpret mode on 4,096 lanes: valid equal on at least
     99.9 % of lanes; every output within atol 1e-5 and rtol 1e-4 (wi, f
     and pdf on the lanes whose valid agrees: a flipped sample draws another
     direction). On the CPU valid is equal on every lane and every output
-    is within 5e-6 absolute."""
-    path = BLINDS if variant == "blinds" else metal_blinds(tmp_path)
+    is within 5e-6 absolute. On blinds, blinds with a metal layer, and
+    cbox, the benchmark's scene (eight principled materials with the
+    specular layer)."""
+    path = {"blinds": BLINDS, "cbox": CBOX}.get(variant) or metal_blinds(tmp_path)
     js = j_load_scene(str(path), 16, 16)
     ts = load_scene(str(path), 16, 16, device="cpu", ggx_table=table)
     assert ts.shade_bake[2] == (variant == "metal")
@@ -100,12 +105,16 @@ def test_plain_matches_pallas_shade(variant, table, tmp_path):
     assert same.all() and (got["f"].numpy().max(-1) > 0).mean() > 0.3
 
 
-def test_plain_matches_dispatch_shade(table):
+@pytest.mark.parametrize("path", [BLINDS, CBOX], ids=["blinds", "cbox"])
+def test_plain_matches_dispatch_shade(path, table):
     """K9's plain version against the port's per-kind closures
     (dispatch_shade) with the tolerances of tests/test_pallas_shade.py:
     direct and albedo within atol 5e-5, rtol 5e-4; f and pdf within 2 %
-    relative, their ratio within 2e-3; valid equal on 99.9 % of lanes."""
-    ts = load_scene(str(BLINDS), 16, 16, device="cpu", ggx_table=table)
+    relative, their ratio within 2e-3; valid equal on 99.9 % of lanes. On
+    blinds and on cbox, the benchmark's scene (eight principled materials
+    with the specular layer)."""
+    ts = load_scene(str(path), 16, 16, device="cpu", ggx_table=table)
+    assert ts.shade_bake is not None and ts.shade_bake[1]
     tri, bary, extra = _inputs(ts.num_tris, seed=3)
     si, ex, got = _port_shade(ts, tri, bary, extra)
 
@@ -159,16 +168,67 @@ def test_routed_render_matches_jax(table, monkeypatch):
 
 
 def test_switch_off_and_force_diffuse_take_dispatch(table, monkeypatch):
-    """Without the switch, or with force_diffuse, the per-kind dispatch
-    shades (the JAX package's routing rule)."""
+    """On the CPU without the switch or with it at "0" (the default there is
+    unchanged), or with force_diffuse, the per-kind dispatch shades (the
+    JAX package's routing rule)."""
     ts = load_scene(str(BLINDS), 8, 8, device="cpu", ggx_table=table)
     task = RenderTask.from_file(ROOT / "scenes/blinds/pt.json")
     task.method.spp = task.method.spp_per_pass = 1
     task.method.max_depth = 2
     monkeypatch.delenv("AKR_PALLAS_SHADE", raising=False)
     assert render_pt(ts, task.method, task)[1]["shade"] == "dispatch"
+    monkeypatch.setenv("AKR_PALLAS_SHADE", "0")
+    assert render_pt(ts, task.method, task)[1]["shade"] == "dispatch"
     monkeypatch.setenv("AKR_PALLAS_SHADE", "1")
     task.method.force_diffuse = True
     akr_stats.counts.update(bounces=0, dispatch_groups=0)
     assert render_pt(ts, task.method, task)[1]["shade"] == "dispatch"
     assert akr_stats.counts["bounces"] > 0 and akr_stats.counts["dispatch_groups"] > 0
+
+
+@pytest.mark.parametrize("switch", [None, "0", "1"])
+def test_route_rule_by_device(table, monkeypatch, switch):
+    """uses_fused_shade on a scene that bakes, with the lanes' device given
+    as a stand-in (torch.device("cuda") allocates nothing): on the card K9
+    unless AKR_PALLAS_SHADE=0, on the CPU only with the switch set to
+    anything but "0"; with force_diffuse, NEE off, spectral transport or
+    no bake, neither device."""
+    ts = load_scene(str(BLINDS), 8, 8, device="cpu", ggx_table=table)
+    if switch is None:
+        monkeypatch.delenv("AKR_PALLAS_SHADE", raising=False)
+    else:
+        monkeypatch.setenv("AKR_PALLAS_SHADE", switch)
+    card = torch.device("cuda")
+    on = common.PTSettings()
+    assert common.uses_fused_shade(ts, on, card) == (switch != "0")
+    assert fs.fused_shade_enabled("cuda") == (switch != "0")
+    assert common.uses_fused_shade(ts, on) == common.uses_fused_shade(ts, on, "cpu") \
+        == (switch == "1")
+    assert fs.fused_shade_enabled("cpu") == (switch == "1")
+    for off in (common.PTSettings(force_diffuse=True), common.PTSettings(use_nee=False),
+                common.PTSettings(color="spectral")):
+        assert not common.uses_fused_shade(ts, off, card)
+    monkeypatch.setattr(ts, "shade_bake", None)
+    assert not common.uses_fused_shade(ts, on, card)
+
+
+@pytest.mark.parametrize("switch", ["1", "0"])
+def test_route_counts_on_cpu(table, monkeypatch, switch):
+    """blinds 8^2, 2 spp, d12 on the CPU: with the switch set every bounce
+    is shaded through K9 (fused_shades == bounces, no dispatch group, no
+    nonzero read), at "0" every group through the dispatch (fused_shades
+    0; blinds has one kind, so a group a bounce that shades a live lane)."""
+    ts = load_scene(str(BLINDS), 8, 8, device="cpu", ggx_table=table)
+    task = RenderTask.from_file(ROOT / "scenes/blinds/pt.json")
+    task.method.spp = task.method.spp_per_pass = 2
+    monkeypatch.setenv("AKR_PALLAS_SHADE", switch)
+    akr_stats.reset()
+    img, stats = render_pt(ts, task.method, task)
+    c = akr_stats.snapshot()["counts"]
+    assert np.all(np.isfinite(img)) and img.mean() > 0.0 and c["bounces"] > 0
+    if switch == "1":
+        assert stats["shade"] == "fused (K9)"
+        assert c["fused_shades"] == c["bounces"] and c["dispatch_groups"] == 0
+    else:
+        assert stats["shade"] == "dispatch" and len(ts.kinds) == 1
+        assert c["fused_shades"] == 0 and 0 < c["dispatch_groups"] <= c["bounces"]

@@ -647,6 +647,35 @@ def test_fused_paths_on_card_match_cpu(cuda, monkeypatch):
         np.testing.assert_allclose(imgs[1].mean(axis=(0, 1)), imgs[0].mean(axis=(0, 1)), rtol=1e-3)
 
 
+def test_default_route_on_card_is_k9(cuda, monkeypatch):
+    """cbox 64^2, 4 spp, pmj02bn, d12 (scenes/cbox/pt.json) with no switch
+    set: on the card every bounce shades through K9 (fused_shades ==
+    bounces, no dispatch group), and the image's channel means are within
+    1e-3 of the CPU's render under AKR_PALLAS_SHADE=1 (K9's plain version;
+    the CPU's default stays the dispatch)."""
+    from akari_render_tpu_torch import stats as akr_stats
+
+    cbox = ROOT / "scenes/cbox/scene.json"
+    task = RenderTask.from_file(ROOT / "scenes/cbox/pt.json")
+    task.method.spp = task.method.spp_per_pass = 4
+    table = load_scene(str(cbox), 64, 64, device=cuda).ggx_table_np
+    monkeypatch.delenv("AKR_PALLAS_SHADE", raising=False)
+    akr_stats.reset()
+    before = fs.launches
+    card, stats = render_pt(load_scene(str(cbox), 64, 64, device=cuda, ggx_table=table),
+                            task.method, task)
+    c = akr_stats.snapshot()["counts"]
+    assert stats["shade"] == "fused (K9)" and stats["tier"] == "wavefront"
+    assert c["bounces"] > 0 and c["fused_shades"] == c["bounces"] and c["dispatch_groups"] == 0
+    assert fs.launches - before == c["bounces"]
+    monkeypatch.setenv("AKR_PALLAS_SHADE", "1")
+    cpu, cstats = render_pt(load_scene(str(cbox), 64, 64, device="cpu", ggx_table=table),
+                            task.method, task)
+    assert cstats["shade"] == "fused (K9)"
+    assert np.all(np.isfinite(card)) and cpu.mean() > 0.0
+    np.testing.assert_allclose(card.mean(axis=(0, 1)), cpu.mean(axis=(0, 1)), rtol=1e-3)
+
+
 @pytest.mark.parametrize("kind", ["pmj02bn", "sobol", "hash", "independent"])
 def test_sampler_draws_on_card_match_cpu(cuda, kind, monkeypatch):
     """make_sampler on the card, 2^16 lanes x 12 dimensions at sample
@@ -715,9 +744,10 @@ def test_fused_route_aux_albedo_on_card(cuda, monkeypatch):
         assert torch.equal(aux["0"][k], aux["1"][k])
 
 
-def test_render_gpt_on_card_matches_cpu(cuda):
+def test_render_gpt_on_card_matches_cpu(cuda, monkeypatch):
     """cbox 32x32, 2 spp, d7 through render_gpt on the card and on the CPU
-    (the same samples, the same GGX table), in each shift mode: the
+    (the same samples, the same GGX table, the per-kind dispatch on both:
+    AKR_PALLAS_SHADE=0), in each shift mode: the
     reconstruction, primal and gradients with channel means within 1e-3
     (of the image's mean magnitude for the gradients) and all but 1 % of
     the pixels within 1e-3 (a lane whose float decision flips moves its
@@ -725,6 +755,7 @@ def test_render_gpt_on_card_matches_cpu(cuda):
     from akari_render_tpu_torch.config import GPTConfig
     from akari_render_tpu_torch.integrators.gpt import render_gpt
 
+    monkeypatch.setenv("AKR_PALLAS_SHADE", "0")
     cbox = ROOT / "scenes/cbox/scene.json"
     table = load_scene(str(cbox), 32, 32, device=cuda).ggx_table_np
     for mode in ("reconnect", "pss"):
@@ -745,15 +776,17 @@ def test_render_gpt_on_card_matches_cpu(cuda):
             assert off.mean() <= 0.01, (mode, name, off.mean())
 
 
-def test_render_mcmc_on_card_matches_cpu(cuda):
+def test_render_mcmc_on_card_matches_cpu(cuda, monkeypatch):
     """cbox 32x32 render_mcmc on the card and on the CPU (d7, 256 chains,
-    4 spp-equivalents, 4,096 bootstrap samples, the direct pass at 2 spp):
+    4 spp-equivalents, 4,096 bootstrap samples, the direct pass at 2 spp;
+    the per-kind dispatch on both: AKR_PALLAS_SHADE=0):
     the image's means and b within 2 % and the acceptance within 0.02 (the
     chains drift apart as the splats' float sums and accept decisions round
     differently); K1 launched on the card."""
     from akari_render_tpu_torch.config import MCMCConfig
     from akari_render_tpu_torch.integrators.mcmc import render_mcmc
 
+    monkeypatch.setenv("AKR_PALLAS_SHADE", "0")
     cbox = ROOT / "scenes/cbox/scene.json"
     table = load_scene(str(cbox), 32, 32, device=cuda).ggx_table_np
     cfg = MCMCConfig(spp=4, n_chains=256, n_bootstrap=4096, direct_spp=2)
@@ -771,11 +804,17 @@ def test_render_mcmc_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(gst["b"], cst["b"], rtol=0.02)
 
 
-def test_split_pass_on_card_bit_exact(cuda, monkeypatch):
+@pytest.mark.parametrize("shade", ["default", "0"])
+def test_split_pass_on_card_bit_exact(cuda, monkeypatch, shade):
     """cbox 64x64, 4 spp, pmj02bn, d12 (pt.json) on the card: the split
     pass at d = 6 equals the pass bit for bit, sequential and under fused
     rays (a row permutation of independent lanes), and reports its live
-    counts; K1 launched."""
+    counts; K1 launched. On the default shade (K9) and on the dispatch
+    (AKR_PALLAS_SHADE=0)."""
+    if shade == "default":
+        monkeypatch.delenv("AKR_PALLAS_SHADE", raising=False)
+    else:
+        monkeypatch.setenv("AKR_PALLAS_SHADE", shade)
     task = RenderTask.from_file(ROOT / "scenes/cbox/pt.json")
     task.method.spp = task.method.spp_per_pass = 4
     scene = load_scene(str(ROOT / "scenes/cbox/scene.json"), 64, 64, device=cuda)
@@ -795,7 +834,10 @@ def test_persistent_wavefront_on_card_matches_pass(cuda, monkeypatch):
     """cbox 64x64, 4 spp, pmj02bn, d12 on the card: the persistent
     wavefront, sequential and fused, within rtol=2e-4, atol=2e-5 of the
     pass (each item's radiance is the pass's; index_add_ sums the film in
-    any order), with a 1,024-lane pool as well."""
+    any order), with a 1,024-lane pool as well. The persistent wavefront
+    shades through the per-kind dispatch, so the pass does too
+    (AKR_PALLAS_SHADE=0)."""
+    monkeypatch.setenv("AKR_PALLAS_SHADE", "0")
     task = RenderTask.from_file(ROOT / "scenes/cbox/pt.json")
     task.method.spp = task.method.spp_per_pass = 4
     scene = load_scene(str(ROOT / "scenes/cbox/scene.json"), 64, 64, device=cuda)
@@ -939,16 +981,25 @@ def test_shader_fixture_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
         _card_matches_cpu(*out, label=f"AKR_FUSED_PRINCIPLED={fused}")
 
 
-def test_syncs_on_card_only_at_read_sites(cuda):
-    """One cbox 1024^2 job of one sample (scenes/cbox/pt.json: pmj02bn, d12,
-    the per-kind dispatch) under torch.cuda's sync debug mode, with the
-    program's spans on (a host profiler collects): every sync it flags
-    happens inside a read.* span, and host_reads counts each."""
+@pytest.mark.parametrize("shade", ["default", "0"])
+def test_syncs_on_card_only_at_read_sites(cuda, monkeypatch, shade):
+    """One cbox 1024^2 job of one sample (scenes/cbox/pt.json: pmj02bn, d12)
+    under torch.cuda's sync debug mode, with the program's spans on (a host
+    profiler collects), on the default shade (K9) and on the per-kind
+    dispatch (AKR_PALLAS_SHADE=0): every sync it flags happens inside a
+    read.* span, and host_reads counts each. K9 reads nothing, so the
+    default route reads only the loop condition's any_live and the job's
+    sync and copy (about 12 a sample, against about 60 on the dispatch)."""
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
 
     from akari_render_tpu_torch import stats
+
+    if shade == "default":
+        monkeypatch.delenv("AKR_PALLAS_SHADE", raising=False)
+    else:
+        monkeypatch.setenv("AKR_PALLAS_SHADE", shade)
 
     scene = load_scene(str(ROOT / "scenes/cbox/scene.json"), device=cuda)
     task = RenderTask.from_file(ROOT / "scenes/cbox/pt.json")
@@ -973,4 +1024,15 @@ def test_syncs_on_card_only_at_read_sites(cuda):
                 torch.cuda.set_sync_debug_mode(0)
     outside = [n for n in flagged if n is None or not n.startswith("read.")]
     assert flagged and not outside, outside
-    assert len(flagged) <= stats.snapshot()["counts"]["host_reads"]
+    c = stats.snapshot()["counts"]
+    assert len(flagged) <= c["host_reads"]
+    # the loop condition's reads and the job's two, as tests/test_torch_stats.py
+    # counts them; the dispatch adds a nonzero a kind and the closures' three
+    # copies a group
+    b, g = c["bounces"], c["dispatch_groups"]
+    job = b + (b < task.method.max_depth) + 2
+    if shade == "default":
+        assert c["fused_shades"] == b and g == 0 and c["host_reads"] == job
+    else:
+        assert c["fused_shades"] == 0 and g > 0
+        assert c["host_reads"] == job + len(scene.kinds) * b + 3 * g

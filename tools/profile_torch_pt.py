@@ -1,10 +1,12 @@
 """Profile the PyTorch port's path tracer on the card: where one sample's
 time goes, on matbox (flat tier, K1), classroom (cluster tier and
 instancing: K2-K4, with AKR_WIDE=1 the wide-BVH walk K7, with
-AKR_PAIRS_STATIC=0 the windowed walk K2, K5 and K4) or blinds (flat tier; with AKR_PALLAS_SHADE=1 the
-fused shade K9 shades each bounce, with AKR_MEGAKERNEL=1 each sample is
-one pass of the path megakernel K8) or cbox (the benchmark's scene: flat
-tier, one principled kind, pmj02bn).
+AKR_PAIRS_STATIC=0 the windowed walk K2, K5 and K4) or blinds (flat tier;
+the fused shade K9 shades each bounce, the card's default on a scene whose
+kinds bake, AKR_PALLAS_SHADE=0 the per-kind dispatch; with AKR_MEGAKERNEL=1
+each sample is one pass of the path megakernel K8) or cbox (the
+benchmark's scene: flat tier, one principled kind that bakes, pmj02bn;
+K9 unless AKR_PALLAS_SHADE=0). The summary names the shade that ran.
 
 Renders a warm-up sample, then `--spp` samples under torch.profiler (CPU
 and CUDA activities), and reports the wall time per sample, the device's
@@ -13,7 +15,7 @@ and the sorts' share, the kernel launch count, and the top device kernels.
 A second, unprofiled sample brackets every Scene.intersect / occlude call
 with device synchronisations and reports the traversal layer's share of
 the wall time. It splits the shade of each bounce (the program's
-bounce.shade span: the per-kind dispatch, or K9 with AKR_PALLAS_SHADE=1)
+bounce.shade span: K9, or the per-kind dispatch with AKR_PALLAS_SHADE=0)
 into device time of the K9 kernel, of gathers, of fills and scatters, and
 of the rest (nonzero), per bounce, and prints the program's span table
 (host ms a sample, total and self; device ms a sample, by the spans open
@@ -22,7 +24,7 @@ unpacked with `git archive`; one without the spans reports neither). The
 full tables go to `--out`.
 
 Usage:
-    [AKR_PALLAS_SHADE=1 | AKR_MEGAKERNEL=1 | AKR_WIDE=1 | AKR_PAIRS_STATIC=0]
+    [AKR_PALLAS_SHADE=0 | AKR_MEGAKERNEL=1 | AKR_WIDE=1 | AKR_PAIRS_STATIC=0]
     python tools/profile_torch_pt.py
         [--scene matbox|classroom|blinds|cbox] [--res N] [--spp 2]
         [--out build/profile_torch_pt.txt] [--root CHECKOUT]
@@ -160,7 +162,7 @@ def main():
     from akari_render_tpu_torch.core.filters import filter_from_config
     from akari_render_tpu_torch.core.math import disable_tf32
     from akari_render_tpu_torch import stats
-    from akari_render_tpu_torch.integrators.common import PTSettings
+    from akari_render_tpu_torch.integrators.common import PTSettings, uses_fused_shade
     from akari_render_tpu_torch.integrators.megakernel import (
         megakernel_eligible, megakernel_pass, pass_tables,
     )
@@ -179,9 +181,11 @@ def main():
     scene = load_scene(str(scene_dir / "scene.json"), args.res, args.res, device="cuda")
     pixels = scene.camera.width * scene.camera.height
 
+    shade = "fused (K9)" if uses_fused_shade(scene, settings) else "dispatch"
     if (os.environ.get("AKR_MEGAKERNEL", "0") == "1"
             and megakernel_eligible(scene, settings, task.sampler, filt)):
         tables = pass_tables(scene, settings, filt, task.seed)
+        shade = "megakernel (K8)"
 
         def sample(i):  # one megakernel pass of one sample
             return megakernel_pass(tables, i, 1)
@@ -234,6 +238,7 @@ def main():
         "device": torch.cuda.get_device_name(0),
         "scene": args.scene,
         "traversal": scene.traversal,
+        "shade": shade,
         "res": [scene.camera.width, scene.camera.height],
         "spp": args.spp,
         "wall_s_per_sample": wall / args.spp,
