@@ -6,17 +6,19 @@ at a cell's own size, in one process.
 
 For each seed: N checked jobs of the cell's traffic (the jobs a run checks,
 at the timed sizes), then check.compare's numbers and the tile_chi2 of the
-N jobs' mean image, one JSON line a seed. With --control the reference is
-put in the program's place, computed in the nearest precisions below the
+N jobs' mean image (an MCMC cell: the job_chi2 of the N images, so give N
+about a window's jobs), one JSON line a seed. With --control the reference
+is put in the program's place, computed in the nearest precisions below the
 configuration's float32 with TF32 off: the camera rays come from the
-reference camera in TF32 (patched in for the program's ray generation),
-every kept traversal answer is the reference's TF32 cast of the same ray
-(check.control_answers), and the image is the reference path tracer's
-with TF32 traversal and bfloat16 shading (reference/render.py, "control"),
-of S samples a pixel (by default as many as the N jobs render; a run's
-image is the mean of every job of its window, a preview run's some 150). Its numbers set the limits' upper
-readings; the program's set the lower ones. Needs a CUDA device, as run.py
-does.
+reference camera in TF32 (patched in for the program's ray generation, the
+chains' too), every kept traversal answer is the reference's TF32 cast of
+the same ray (check.control_answers), and the image is the reference path
+tracer's with TF32 traversal and bfloat16 shading (reference/render.py,
+"control"), of S samples a pixel (by default as many as the N jobs render;
+a run's image is the mean of every job of its window, a preview run's some
+150); for an MCMC cell N such images of S samples each (by default a
+job's). Its numbers set the limits' upper readings; the program's set the
+lower ones. Needs a CUDA device, as run.py does.
 """
 from __future__ import annotations
 
@@ -61,9 +63,11 @@ def readings(workload: str, seeds: list[int], control: bool, jobs: int | None,
     spp = loop.job_spp(traffic, conf)
     n = jobs or traffic["checked_first"]
     traffic = dict(traffic, checked_first=n)
-    real = prog.pt.generate_rays
+    mcmc = conf["method"]["type"] == "mcmc_opt"
+    layout = check.camera_layout(conf["method"], spp, prog.width, prog.height)
+    real = prog.pt.generate_rays, prog.mcmc.generate_rays
     if control:
-        prog.pt.generate_rays = control_camera(ref)
+        prog.pt.generate_rays = prog.mcmc.generate_rays = control_camera(ref)
     dev = torch.device(device)
     rows = []
     try:
@@ -73,22 +77,29 @@ def readings(workload: str, seeds: list[int], control: bool, jobs: int | None,
             warm = loop.warm_up(prog, ic, seed, spp)
             win = loop.run_window(prog, ic, traffic, seed, 1e9, spp, max_jobs=n)
             checked = check.control_answers(ref, win["checked"], dev) if control else win["checked"]
-            nums = check.compare(ref, checked, prog.width, prog.height, dev, prior=warm["image"])
-            if control:
-                n_img = samples or spp * n
-                mean = check.reference_image(ref, conf, prog.width, prog.height, seed + 1, dev,
-                                             "control", n_img)["mean"].cpu().numpy()
+            nums = check.compare(ref, checked, prog.width, prog.height, dev, prior=warm["image"],
+                                 layout=layout)
+            w, h, tiles = prog.width, prog.height, conf["reference"]["tiles"]
+            reference = check.reference_image(ref, conf, w, h, seed, dev)
+            if mcmc:  # n images of a job's samples, judged by their spread
+                images = [check.reference_image(ref, conf, w, h, seed + 1 + j, dev, "control",
+                                                samples or spp)["mean"].cpu().numpy()
+                          for j in range(n)] if control else win["images"]
+                nums["job_chi2"] = check.job_chi2(images, reference, w, h, tiles)
             else:
-                n_img, mean = spp * n, check.mean_image(win["images"])
-            nums["tile_chi2"] = check.tile_chi2(
-                mean, n_img, check.reference_image(ref, conf, prog.width, prog.height, seed, dev),
-                prog.width, prog.height, conf["reference"]["tiles"])
+                if control:
+                    n_img = samples or spp * n
+                    mean = check.reference_image(ref, conf, w, h, seed + 1, dev, "control",
+                                                 n_img)["mean"].cpu().numpy()
+                else:
+                    n_img, mean = spp * n, check.mean_image(win["images"])
+                nums["tile_chi2"] = check.tile_chi2(mean, n_img, reference, w, h, tiles)
             row = {"workload": workload, "seed": seed, "control": control, "jobs": n,
                    "seconds": time.perf_counter() - t0, **nums}
             out(json.dumps(row), flush=True)
             rows.append(row)
     finally:
-        prog.pt.generate_rays = real
+        prog.pt.generate_rays, prog.mcmc.generate_rays = real
     return rows
 
 

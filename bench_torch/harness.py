@@ -1,7 +1,8 @@
 """What the benchmark knows of a cell: its entries in BENCHMARK.json, its
 configuration, traffic and metric files (found by name), the sampler key
-each job gets from the seed, and the system under test, driven through its
-public entry `integrators.pt.render_pt`.
+each job gets from the seed, and the system under test, driven through the
+public entry of the configuration's method: `integrators.pt.render_pt`
+("pt") or `integrators.mcmc.render_mcmc` ("mcmc_opt", Kelemen PSSMLT).
 
 Nothing here imports the system under test at module level: the self-check
 and the tests import this file on any machine.
@@ -95,17 +96,19 @@ def clear_route_switches() -> list[str]:
 
 class Program:
     """The system under test: the scene loaded onto `device` and one
-    render job = one render_pt call of `spp` samples of every pixel, keyed
-    by the job's sampler seed, ending with the developed image on the host."""
+    render job = one call of the method's entry of `spp` samples of every
+    pixel, keyed by the job's sampler seed, ending with the developed image
+    on the host. For "mcmc_opt" a job's samples are mutations a pixel."""
 
     def __init__(self, conf: dict, device, width: int | None = None, height: int | None = None):
         import torch
 
-        from akari_render_tpu_torch.config import PTConfig
-        from akari_render_tpu_torch.integrators import pt
+        from akari_render_tpu_torch.config import MCMCConfig, PTConfig
+        from akari_render_tpu_torch.integrators import mcmc, pt
         from akari_render_tpu_torch.scene import load_scene
 
-        self.torch, self.pt, self.conf = torch, pt, conf
+        self.torch, self.pt, self.mcmc, self.conf = torch, pt, mcmc, conf
+        self.mcmc_config_cls = MCMCConfig
         self.device = torch.device(device)
         t0 = time.perf_counter()
         self.scene = load_scene(str(ROOT / conf["scene"]), width or conf["width"],
@@ -118,11 +121,29 @@ class Program:
         self.config_cls = PTConfig
 
     def render(self, key: int, spp: int):
-        """(image [H, W, 3] numpy float32, render_pt's stats)."""
+        """(image [H, W, 3] numpy float32, the entry's stats)."""
+        if self.method["type"] == "mcmc_opt":
+            return self.render_mcmc(key, spp)
         m = dict(self.method, spp=spp, spp_per_pass=spp)
         task = SimpleNamespace(filter_config=self.conf["film"]["filter"], seed=0,
                                sampler=dict(self.conf["sampler"], seed=key))
         return self.pt.render_pt(self.scene, self.config_cls.from_json(m), task)
+
+    def render_mcmc(self, key: int, spp: int):
+        """One render_mcmc call of `spp` mutations a pixel. The key is the
+        task's seed, from which the bootstrap, its fallback and the chains
+        draw; the task's sampler has seed 0, so the direct pass's render_pt
+        draws from the key too (0 ^ key). The stats gain the route keys that
+        render_pt's carry: tier and traversal from the scene, and the
+        colour, RGB (MCMCConfig has none: the chains trace RGB)."""
+        m = dict(self.method, spp=spp)
+        task = SimpleNamespace(filter_config=self.conf["film"]["filter"], seed=key,
+                               sampler=dict(self.conf["sampler"], seed=0))
+        img, stats = self.mcmc.render_mcmc(self.scene, self.mcmc_config_cls.from_json(m), task)
+        traversal = self.scene.traversal
+        stats.update(tier="flat" if traversal == "flat (K1)" else "cluster", traversal=traversal,
+                     color="rgb")
+        return img, stats
 
     def free(self):
         """Drop the scene and every cached block of device memory."""

@@ -64,8 +64,10 @@ def _job(prog, intercept, key: int, spp: int, capture: bool, ranges: bool = Fals
 
 def warm_up(prog, intercept, seed: int, spp: int) -> dict:
     """One checked job of one sample: every shape a window job uses (a job
-    renders its samples one wavefront at a time), the capture path, and
-    the lane sample of each call size."""
+    renders its samples one wavefront at a time; an MCMC job of one
+    mutation a pixel has the bootstrap's chunks, the chains and the direct
+    pass of any other), the capture path, and the lane sample of each call
+    size."""
     img, stats = _job(prog, intercept, harness.job_key(seed, WARM_JOB), 1, capture=True)
     intercept.take()
     return {"stats": stats, "image": img}
@@ -74,16 +76,16 @@ def warm_up(prog, intercept, seed: int, spp: int) -> dict:
 def run_window(prog, intercept, traffic: dict, seed: int, seconds: float, spp: int,
                max_jobs: int | None = None) -> dict:
     """Jobs back to back while the window is open (or, for the CPU
-    rehearsal, `max_jobs` of them)."""
+    rehearsal, `max_jobs` of them); each job keeps its entry's stats."""
     jobs, checked, images = [], [], []
     t0 = time.perf_counter()
     j = 0
     while time.perf_counter() - t0 < seconds and (max_jobs is None or j < max_jobs):
         check = j < traffic["checked_first"] or harness.unit_draw(seed, j, 1) < traffic["check_share"]
         s = time.perf_counter()
-        img, _ = _job(prog, intercept, harness.job_key(seed, j), spp, capture=check)
+        img, stats = _job(prog, intercept, harness.job_key(seed, j), spp, capture=check)
         e = time.perf_counter()
-        jobs.append({"start": s - t0, "end": e - t0, "spp": spp})
+        jobs.append({"start": s - t0, "end": e - t0, "spp": spp, "stats": stats})
         images.append(img)
         if check:
             recs, live, calls = intercept.take()

@@ -12,12 +12,16 @@ more job (or a few) runs under torch.profiler for the per-layer metrics.
 Once the window has closed and the program's state is freed, the jobs
 are held against the plain reference (check.py): the checked jobs'
 traversal answers and camera rays, and the mean of every job's image
-against the reference path tracer's. The last stdout line is the result;
-every number compared, with its limit, is also printed last on stderr.
+against the reference path tracer's (for an MCMC cell, with the standard
+error from the spread between the jobs). The last stdout line is the
+result; every number compared, with its limit, is also printed last on
+stderr.
 
 It needs a CUDA device (as many as the cell asks for) and exits with 2,
-printing no result, without one. It unsets every AKR_* switch, so the
-port's default route runs, and prints that route on an earlier line.
+printing no result, without one; with 3, naming them, if the process holds
+JAX, jaxlib, flax or the JAX package once the window has closed. It unsets
+every AKR_* switch, so the port's default route runs, and prints that route
+on an earlier line.
 """
 from __future__ import annotations
 
@@ -41,9 +45,10 @@ def applies(metric: dict, cell_name: str) -> bool:
 
 def measure(workload: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
             width: int | None = None, height: int | None = None, t_start: float | None = None,
-            log=print) -> dict:
+            log=print, max_jobs: int | None = None) -> dict:
     """One run of the cell; returns the result line's object. `device`,
-    `width` and `height` let the CPU self-check and tests drive it small."""
+    `width`, `height` and `max_jobs` (the window's jobs) let the CPU
+    self-check and tests drive it small."""
     import torch
 
     from bench_torch import check
@@ -80,7 +85,7 @@ def measure(workload: str, seed: int, seconds: float, trace: bool, device: str =
         torch.cuda.reset_peak_memory_stats()
     setup_s = time.perf_counter() - t_start
 
-    window = loop.run_window(prog, intercept, traffic, seed, seconds, spp)
+    window = loop.run_window(prog, intercept, traffic, seed, seconds, spp, max_jobs)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     ms = sorted((j["end"] - j["start"]) * 1e3 for j in window["jobs"])
     log(f"window: {len(ms)} jobs in {window['seconds']:.3f} s; job ms min {ms[0]:.1f}, "
@@ -100,12 +105,17 @@ def measure(workload: str, seed: int, seconds: float, trace: bool, device: str =
     t_check = time.perf_counter()
     dev = torch.device(device) if cuda else torch.device("cpu")
     ref = ref_scene.load(harness.ROOT / conf["scene"], width, height)
-    numbers = check.compare(ref, window["checked"], width, height, dev, prior=warm["image"])
+    numbers = check.compare(ref, window["checked"], width, height, dev, prior=warm["image"],
+                            layout=check.camera_layout(conf["method"], spp, width, height))
     t_render = time.perf_counter()
     reference = check.reference_image(ref, conf, width, height, seed, dev)
-    numbers["tile_chi2"] = check.tile_chi2(check.mean_image(window["images"]),
-                                           spp * len(window["images"]), reference, width,
-                                           height, conf["reference"]["tiles"])
+    if conf["method"]["type"] == "mcmc_opt":
+        numbers["job_chi2"] = check.job_chi2(window["images"], reference, width, height,
+                                             conf["reference"]["tiles"])
+    else:
+        numbers["tile_chi2"] = check.tile_chi2(check.mean_image(window["images"]),
+                                               spp * len(window["images"]), reference, width,
+                                               height, conf["reference"]["tiles"])
     log(f"reference: {numbers['answers_compared']} traversal answers of "
         f"{len(window['checked'])} jobs compared in {t_render - t_check:.1f} s; "
         f"{reference['spp']} spp rendered and {len(window['images'])} images compared in "
@@ -138,6 +148,16 @@ def measure(workload: str, seed: int, seconds: float, trace: bool, device: str =
     return out
 
 
+FORBIDDEN = ("jax", "jaxlib", "flax", "akari_render_tpu")  # the JAX package and its stack
+
+
+def forbidden_modules() -> list[str]:
+    """Top-level names (compared whole: the port's name begins with the
+    JAX package's) of loaded modules that the measured process must not
+    hold."""
+    return sorted({name.split(".")[0] for name in sys.modules} & set(FORBIDDEN))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -154,6 +174,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     out = measure(args.workload, args.seed, args.seconds, bool(args.trace))
+    found = forbidden_modules()
+    if found:
+        print(f"the process holds {', '.join(found)}: no result", file=sys.stderr)
+        return 3
     for name, c in out["checks"].items():
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r})", file=sys.stderr, flush=True)
     print(json.dumps(out), flush=True)

@@ -5,11 +5,14 @@
 1. BENCHMARK.json: its keys, and every name, unit and `why` within the
    contract's characters and lengths; each cell's configuration, traffic
    and metric files resolve by name (a new file is found the same way);
-   every `moves` is an end-to-end metric and every `workloads` entry a cell.
+   every `moves` is an end-to-end metric and every `workloads` entry a cell;
+   each configuration file lists the same `reduced` keys, each with its
+   published value (`source_<key>`) and an `assumed` line.
 2. The compulsory-bytes count of traversal_roofline_pct on each
    configuration's counts.
 3. Each traffic mix drives two jobs of each of its cells at --size pixels
-   on the CPU, through the plain versions of the kernels.
+   on the CPU, through the plain versions of the kernels; an MCMC cell's
+   chains and bootstrap are cut with the pixels (scaled_method).
 
 The measuring path itself (run.py) refuses to run without a CUDA device.
 """
@@ -77,6 +80,11 @@ def check_spec(spec: dict) -> list[str]:
         need((harness.ROOT / c["file"]).is_file(), f"{c['name']}: {c['file']} missing")
         need(len(c["reduced"]) <= 16 and all(NAME.match(k) for k in c["reduced"]),
              f"{c['name']}: reduced")
+        if (harness.ROOT / c["file"]).is_file():
+            f = json.loads((harness.ROOT / c["file"]).read_text())
+            need(f.get("reduced") == c["reduced"], f"{c['name']}: the file's reduced differs")
+            need(all(f"source_{k}" in f and k in f.get("assumed", {}) for k in c["reduced"]),
+                 f"{c['name']}: a reduced key without its source_ value or its assumed line")
         need(any(w["config"] == c["name"] for w in cells.values()), f"{c['name']}: no cell")
     for w in cells.values():
         need(w["config"] in confs, f"{w['name']}: config {w['config']!r}")
@@ -118,6 +126,18 @@ def bytes_counts() -> None:
               f"{rays} live rays needs {tb.call_bytes(rays, ref.n_unique_tris, ref.n_instances)} B")
 
 
+def scaled_method(method: dict, pixels: int, full_pixels: int) -> dict:
+    """An MCMC method with its chains and bootstrap cut in proportion to the
+    pixels (at least 16 chains), so that a chain makes as many steps a job
+    as at full size and the bootstrap draws as many candidates a chain;
+    any other method as it is."""
+    if method["type"] != "mcmc_opt":
+        return method
+    chains = max(16, method["n_chains"] * pixels // full_pixels)
+    return dict(method, n_chains=chains,
+                n_bootstrap=method["n_bootstrap"] * chains // method["n_chains"])
+
+
 def drive(size: int) -> None:
     from bench_torch import loop
 
@@ -127,6 +147,8 @@ def drive(size: int) -> None:
         traffic = harness.load_traffic(w["traffic"])
         scale = size / max(conf["width"], conf["height"])
         wh = max(2, round(conf["width"] * scale)), max(2, round(conf["height"] * scale))
+        conf = dict(conf, method=scaled_method(conf["method"], wh[0] * wh[1],
+                                               conf["width"] * conf["height"]))
         prog = harness.Program(conf, "cpu", *wh)
         ic = harness.Intercept(prog.scene, traffic["lanes_checked"], 1)
         spp = loop.job_spp(traffic, conf)

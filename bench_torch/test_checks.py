@@ -6,7 +6,8 @@ The harness's look for a card is skipped (run.measure on the CPU, the
 kernels' plain versions, 64x64); everything else of a run is driven. A
 sound run is correct; the control (the reference in TF32 and bfloat16 in
 the program's place) and each fault a render job can have, planted
-underneath the timed path, make `correct` false.
+underneath the timed path, make `correct` false. So for the MCMC cell, at
+64x64 with its chains and bootstrap cut with the pixels.
 """
 from __future__ import annotations
 
@@ -126,5 +127,112 @@ def test_fault_fails(fault, expect, size, monkeypatch):
 
     fault(pt, monkeypatch)
     out = measure(size)
+    assert not out["correct"]
+    assert expect in failed(out), out["checks"]
+
+
+# The MCMC cell at 64x64: a chain a 16 pixels and 16 bootstrap candidates a
+# chain, as configured, so a job keeps its 32 steps a chain; 16 jobs a
+# window and 4 x 4 tiles (256 pixels a tile, against 4,096 on the card) so
+# that the image's number sees a bias of a few per cent as the card's does.
+MCMC_CELL = "cbox-mcmc-final"
+MCMC_JOBS = 16
+MCMC_TILES = 4
+
+
+def mcmc_at(monkeypatch, size: int):
+    """The MCMC configuration at size x size, as above."""
+    from bench_torch import harness
+    from bench_torch.selfcheck import scaled_method
+
+    real = harness.load_config
+
+    def load_config(name, spec=None):
+        c = real(name, spec)
+        return dict(c, method=scaled_method(c["method"], size * size, c["width"] * c["height"]),
+                    reference=dict(c["reference"], tiles=MCMC_TILES))
+    monkeypatch.setattr(harness, "load_config", load_config)
+
+
+def measure_mcmc(size: int = SIZE):
+    from bench_torch import run
+
+    return run.measure(MCMC_CELL, 987654321012, 1e9, False, device="cpu", width=size,
+                       height=size, log=lambda *a, **k: None, max_jobs=MCMC_JOBS)
+
+
+def test_mcmc_sound_run_is_correct(monkeypatch):
+    mcmc_at(monkeypatch, SIZE)
+    out = measure_mcmc()
+    assert out["attempted"] == MCMC_JOBS
+    assert out["correct"], out["checks"]
+
+
+def test_mcmc_control_fails(monkeypatch):
+    from bench_torch import control, harness
+
+    mcmc_at(monkeypatch, SIZE)
+    rows = control.readings(MCMC_CELL, [5], True, MCMC_JOBS, device="cpu", width=SIZE,
+                            height=SIZE, out=lambda *a, **k: None)
+    limits = harness.load_config("cbox-1024-mcmc-gpu")["correct_limits"]
+    for row in rows:
+        assert row["job_chi2"] > limits["job_chi2"], row
+
+
+def _b_scaled(mcmc, monkeypatch):
+    real = mcmc.develop
+
+    def develop(film, width, height, splat_scale=1.0):  # the normaliser b taken 5 % low
+        return real(film, width, height, splat_scale * 0.95)
+    monkeypatch.setattr(mcmc, "develop", develop)
+
+
+def _direct_dropped(mcmc, monkeypatch):
+    import numpy as np
+
+    from akari_render_tpu_torch.integrators import pt
+
+    def render_pt(scene, config, task=None, **k):  # the depth-1 direct pass left out
+        cam = scene.camera
+        return np.zeros((cam.height, cam.width, 3), np.float32), {"total_time": 0.0}
+    monkeypatch.setattr(pt, "render_pt", render_pt)
+
+
+def _rejected_dropped(mcmc, monkeypatch):
+    real, calls = mcmc.add_splats, [0]
+
+    def add_splats(*a, **k):  # a step splats the proposal (weight a), not the current state
+        calls[0] += 1
+        if calls[0] % 2:
+            real(*a, **k)
+    monkeypatch.setattr(mcmc, "add_splats", add_splats)
+
+
+def _half_chains(mcmc, monkeypatch):
+    import torch
+
+    real = mcmc.add_splats
+
+    def add_splats(film, p, color, weight, width, height, mask=None):  # odd chains left out
+        keep = torch.arange(p.shape[0], device=p.device) % 2 == 0
+        real(film, p, color, weight, width, height, mask=keep if mask is None else mask & keep)
+    monkeypatch.setattr(mcmc, "add_splats", add_splats)
+
+
+# at 64x64 a tile holds 256 pixels of 16 jobs: too few to see b taken 5 %
+# low (2.79 against a sound 1.43 at 4 spp a job); at 128x128 it holds 1,024
+# (6.87 against a sound 0.45-1.80 at 2)
+@pytest.mark.parametrize("fault,expect,size", [
+    (_b_scaled, "job_chi2", 2 * SIZE),
+    (_direct_dropped, "camera_px", SIZE),
+    (_rejected_dropped, "job_chi2", SIZE),
+    (_half_chains, "job_chi2", SIZE),
+])
+def test_mcmc_fault_fails(fault, expect, size, monkeypatch):
+    from akari_render_tpu_torch.integrators import mcmc
+
+    mcmc_at(monkeypatch, size)
+    fault(mcmc, monkeypatch)
+    out = measure_mcmc(size)
     assert not out["correct"]
     assert expect in failed(out), out["checks"]
