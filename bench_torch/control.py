@@ -7,18 +7,23 @@ at a cell's own size, in one process.
 For each seed: N checked jobs of the cell's traffic (the jobs a run checks,
 at the timed sizes), then check.compare's numbers and the tile_chi2 of the
 N jobs' mean image (an MCMC cell: the job_chi2 of the N images, so give N
-about a window's jobs), one JSON line a seed. With --control the reference
-is put in the program's place, computed in the nearest precisions below the
-configuration's float32 with TF32 off: the camera rays come from the
-reference camera in TF32 (patched in for the program's ray generation, the
-chains' too), every kept traversal answer is the reference's TF32 cast of
-the same ray (check.control_answers), and the image is the reference path
-tracer's with TF32 traversal and bfloat16 shading (reference/render.py,
-"control"), of S samples a pixel (by default as many as the N jobs render;
-a run's image is the mean of every job of its window, a preview run's some
-150); for an MCMC cell N such images of S samples each (by default a
-job's). Its numbers set the limits' upper readings; the program's set the
-lower ones. Needs a CUDA device, as run.py does.
+about a window's jobs; a GPT cell: the grad_chi2 and primal_chi2 of the N
+jobs' films and the recon_gap of the checked jobs), one JSON line a seed.
+With --control the reference is put in the program's place, computed in the
+nearest precisions below the configuration's float32 with TF32 off: the
+camera rays come from the reference camera in TF32 (patched in for the
+program's ray generation, the chains' and GPT's too), every kept traversal
+answer is the reference's TF32 cast of the same ray
+(check.control_answers), and the image is the reference path tracer's with
+TF32 traversal and bfloat16 shading (reference/render.py, "control"), of S
+samples a pixel (by default as many as the N jobs render; a run's image is
+the mean of every job of its window, a preview run's some 150); for an MCMC
+cell N such images of S samples each (by default a job's); for a GPT cell N
+control jobs of S samples each (by default a job's), binned where they land
+on the film for the primal and differenced between pixels for the
+gradients, and a bfloat16 solve of each checked job's own films in place of
+its image. Its numbers set the limits' upper readings; the program's set
+the lower ones. Needs a CUDA device, as run.py does.
 """
 from __future__ import annotations
 
@@ -63,11 +68,12 @@ def readings(workload: str, seeds: list[int], control: bool, jobs: int | None,
     spp = loop.job_spp(traffic, conf)
     n = jobs or traffic["checked_first"]
     traffic = dict(traffic, checked_first=n)
-    mcmc = conf["method"]["type"] == "mcmc_opt"
+    kind = conf["method"]["type"]
     layout = check.camera_layout(conf["method"], spp, prog.width, prog.height)
-    real = prog.pt.generate_rays, prog.mcmc.generate_rays
+    real = prog.pt.generate_rays, prog.mcmc.generate_rays, prog.gpt.generate_rays
     if control:
-        prog.pt.generate_rays = prog.mcmc.generate_rays = control_camera(ref)
+        prog.pt.generate_rays = prog.mcmc.generate_rays = prog.gpt.generate_rays = \
+            control_camera(ref)
     dev = torch.device(device)
     rows = []
     try:
@@ -80,13 +86,17 @@ def readings(workload: str, seeds: list[int], control: bool, jobs: int | None,
             nums = check.compare(ref, checked, prog.width, prog.height, dev, prior=warm["image"],
                                  layout=layout)
             w, h, tiles = prog.width, prog.height, conf["reference"]["tiles"]
-            reference = check.reference_image(ref, conf, w, h, seed, dev)
-            if mcmc:  # n images of a job's samples, judged by their spread
+            if kind == "gpt":
+                nums.update(gpt_readings(ref, conf, w, h, seed, dev, win, control, n,
+                                         samples or spp))
+            elif kind == "mcmc_opt":  # n images of a job's samples, judged by their spread
+                reference = check.reference_image(ref, conf, w, h, seed, dev)
                 images = [check.reference_image(ref, conf, w, h, seed + 1 + j, dev, "control",
                                                 samples or spp)["mean"].cpu().numpy()
                           for j in range(n)] if control else win["images"]
                 nums["job_chi2"] = check.job_chi2(images, reference, w, h, tiles)
             else:
+                reference = check.reference_image(ref, conf, w, h, seed, dev)
                 if control:
                     n_img = samples or spp * n
                     mean = check.reference_image(ref, conf, w, h, seed + 1, dev, "control",
@@ -99,8 +109,34 @@ def readings(workload: str, seeds: list[int], control: bool, jobs: int | None,
             out(json.dumps(row), flush=True)
             rows.append(row)
     finally:
-        prog.pt.generate_rays, prog.mcmc.generate_rays = real
+        prog.pt.generate_rays, prog.mcmc.generate_rays, prog.gpt.generate_rays = real
     return rows
+
+
+def gpt_readings(ref, conf: dict, w: int, h: int, seed: int, dev, win: dict, control: bool,
+                 n: int, spp: int) -> dict:
+    """grad_chi2, primal_chi2 and recon_gap of a GPT cell: of the n jobs'
+    films and the checked jobs' images, or, with `control`, of n jobs of
+    the control path tracer of `spp` samples each (their film-binned images
+    and their pixel differences in place of the films) and of a bfloat16
+    solve of each checked job's own films in place of its image."""
+    from bench_torch.reference.poisson import solve
+
+    reference = check.gpt_reference(ref, conf, w, h, seed, dev)
+    stats = [j["stats"] for j in win["jobs"]]
+    recons = [(c["image"], win["jobs"][c["job"]]["stats"]) for c in win["checked"]]
+    if not control:
+        return check.gpt_numbers(reference, conf, w, h, stats, recons)
+    ctl = check.gpt_reference(ref, conf, w, h, seed + 1, dev, "control", spp * n, spp,
+                              job_grads=True)
+    tiles, stride = conf["reference"]["tiles"], conf["method"].get("stride", 1)
+    iters = conf["method"]["reconstruction_iter"]
+    return {"grad_chi2": check.grad_chi2(ctl["grad_jobs"], check.grad_expected(
+                reference, w, h, tiles, stride)),
+            "primal_chi2": check.primal_chi2(ctl["primal_jobs"], reference["primal_jobs"]),
+            "recon_gap": max(check.recon_gap(solve(s["primal"], s["gx"], s["gy"], iters,
+                                                   "bfloat16"), s["primal"], s["gx"], s["gy"],
+                                             iters) for _, s in recons)}
 
 
 def main() -> int:

@@ -2,7 +2,8 @@
 configuration, traffic and metric files (found by name), the sampler key
 each job gets from the seed, and the system under test, driven through the
 public entry of the configuration's method: `integrators.pt.render_pt`
-("pt") or `integrators.mcmc.render_mcmc` ("mcmc_opt", Kelemen PSSMLT).
+("pt"), `integrators.mcmc.render_mcmc` ("mcmc_opt", Kelemen PSSMLT) or
+`integrators.gpt.render_gpt` ("gpt", the gradient-domain path tracer).
 
 Nothing here imports the system under test at module level: the self-check
 and the tests import this file on any machine.
@@ -20,6 +21,7 @@ BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent  # the checkout: BENCHMARK.json and the system under test
 MASK32 = 0xFFFFFFFF
 TRAVERSAL_RANGE = "bench.traversal"
+SHIFT_RANGE = "bench.shift"
 
 
 def benchmark() -> dict:
@@ -98,17 +100,18 @@ class Program:
     """The system under test: the scene loaded onto `device` and one
     render job = one call of the method's entry of `spp` samples of every
     pixel, keyed by the job's sampler seed, ending with the developed image
-    on the host. For "mcmc_opt" a job's samples are mutations a pixel."""
+    on the host. For "mcmc_opt" a job's samples are mutations a pixel; for
+    "gpt" a sample is a base path and its four shifts a pixel."""
 
     def __init__(self, conf: dict, device, width: int | None = None, height: int | None = None):
         import torch
 
-        from akari_render_tpu_torch.config import MCMCConfig, PTConfig
-        from akari_render_tpu_torch.integrators import mcmc, pt
+        from akari_render_tpu_torch.config import GPTConfig, MCMCConfig, PTConfig
+        from akari_render_tpu_torch.integrators import gpt, mcmc, pt
         from akari_render_tpu_torch.scene import load_scene
 
-        self.torch, self.pt, self.mcmc, self.conf = torch, pt, mcmc, conf
-        self.mcmc_config_cls = MCMCConfig
+        self.torch, self.pt, self.mcmc, self.gpt, self.conf = torch, pt, mcmc, gpt, conf
+        self.mcmc_config_cls, self.gpt_config_cls = MCMCConfig, GPTConfig
         self.device = torch.device(device)
         t0 = time.perf_counter()
         self.scene = load_scene(str(ROOT / conf["scene"]), width or conf["width"],
@@ -124,6 +127,8 @@ class Program:
         """(image [H, W, 3] numpy float32, the entry's stats)."""
         if self.method["type"] == "mcmc_opt":
             return self.render_mcmc(key, spp)
+        if self.method["type"] == "gpt":
+            return self.render_gpt(key, spp)
         m = dict(self.method, spp=spp, spp_per_pass=spp)
         task = SimpleNamespace(filter_config=self.conf["film"]["filter"], seed=0,
                                sampler=dict(self.conf["sampler"], seed=key))
@@ -133,17 +138,32 @@ class Program:
         """One render_mcmc call of `spp` mutations a pixel. The key is the
         task's seed, from which the bootstrap, its fallback and the chains
         draw; the task's sampler has seed 0, so the direct pass's render_pt
-        draws from the key too (0 ^ key). The stats gain the route keys that
-        render_pt's carry: tier and traversal from the scene, and the
-        colour, RGB (MCMCConfig has none: the chains trace RGB)."""
+        draws from the key too (0 ^ key). The stats gain the route keys
+        (_route)."""
         m = dict(self.method, spp=spp)
         task = SimpleNamespace(filter_config=self.conf["film"]["filter"], seed=key,
                                sampler=dict(self.conf["sampler"], seed=0))
         img, stats = self.mcmc.render_mcmc(self.scene, self.mcmc_config_cls.from_json(m), task)
+        return img, self._route(stats)
+
+    def render_gpt(self, key: int, spp: int):
+        """One render_gpt call of `spp` samples a pixel. The key is the
+        task's seed, from which render_gpt draws every pixel's PSS stream
+        (it reads no sampler). The stats (with the primal, gx and gy films)
+        gain the route keys, as render_mcmc's do."""
+        m = dict(self.method, spp=spp)
+        task = SimpleNamespace(filter_config=self.conf["film"]["filter"], seed=key)
+        img, stats = self.gpt.render_gpt(self.scene, self.gpt_config_cls.from_json(m), task)
+        return img, self._route(stats)
+
+    def _route(self, stats: dict) -> dict:
+        """The route keys that render_pt's stats carry: tier and traversal
+        from the scene, and the colour, RGB (the MCMC chains and the GPT
+        paths trace RGB)."""
         traversal = self.scene.traversal
         stats.update(tier="flat" if traversal == "flat (K1)" else "cluster", traversal=traversal,
                      color="rgb")
-        return img, stats
+        return stats
 
     def free(self):
         """Drop the scene and every cached block of device memory."""
@@ -160,13 +180,16 @@ class Intercept:
     of each call (the same lanes for every call of one size), the rays and
     the answers the program gave, and counts each call's live rays, all on
     the device without a host read; `ranges` opens a profiler range named
-    TRAVERSAL_RANGE around each call."""
+    TRAVERSAL_RANGE around each call, and one named SHIFT_RANGE around each
+    call of the GPT integrator's shifted path (gpt.trace_shift_reconnect,
+    the module attribute that render_gpt calls)."""
 
     def __init__(self, scene, lanes: int, seed: int):
         self.scene, self.lanes, self.seed = scene, lanes, seed
         self.index: dict[int, object] = {}
         self.records: list = []
         self.live: list = []
+        self.shift_real = None
 
     def lane_index(self, n: int):
         if n not in self.index:
@@ -197,10 +220,23 @@ class Intercept:
 
         scene.intersect = wrap("intersect")
         scene.occlude = wrap("occlude")
+        if ranges:
+            from akari_render_tpu_torch.integrators import gpt
+
+            real_shift = self.shift_real = gpt.trace_shift_reconnect
+
+            def shift(*args, **kw):
+                with torch.profiler.record_function(SHIFT_RANGE):
+                    return real_shift(*args, **kw)
+            gpt.trace_shift_reconnect = shift
 
     def remove(self):
         for k in ("intersect", "occlude"):
             self.scene.__dict__.pop(k, None)
+        if self.shift_real is not None:
+            from akari_render_tpu_torch.integrators import gpt
+
+            gpt.trace_shift_reconnect, self.shift_real = self.shift_real, None
 
     def _keep(self, kind, o, d, tmin, tmax, out):
         import torch

@@ -1,5 +1,7 @@
 """A plain path tracer of the benchmark's scenes: the reference that the
-jobs' images are held against (check.tile_chi2).
+jobs' images are held against (check.tile_chi2, check.job_chi2) and, cut
+into jobs of a GPT job's samples (render_jobs), the reference of a GPT
+job's primal and gradient films (check.grad_chi2, check.primal_chi2).
 
 Written from the semantics of the configuration, not from the renderer
 under test, whose estimator it does not share:
@@ -141,6 +143,63 @@ def render(ref, width: int, height: int, spp: int, max_depth: int, rr_depth: int
            radius: float, seed: int, device, precision: str = "float64") -> dict:
     """{"mean", "var": [H*W, 3] float64 (a pixel's sample mean and the
     variance of one sample), "spp"} of `spp` samples of every pixel."""
+    npix = width * height
+    s1 = torch.zeros((npix, 3), dtype=torch.float64, device=device)
+    s2 = torch.zeros_like(s1)
+    for pix, _, value in samples(ref, width, height, spp, max_depth, rr_depth, radius, seed,
+                                 device, precision):
+        s1.index_add_(0, pix, value)
+        s2.index_add_(0, pix, value * value)
+    return _moments(s1, s2, spp)
+
+
+def _moments(s1, s2, spp: int) -> dict:
+    mean = s1 / spp
+    var = (s2 / spp - mean * mean).clamp(min=0.0) * (spp / max(spp - 1, 1))
+    return {"mean": mean, "var": var, "spp": spp}
+
+
+def render_jobs(ref, width: int, height: int, spp: int, job_spp: int, max_depth: int,
+                rr_depth: int, radius: float, seed: int, device, on_job,
+                precision: str = "float64") -> dict:
+    """The reference's samples cut into spp // job_spp jobs of job_spp
+    samples of every pixel, as a GPT job renders them: render's result over
+    all of them, and, for each job in turn, on_job(aligned, binned) with
+    aligned [H*W, 3] the job's mean of every pixel's own samples (each
+    credited to the pixel it was aimed at) and binned [H*W, 3] the job's
+    samples binned where they landed on the film: each at floor of its
+    jittered raster position, clamped into the image, a pixel the mean of
+    the samples that landed in it and 0 where none did."""
+    npix = width * height
+    s1 = torch.zeros((npix, 3), dtype=torch.float64, device=device)
+    s2 = torch.zeros_like(s1)
+    j1, b1, bw = torch.zeros_like(s1), torch.zeros_like(s1), torch.zeros_like(s1[:, 0])
+    done = 0
+    for pix, p_film, value in samples(ref, width, height, spp // job_spp * job_spp, max_depth,
+                                      rr_depth, radius, seed, device, precision,
+                                      per_chunk=job_spp):
+        s1.index_add_(0, pix, value)
+        s2.index_add_(0, pix, value * value)
+        j1.index_add_(0, pix, value)
+        ip = p_film.floor().long()
+        at = ip[:, 1].clamp(0, height - 1) * width + ip[:, 0].clamp(0, width - 1)
+        b1.index_add_(0, at, value)
+        bw.index_add_(0, at, torch.ones_like(value[:, 0]))
+        done += pix.numel() // npix
+        if done % job_spp == 0:
+            on_job(j1 / job_spp, b1 / torch.where(bw == 0, 1.0, bw)[:, None])
+            for acc in (j1, b1, bw):
+                acc.zero_()
+    return _moments(s1, s2, done)
+
+
+def samples(ref, width: int, height: int, spp: int, max_depth: int, rr_depth: int,
+            radius: float, seed: int, device, precision: str = "float64",
+            per_chunk: int | None = None):
+    """The reference path tracer's samples, a chunk of whole samples of
+    every pixel at a time (at most per_chunk of them): yields (pixel [R]
+    int64, raster position [R, 2] float64 (pixel centre + the filter's
+    offset), value [R, 3] float64)."""
     if ref.unshaded:
         raise ValueError(f"the reference cannot shade materials {ref.unshaded}")
     control = precision == "control"
@@ -162,13 +221,13 @@ def render(ref, width: int, height: int, spp: int, max_depth: int, rr_depth: int
     gen = torch.Generator(device=device)
     gen.manual_seed(seed & ((1 << 63) - 1))
     npix = width * height
-    s1 = torch.zeros((npix, 3), dtype=torch.float64, device=device)
-    s2 = torch.zeros_like(s1)
 
     def rand(n, k):
         return torch.rand((n, k), generator=gen, dtype=torch.float64, device=device).to(dt)
 
     per = max(1, LANES // npix)
+    if per_chunk is not None:  # whole chunks of per_chunk samples
+        per = per_chunk if per >= per_chunk else 1
     done = 0
     while done < spp:
         k = min(per, spp - done)
@@ -249,10 +308,5 @@ def render(ref, width: int, height: int, spp: int, max_depth: int, rr_depth: int
             keep = live.nonzero().squeeze(1)
             o, d, skip, beta, lane = p[keep], wi[keep], tri[keep], beta[keep], lane[keep]
         value = direct + indirect.clamp(max=CLAMP_INDIRECT)
-        value = torch.where(torch.isfinite(value), value, 0.0)
-        s1.index_add_(0, pix, value)
-        s2.index_add_(0, pix, value * value)
+        yield pix, p_film, torch.where(torch.isfinite(value), value, 0.0)
         done += k
-    mean = s1 / spp
-    var = (s2 / spp - mean * mean).clamp(min=0.0) * (spp / max(spp - 1, 1))
-    return {"mean": mean, "var": var, "spp": spp}

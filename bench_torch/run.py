@@ -13,7 +13,9 @@ Once the window has closed and the program's state is freed, the jobs
 are held against the plain reference (check.py): the checked jobs'
 traversal answers and camera rays, and the mean of every job's image
 against the reference path tracer's (for an MCMC cell, with the standard
-error from the spread between the jobs). The last stdout line is the
+error from the spread between the jobs; for a GPT cell, every job's
+gradient and primal films, and each checked job's reconstruction against
+a float64 solve of its own films). The last stdout line is the
 result; every number compared, with its limit, is also printed last on
 stderr.
 
@@ -108,11 +110,17 @@ def measure(workload: str, seed: int, seconds: float, trace: bool, device: str =
     numbers = check.compare(ref, window["checked"], width, height, dev, prior=warm["image"],
                             layout=check.camera_layout(conf["method"], spp, width, height))
     t_render = time.perf_counter()
-    reference = check.reference_image(ref, conf, width, height, seed, dev)
-    if conf["method"]["type"] == "mcmc_opt":
+    if conf["method"]["type"] == "gpt":
+        reference = check.gpt_reference(ref, conf, width, height, seed, dev)
+        numbers.update(check.gpt_numbers(
+            reference, conf, width, height, [j["stats"] for j in window["jobs"]],
+            [(c["image"], window["jobs"][c["job"]]["stats"]) for c in window["checked"]]))
+    elif conf["method"]["type"] == "mcmc_opt":
+        reference = check.reference_image(ref, conf, width, height, seed, dev)
         numbers["job_chi2"] = check.job_chi2(window["images"], reference, width, height,
                                              conf["reference"]["tiles"])
     else:
+        reference = check.reference_image(ref, conf, width, height, seed, dev)
         numbers["tile_chi2"] = check.tile_chi2(check.mean_image(window["images"]),
                                                spp * len(window["images"]), reference, width,
                                                height, conf["reference"]["tiles"])

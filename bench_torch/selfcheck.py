@@ -12,7 +12,8 @@
    configuration's counts.
 3. Each traffic mix drives two jobs of each of its cells at --size pixels
    on the CPU, through the plain versions of the kernels; an MCMC cell's
-   chains and bootstrap are cut with the pixels (scaled_method).
+   chains and bootstrap are cut with the pixels (scaled_method), a GPT
+   cell's jobs keep their samples and shifts.
 
 The measuring path itself (run.py) refuses to run without a CUDA device.
 """
@@ -130,7 +131,8 @@ def scaled_method(method: dict, pixels: int, full_pixels: int) -> dict:
     """An MCMC method with its chains and bootstrap cut in proportion to the
     pixels (at least 16 chains), so that a chain makes as many steps a job
     as at full size and the bootstrap draws as many candidates a chain;
-    any other method as it is."""
+    any other method as it is (a PT or GPT sample is one path, or one base
+    path and its shifts, a pixel, at any size)."""
     if method["type"] != "mcmc_opt":
         return method
     chains = max(16, method["n_chains"] * pixels // full_pixels)

@@ -1,6 +1,7 @@
 """The traced window: one job of the cell's traffic under torch.profiler,
-reduced to device events, busy time, the traversal ranges' device time and
-a breakdown of device operations and idle gaps.
+reduced to device events, busy time, the traversal ranges' device time, the
+GPT shift ranges' device time (outside the traversal ranges) and host time,
+and a breakdown of device operations and idle gaps.
 
 This torch build loses a profiler window's first and last device records,
 so the window opens and closes with pads of tiny kernels, and a marker
@@ -8,7 +9,11 @@ kernel (`torch.cuda._sleep`, named spin_kernel) on each side of the job
 bounds the records that count. The harness's traversal ranges
 (`record_function(TRAVERSAL_RANGE)` around Scene.intersect and
 Scene.occlude) appear on the device's timeline as annotations; a device
-record belongs to the traversal when it starts inside one of them.
+record belongs to the traversal when it starts inside one of them. So for
+the shift ranges (`record_function(SHIFT_RANGE)` around the GPT
+integrator's shifted path), which hold traversal ranges: a record belongs
+to the shift when it starts inside a shift range and outside every
+traversal range.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ import bisect
 import time
 from collections import Counter, defaultdict
 
-from .harness import TRAVERSAL_RANGE
+from .harness import SHIFT_RANGE, TRAVERSAL_RANGE
+
 PAD_LAUNCHES = 1024
 MARKER = "spin_kernel"
 TOP = 10
@@ -100,7 +106,8 @@ def reduce_events(events) -> dict:
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
-    dev, notes, host = [], [], []
+    dev, notes, shifts, host = [], [], [], []
+    shift_host_ns = 0
     for e in events:
         kind = _kind(e, cuda)
         if e.device_type() == cuda:
@@ -109,7 +116,11 @@ def reduce_events(events) -> dict:
                 dev.append(span)
             elif kind == "gpu_user_annotation" and e.name() == TRAVERSAL_RANGE:
                 notes.append(span)
+            elif kind == "gpu_user_annotation" and e.name() == SHIFT_RANGE:
+                shifts.append(span)
         else:
+            if kind == "user_annotation" and e.name() == SHIFT_RANGE:
+                shift_host_ns += e.duration_ns()
             name = e.name() if kind in ("cpu_op", "user_annotation") else f"> {e.name()}"
             host.append((e.start_ns(), e.start_ns() + e.duration_ns(), name, e.start_thread_id()))
     dev.sort()
@@ -120,21 +131,36 @@ def reduce_events(events) -> dict:
     if not job:
         raise LostRecords("the profiler recorded no device work inside the window")
     busy_ns = _union_ns([(s, e) for s, e, _ in job])
-    notes.sort()
-    starts = [s for s, _, _ in notes]
-    trav_ns = 0
+    inside_trav = _inside(notes)
+    inside_shift = _inside(shifts)
+    trav_ns = shift_ns = 0
     for s, e, _ in job:
-        i = bisect.bisect_right(starts, s) - 1
-        if i >= 0 and s < notes[i][1]:
+        if inside_trav(s):
             trav_ns += e - s
+        elif inside_shift(s):
+            shift_ns += e - s
     by_name = defaultdict(int)
     for s, e, name in job:
         by_name[name[:120]] += e - s
     device_ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
     return {"device_events": len(job), "busy_s": busy_ns / 1e9,
             "traversal_s": trav_ns / 1e9 if notes else None,
+            "shift_s": shift_ns / 1e9 if shifts else None,
+            "shift_host_s": shift_host_ns / 1e9 if shifts else None,
             "breakdown": {"device_ops": [[n, ns / 1e9] for n, ns in device_ops],
                           "idle_gaps": idle_gaps(job, host)}}
+
+
+def _inside(ranges):
+    """inside(t): whether t lies inside one of ranges [(start, end, name)],
+    which do not overlap (ranges of one name on one stream)."""
+    ranges = sorted(ranges)
+    starts = [s for s, _, _ in ranges]
+
+    def inside(t) -> bool:
+        i = bisect.bisect_right(starts, t) - 1
+        return i >= 0 and t < ranges[i][1]
+    return inside
 
 
 def idle_gaps(job, host) -> list:
