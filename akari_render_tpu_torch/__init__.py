@@ -16,7 +16,8 @@ intersector K1 (`accel/intersect.py`), the pair sweep's cull, refine,
 candidate walk and window refine K2-K6 (`accel/pairs.py`), the wide-BVH
 walk K7 (`accel/wide.py`), the path megakernel K8
 (`integrators/megakernel.py`) and the fused shade K9
-(`integrators/fused_shade.py`). Nothing here imports jax.
+(`integrators/fused_shade.py`), and, in place of no TPU kernel, the PCG32
+draws (`core/pcg.py`). Nothing here imports jax.
 """
 
 __version__ = "0.1.0"

@@ -42,7 +42,7 @@ from ..core.distribution import resample_with_f64
 from ..core.film import Film, add_splats, develop
 from ..core.filters import filter_from_config
 from ..core.math import disable_tf32
-from ..core.pcg import MASK32, Pcg32, pcg32_next_f32, u64_from_limbs
+from ..core.pcg import MASK32, Pcg32, pcg32_draws, pcg32_next_f32, u64_from_limbs
 from ..core.samplers import IndependentSampler, next_2d, next_3d
 from ..core.sampling import sample_gaussian
 from ..scene import Scene
@@ -108,13 +108,8 @@ def sample_dimension(mcmc_depth: int) -> int:
     return 4 + 1 + (1 + mcmc_depth) * 7
 
 
-def draw_pss(rng: Pcg32, d: int):
-    """d PCG32 draws a lane, stacked: (rng, [N, d])."""
-    us = []
-    for _ in range(d):
-        rng, u = pcg32_next_f32(rng)
-        us.append(u)
-    return rng, torch.stack(us, -1)
+# d PCG32 draws a lane: (rng, [N, d]); one kernel launch on the card
+draw_pss = pcg32_draws
 
 
 def kelemen_mutate(cur, u):

@@ -15,7 +15,10 @@ never read the device:
   share of the bounces;
 - samples: samples of every pixel rendered by render_pt's pass route;
 - host_reads: calls in the render path that block the host on the device,
-  each at a `read(site)` (counted at the site on every device).
+  each at a `read(site)` (counted at the site on every device);
+- pcg_kernel_draws, pcg_plain_draws: PCG32 float draws (lanes x draws a
+  call) taken by core/pcg.py::pcg32_draws through its kernel and through
+  its plain version; the first over their sum is the kernel's share.
 
 Spans: `span(name)` is a context manager. While no profiler collects it is
 one shared no-op object. While one does (torch.profiler.profile, or any
@@ -64,7 +67,8 @@ class RenderStats:
         return p
 
 
-counts = {"bounces": 0, "dispatch_groups": 0, "fused_shades": 0, "samples": 0, "host_reads": 0}
+counts = {"bounces": 0, "dispatch_groups": 0, "fused_shades": 0, "samples": 0, "host_reads": 0,
+          "pcg_kernel_draws": 0, "pcg_plain_draws": 0}
 spans: dict[str, list[int]] = {}
 _stack: list = []  # the open spans, innermost last
 

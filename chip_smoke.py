@@ -42,8 +42,9 @@ Phases (any failure exits non-zero; nothing is caught):
 9. the cluster-tier path at full width: classroom 1920x1080, 1 spp, d12
    through the CLI with scenes/classroom/pt.json, with K2/K3/K4's launches
    counted and every K3 and K4 launch timed;
-10. build: the path megakernel K8 (csrc/megakernel.cu) and the fused shade
-   K9 (csrc/fused_shade.cu), in the same parallel build as phases 2 and 6;
+10. build: the path megakernel K8 (csrc/megakernel.cu), the fused shade
+   K9 (csrc/fused_shade.cu) and the PCG32 draws (csrc/pcg.cu), in the same
+   parallel build as phases 2 and 6;
 11. K9 parity: the first bounce of a path-B sample of blinds 256x256 (the
    main path's inputs): the masked kernel over the whole 65,536-lane
    wavefront against the masked plain version, and the unmasked kernel on
@@ -171,12 +172,23 @@ Phases (any failure exits non-zero; nothing is caught):
    the dispatch (the shade spectral renders take) of the same call; classroom 1920x1080, 1 spp, d12 through the static pair sweep,
    one render (K2-K4's launches, peak bytes a lane); prism 256x256, 16
    spp, d12, one render; one sample each of cbox and classroom by
-   torch.profiler (device events, busy time, idle share).
+   torch.profiler (device events, busy time, idle share);
+30. the PCG32 draws kernel (csrc/pcg.cu, core/pcg.py::pcg32_draws) at
+   PCG_SHAPES against its plain version on the same streams (stream ids
+   over all 64 bits), u and the new state bit-equal, one launch a call,
+   the old state untouched; at the 61-draw shapes its device time
+   (profiler) and CUDA-event time beside its bound (bytes) and the plain
+   version's time; its resources at 61 draws and at 1; then a job of the
+   benchmark's MCMC configuration (MCMC_JOB) after a warm-up: the
+   kernel's launches and its share of the draws (1.0: no plain draw on
+   the card), the job's phases, and one mutation step's launches and
+   device events (torch.profiler).
 
 `python3 chip_smoke.py --only 26,27` runs the build and the listed phases
-alone (26 after phase 8's image; likewise 11, 14, 21, 28 and 29, 29 with
-phase 21's RGB row where 21 is named too) and prints no result line: a
-quick check of them on the card.
+alone (26 after phase 8's image; likewise 11, 14, 21, 28, 29 and 30, 29
+with phase 21's RGB row where 21 is named too) and prints no result line
+(phase 30 prints its kernel's JSON entry): a quick check of them on the
+card.
 
 Each phase prints the seconds since the start when it ends. After the
 build it prints what the compiler gave every kernel (registers a thread,
@@ -300,6 +312,14 @@ MCMC_CHAINS_64 = 256  # the 1024^2 configuration's chains a pixel, 1/16
 # phase 25: samples of the GPT render and spp-equivalents of the MCMC one
 GPT_SPP = 2
 MCMC_SPP = 1
+# phase 30: the pcg32_draws kernel's shapes (lanes, draws a call): the
+# mutation step's PSS of 65,536 chains, a bootstrap chunk's 131,072 lanes,
+# one draw, a ragged block
+PCG_SHAPES = ((65536, 61), (131072, 61), (1000, 1), (33, 7))
+# phase 30: a job of the benchmark's MCMC configuration (cbox-1024-mcmc-gpu:
+# mcmc.json's 65,536 chains, cut to 2 spp-equivalents, 2^20 bootstrap
+# samples and a 1-spp direct pass)
+MCMC_JOB = {"spp": 2, "n_bootstrap": 1 << 20, "direct_spp": 1}
 # spectral transport and the last shader ops (phases 28-29)
 PRISM = ROOT / "scenes" / "prism" / "scene.json"
 PRISM_SPECTRAL = ROOT / "scenes" / "prism" / "spectral.json"
@@ -2259,10 +2279,11 @@ def reset_launches():
     from akari_render_tpu_torch.accel import intersect as k1
     from akari_render_tpu_torch import stats
     from akari_render_tpu_torch.accel import pairs, wide
+    from akari_render_tpu_torch.core import pcg
     from akari_render_tpu_torch.integrators import fused_shade as fs
     from akari_render_tpu_torch.integrators import megakernel as mk
 
-    k1.launches = mk.launches = fs.launches = 0
+    k1.launches = mk.launches = fs.launches = pcg.launches = 0
     for counts in (pairs.launches, wide.launches):
         for k in counts:
             counts[k] = 0
@@ -2273,11 +2294,12 @@ def read_launches() -> dict:
     from akari_render_tpu_torch.accel import intersect as k1
     from akari_render_tpu_torch import stats
     from akari_render_tpu_torch.accel import pairs, wide
+    from akari_render_tpu_torch.core import pcg
     from akari_render_tpu_torch.integrators import fused_shade as fs
     from akari_render_tpu_torch.integrators import megakernel as mk
 
     return {"K1": k1.launches, **pairs.launches, **wide.launches, "K8": mk.launches,
-            "K9": fs.launches, **stats.counts}
+            "K9": fs.launches, "pcg32_draws": pcg.launches, **stats.counts}
 
 
 def device_events_per_call(calls: dict, windows: int = 6, busy: bool = False) -> dict:
@@ -2894,7 +2916,6 @@ def gpt_mcmc_full_width(device):
     from akari_render_tpu_torch.core.film import Film
     from akari_render_tpu_torch.core.filters import filter_from_config
     from akari_render_tpu_torch.core.image_io import read_exr
-    from akari_render_tpu_torch.core.samplers import IndependentSampler
     from akari_render_tpu_torch.integrators import gpt, mcmc
     from akari_render_tpu_torch.integrators.common import PTSettings
     from akari_render_tpu_torch.scene import load_scene
@@ -2955,17 +2976,7 @@ def gpt_mcmc_full_width(device):
         gpt.gpt_sample_films(scene, gm, gfilt, gset, mcmc.sample_dimension(gm.max_depth),
                              gtask.seed, "reconnect", films, 0, pix)
 
-    mtask = RenderTask.from_file(CBOX_MCMC)
-    mm = mtask.method
-    mset, d = mcmc._mcmc_settings(mm)
-    mfilt = filter_from_config(mtask.filter_config)
-    boot = mcmc.bootstrap_chains(scene, mset, mfilt, mm, d, mm.n_chains, mtask.seed)
-    zero = torch.zeros((), dtype=torch.int64, device=device)
-    rng = IndependentSampler.new(torch.arange(mm.n_chains, device=device),
-                                 seed=mtask.seed ^ 0xC4A1).rng
-    carry = mcmc.Chains(*boot[:4], rng, Film.new(1024, 1024, device),
-                        torch.zeros((), device=device), zero, zero, zero)
-    step = mcmc.make_mutate_step(scene, mset, mfilt, mm, d)
+    step, carry = mcmc_step(scene, device)
     calls = {"gpt sample": gpt_sample, "mcmc step": lambda: step(carry)}
     t0 = time.perf_counter()
     events = device_events_per_call(calls, busy=True)
@@ -2982,6 +2993,115 @@ def gpt_mcmc_full_width(device):
               f"{100 * (1.0 - busy_ms / wall_ms):.1f} %", flush=True)
     print(f"cbox 1024^2 GPT/MCMC profile: {time.perf_counter() - t0:.1f} s", flush=True)
     return found
+
+
+def mcmc_step(scene, device):
+    """(step, carry): the mutation step of mcmc.json's configuration on the
+    cbox `scene` (1024^2) and its first carry, after the bootstrap."""
+    import torch
+
+    from akari_render_tpu_torch.config import RenderTask
+    from akari_render_tpu_torch.core.film import Film
+    from akari_render_tpu_torch.core.filters import filter_from_config
+    from akari_render_tpu_torch.core.samplers import IndependentSampler
+    from akari_render_tpu_torch.integrators import mcmc
+
+    mtask = RenderTask.from_file(CBOX_MCMC)
+    mm = mtask.method
+    mset, d = mcmc._mcmc_settings(mm)
+    mfilt = filter_from_config(mtask.filter_config)
+    boot = mcmc.bootstrap_chains(scene, mset, mfilt, mm, d, mm.n_chains, mtask.seed)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    rng = IndependentSampler.new(torch.arange(mm.n_chains, device=device),
+                                 seed=mtask.seed ^ 0xC4A1).rng
+    carry = mcmc.Chains(*boot[:4], rng, Film.new(1024, 1024, device),
+                        torch.zeros((), device=device), zero, zero, zero)
+    return mcmc.make_mutate_step(scene, mset, mfilt, mm, d), carry
+
+
+def pcg_kernel_phase(device) -> dict:
+    """Phase 30: the pcg32_draws kernel at PCG_SHAPES against its plain
+    version on the same streams (u and the new state bit-equal, one launch
+    a call), timed at the 61-draw shapes (device time by the profiler and
+    CUDA events) beside its bound and the plain version's time; its
+    resources; then one job of the benchmark's MCMC configuration
+    (MCMC_JOB) after a warm-up: the kernel's launches and its share of the
+    draws, the job's phases, and one mutation step's launches and device
+    events. Returns the kernel's JSON entry."""
+    import numpy as np
+    import torch
+
+    from akari_render_tpu_torch import stats
+    from akari_render_tpu_torch.config import RenderTask
+    from akari_render_tpu_torch.core import pcg
+    from akari_render_tpu_torch.integrators import mcmc
+    from akari_render_tpu_torch.scene import load_scene
+
+    entry = {"name": "pcg32_draws (csrc/pcg.cu)", "shapes": {}}
+    for lanes, d in PCG_SHAPES:
+        ids = np.random.default_rng(lanes * 7 + d).integers(0, 1 << 64, lanes, dtype=np.uint64)
+        s = pcg.Pcg32.new_seq(torch.as_tensor(ids.view(np.int64), device=device))
+        state0 = s.state.clone()
+        before = pcg.launches
+        got_rng, got = pcg.pcg32_draws(s, d)
+        torch.cuda.synchronize()
+        check(pcg.launches == before + 1, f"pcg32_draws at {lanes} x {d}: "
+              f"{pcg.launches - before} launches")
+        (want_rng, want), plain_ms = timed(lambda: pcg.pcg32_draws_torch(s, d))
+        check(torch.equal(got, want) and torch.equal(got_rng.state, want_rng.state)
+              and torch.equal(s.state, state0),
+              f"pcg32_draws at {lanes} x {d} differs from its plain version")
+        text = f"pcg32_draws {lanes} lanes x {d} draws: u and state bit-equal to the plain version"
+        if d > 1 and lanes >= 1 << 16:
+            t = event_and_device_ms(lambda: pcg.pcg32_draws(s, d), 200, "pcg32_draws_kernel")
+            plain_ms = cuda_ms(lambda: pcg.pcg32_draws_torch(s, d), 5)
+            b_ms, what = bound(0.0, lanes * d * 4 + 24 * lanes)
+            entry["shapes"][f"{lanes}x{d}"] = {
+                "ms": t["ms"], "event_ms": t["event_ms"], "bound_ms": b_ms, "bound": what,
+                "plain_ms": plain_ms, "roofline_pct": 100.0 * b_ms / t["ms"]}
+            text += (f"; {times_text(t)}, bound {b_ms:.4f} ms ({what}, "
+                     f"{100.0 * b_ms / t['ms']:.1f} % of it), plain version {plain_ms:.4f} ms")
+        print(text, flush=True)
+    for d in (61, 1):
+        v = pcg.kernel_info(d)["pcg32_draws"]
+        entry[f"resources_d{d}"] = v
+        print(f"pcg32_draws resources at {d} draws a call: {v['registers']} registers a thread, "
+              f"{v['static_smem']} + {v['dynamic_smem']} B shared memory, {v['local_bytes']} B "
+              f"local memory, {v['threads']} threads a block, {v['blocks_per_sm']} blocks "
+              f"resident an SM", flush=True)
+    entry["registers"] = entry["resources_d61"]["registers"]
+    entry["blocks_per_sm"] = entry["resources_d61"]["blocks_per_sm"]
+
+    scene = load_scene(str(CBOX), device=device)
+    task = RenderTask.from_file(method_file("cbox_mcmc_job.json", CBOX_MCMC, **MCMC_JOB))
+    mcmc.render_mcmc(scene, task.method, task)  # the warm-up
+    torch.cuda.synchronize()
+    l0 = pcg.launches
+    c0 = dict(stats.counts)
+    _, st = mcmc.render_mcmc(scene, task.method, task)
+    torch.cuda.synchronize()
+    kd = stats.counts["pcg_kernel_draws"] - c0["pcg_kernel_draws"]
+    pd = stats.counts["pcg_plain_draws"] - c0["pcg_plain_draws"]
+    check(pd == 0 and kd > 0, f"an MCMC job drew {kd} lane-draws by the kernel, {pd} plain")
+    job = {"launches": pcg.launches - l0, "kernel_draws": kd, "plain_draws": pd,
+           "steps": st["steps"], "step_ms": 1e3 * st["mutate_time"] / st["steps"],
+           "bootstrap_s": st["bootstrap_time"], "direct_s": st["direct_time"],
+           "total_s": st["total_time"]}
+    step, carry = mcmc_step(scene, device)
+    l0 = pcg.launches
+    step(carry)
+    job["step_launches"] = pcg.launches - l0
+    (events, busy_ms), = device_events_per_call({"mcmc step": lambda: step(carry)},
+                                                busy=True).values()
+    job.update(step_events=events, step_busy_ms=busy_ms)
+    entry["mcmc_job"] = job
+    print(f"MCMC job ({MCMC_JOB}, 65,536 chains, cbox 1024^2): pcg32_draws {job['launches']} "
+          f"launches, kernel share of the draws {kd / (kd + pd):.4f} ({kd} lane-draws); "
+          f"{job['steps']} steps at {job['step_ms']:.3f} ms, bootstrap {job['bootstrap_s']:.3f} s, "
+          f"direct pass {job['direct_s']:.3f} s, job {job['total_s']:.3f} s; one step: "
+          f"{job['step_launches']} pcg32_draws launches, {events} device events, device busy "
+          f"{busy_ms:.3f} ms (torch.profiler)", flush=True)
+    return entry
 
 
 class captured:
@@ -3620,6 +3740,7 @@ def build_all():
     build/cache/) for phases 19-21."""
     from akari_render_tpu_torch.accel import intersect as k1
     from akari_render_tpu_torch.accel import pairs, wide
+    from akari_render_tpu_torch.core import pcg
     from akari_render_tpu_torch.core.pmj02 import get_pmj02_tables
     from akari_render_tpu_torch.integrators import fused_shade as fs
     from akari_render_tpu_torch.integrators import megakernel as mk
@@ -3634,7 +3755,8 @@ def build_all():
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=run, args=(b,))
-               for b in (k1.build, pairs.build, wide.build, mk.build, fs.build, get_pmj02_tables)]
+               for b in (k1.build, pairs.build, wide.build, mk.build, fs.build, pcg.build,
+                         get_pmj02_tables)]
     for th in threads:
         th.start()
     for th in threads:
@@ -3645,8 +3767,9 @@ def build_all():
     print(f"K1 build: nvcc {k1.build_seconds:.3f} s", flush=True)
     print(f"K2-K6 build: nvcc {pairs.build_seconds:.3f} s; K7 build: nvcc "
           f"{wide.build_seconds:.3f} s", flush=True)
-    print(f"K8 build: nvcc {mk.build_seconds:.3f} s; K9 build: nvcc {fs.build_seconds:.3f} s "
-          f"({wall:.3f} s for the five builds and the pmj02 tables, in parallel)", flush=True)
+    print(f"K8 build: nvcc {mk.build_seconds:.3f} s; K9 build: nvcc {fs.build_seconds:.3f} s; "
+          f"pcg32_draws build: nvcc {pcg.build_seconds:.3f} s ({wall:.3f} s for the six builds "
+          f"and the pmj02 tables, in parallel)", flush=True)
     # K3 at classroom's 4,633 candidates, K8 and K9 at blinds' tables: the
     # shapes of their main paths
     scene, _, settings, filt = blinds_setup("cuda")
@@ -3702,6 +3825,9 @@ def main():
         if 29 in ONLY:
             spectral_full_width(device, rgb_cbox)
             lap("phase 29")
+        if 30 in ONLY:
+            print(json.dumps({"pcg32_draws": pcg_kernel_phase(device)}), flush=True)
+            lap("phase 30")
         return
     scene = load_scene(str(SCENE), device=device)
     entry = k1_parity(scene, device)
@@ -3767,6 +3893,8 @@ def main():
     lap("phase 28 (spectral cbox and prism 64^2, the routes, the functions, the shader ops)")
     spectral = spectral_full_width(device, rgb_cbox)
     lap("phase 29 (spectral at full width)")
+    pcg_entry = pcg_kernel_phase(device)
+    lap("phase 30 (pcg32_draws, an MCMC job)")
 
     kernels = [entry, *pair_entries.values(), other["K5"], other["K7"], fused["K8"], fused["K9"]]
     for k in kernels:  # the new routes' traffic and launches
@@ -3785,14 +3913,14 @@ def main():
     for k in kernels:  # K6 is K4's kernel
         res = info[k["name"].split()[0].replace("K6", "K4")]
         k["registers"], k["blocks_per_sm"] = res["registers"], res["blocks_per_sm"]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": [*kernels, pcg_entry]}))
     print(gpu_query())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 
 
 # `--only 26,27`: the build and those phases alone (26 after phase 8's
-# image; 11, 14, 21 and 26-29 can be named), for a quick check on the
+# image; 11, 14, 21 and 26-30 can be named), for a quick check on the
 # card; the full run takes no arguments
 ONLY = ({int(x) for x in sys.argv[sys.argv.index("--only") + 1].split(",")}
         if "--only" in sys.argv else set())

@@ -61,6 +61,37 @@ def test_pcg32_bits_and_floats_bit_exact(rng_np):
         np.testing.assert_array_equal(np.asarray(jf), tf.numpy())
 
 
+@pytest.mark.parametrize("lanes,d", [(1000, 61), (33, 7), (1000, 1)])
+def test_pcg32_draws_cpu_takes_plain(rng_np, lanes, d):
+    """On CPU streams draw_pss (pcg32_draws) is the plain version: d
+    pcg32_next_f32 calls stacked, bit for bit, and the JAX package's d
+    draws; no kernel launch, and pcg_plain_draws counts lanes x d. The
+    stream ids span all 64 bits, so states have the high bit set and the
+    increments wrap."""
+    from akari_render_tpu_torch import stats
+    from akari_render_tpu_torch.integrators.mcmc import draw_pss
+
+    hi = rng_np.integers(0, 1 << 32, lanes, dtype=np.uint64).astype(np.uint32)
+    lo = rng_np.integers(0, 1 << 32, lanes, dtype=np.uint64).astype(np.uint32)
+    tr = t_pcg.Pcg32.new_seq(t_pcg.u64_from_limbs(_t(hi, np.int64), _t(lo, np.int64)))
+    assert bool((tr.state < 0).any()) and bool((tr.inc < 0).any())
+    launches, plain, kernel = (t_pcg.launches, stats.counts["pcg_plain_draws"],
+                               stats.counts["pcg_kernel_draws"])
+    got_rng, got = draw_pss(tr, d)
+    assert stats.counts["pcg_plain_draws"] == plain + lanes * d
+    assert t_pcg.launches == launches and stats.counts["pcg_kernel_draws"] == kernel
+    assert got.shape == (lanes, d) and got.dtype == torch.float32
+    jr = j_pcg.Pcg32.new_seq(j_pcg.U64(jnp.asarray(hi), jnp.asarray(lo)))
+    want = []
+    for j in range(d):
+        tr, u = t_pcg.pcg32_next_f32(tr)
+        jr, ju = j_pcg.pcg32_next_f32(jr)
+        want.append(u)
+        np.testing.assert_array_equal(np.asarray(ju), got[:, j].numpy())
+    assert torch.equal(got, torch.stack(want, -1))
+    assert torch.equal(got_rng.state, tr.state) and torch.equal(got_rng.inc, tr.inc)
+
+
 @pytest.mark.parametrize("seed,sample_index", [(0, 0), (0, 37), (5, 1 << 31)])
 def test_make_sampler_streams_bit_exact(seed, sample_index):
     cfg = {"type": "independent", "seed": seed}

@@ -699,6 +699,35 @@ def test_sampler_draws_on_card_match_cpu(cuda, kind, monkeypatch):
         assert torch.equal(draws[0], draws[1])
 
 
+@pytest.mark.parametrize("lanes,d", [(65_536, 61), (131_072, 61), (1_000, 1), (33, 7)])
+def test_pcg32_draws_kernel_bit_equal(cuda, lanes, d):
+    """The pcg32_draws kernel at the mutation step's and the bootstrap's
+    shapes (and one draw, and a ragged block) against its plain version on
+    the same streams, u and the new state bit-equal; the stream ids span
+    all 64 bits (states with the high bit set, increments that wrap); one
+    launch a call, and the old state left as it was."""
+    from akari_render_tpu_torch import stats
+    from akari_render_tpu_torch.core import pcg
+
+    rng = np.random.default_rng(lanes * 1009 + d)
+    ids = rng.integers(0, 1 << 64, lanes, dtype=np.uint64).view(np.int64)
+    s = pcg.Pcg32.new_seq(torch.as_tensor(ids, device=cuda))
+    assert bool((s.state < 0).any() and (s.inc < 0).any())
+    before, state0 = pcg.launches, s.state.clone()
+    kernel_draws = stats.counts["pcg_kernel_draws"]
+    got_rng, got = pcg.pcg32_draws(s, d)
+    torch.cuda.synchronize()
+    assert pcg.launches == before + 1
+    assert stats.counts["pcg_kernel_draws"] == kernel_draws + lanes * d
+    assert torch.equal(s.state, state0)
+    want_rng, want = pcg.pcg32_draws_torch(s, d)
+    assert got.shape == (lanes, d) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(got_rng.state, want_rng.state) and got_rng.inc is s.inc
+    info = pcg.kernel_info(d)["pcg32_draws"]
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, info
+
+
 def test_render_aov_on_card_matches_cpu(cuda):
     """matbox 32x32, 2 spp of the AOVs on the card and on the CPU with the
     same GGX table: every image within 1e-4 on all but 0.1 % of the
