@@ -16,13 +16,8 @@ sample index is one number a wavefront. The draws are those of the [N]
 forms bit for bit; what is one value for all lanes is computed once on the
 host, and a stashed second component is returned without drawing a new
 pair (JAX computes and discards one). A per-lane [N] sample index (a
-tensor) takes the [N] path.
-
-The persistent wavefront holds lanes at mixed depths, so there the
-dimension is an [N] int64 tensor too (`lanewise`): next_1d then draws each
-lane's fresh pair, keeps the stashed component where the lane's dimension
-is odd, and selects per lane, as the JAX package does. trace_paths' lanes
-draw in lockstep and keep the int.
+tensor) takes the [N] path. Every sampler's lanes draw in lockstep, so the
+dimension is always one Python int.
 """
 from __future__ import annotations
 
@@ -36,7 +31,7 @@ import torch
 from .pcg import MASK32, Pcg32, u64_from_limbs
 from .pmj02 import N_PMJ02_SAMPLES, N_PMJ02_SETS, get_pmj02_tables
 from .samplers import (
-    GOLDEN, HashSampler, IndependentSampler, hash_u64, next_2d, next_3d, select, take,
+    GOLDEN, HashSampler, IndependentSampler, hash_u64, next_2d, next_3d, take,
 )
 
 
@@ -146,17 +141,13 @@ class SobolSampler(NamedTuple):
 
     pixel_hash: torch.Tensor  # [N] hash of (pixel, seed)
     sample_index: object  # int, or [N] int64 tensor
-    dim: object  # dimension counter: int (one for all lanes), or [N] int64 tensor
+    dim: int  # dimension counter, one for all lanes
     cache: torch.Tensor | None  # [N] stashed second component of the pair
 
     @staticmethod
     def new(pixel_ids, sample_index, seed: int = 0) -> "SobolSampler":
         return SobolSampler(_hash_combine(pixel_ids.to(torch.int64) & MASK32, seed & MASK32),
                             _lane_index(sample_index), 0, None)
-
-    @property
-    def has_cache(self):
-        return self.dim % 2 == 1
 
     def _pair(self, pair):
         return sobol02_owen(self.sample_index, _hash_combine(self.pixel_hash, pair))
@@ -166,7 +157,6 @@ class SobolSampler(NamedTuple):
 
     next_2d = next_2d
     next_3d = next_3d
-    select = staticmethod(select)
     take = take
 
 
@@ -201,7 +191,7 @@ class Pmj02Sampler(NamedTuple):
     tables: torch.Tensor  # [S * N, 2] int32 24-bit fixed point, shared by every lane
     pixel_hash: torch.Tensor  # [N] hash of (pixel, seed)
     sample_index: object  # int, or [N] int64 tensor
-    dim: object  # int, or [N] int64 tensor
+    dim: int
     cache: torch.Tensor | None
 
     _shared = ("tables",)
@@ -212,10 +202,6 @@ class Pmj02Sampler(NamedTuple):
             pmj02_tables(pixel_ids.device),
             _hash_combine(pixel_ids.to(torch.int64) & MASK32, seed & MASK32),
             _lane_index(sample_index), 0, None)
-
-    @property
-    def has_cache(self):
-        return self.dim % 2 == 1
 
     def _pair(self, pair):
         s, n = N_PMJ02_SETS, N_PMJ02_SAMPLES
@@ -230,41 +216,18 @@ class Pmj02Sampler(NamedTuple):
 
     next_2d = next_2d
     next_3d = next_3d
-    select = staticmethod(select)
     take = take
 
 
 def _next_1d(sampler):
     """next_1d of a pair-drawing sampler (Sobol, pmj02): the stashed second
-    component at an odd dimension, else the first of a fresh pair. With an
-    int dimension the choice is made once for all lanes; with per-lane
-    dimensions every lane draws its fresh pair and selects, as in JAX."""
+    component at an odd dimension, else the first of a fresh pair; the
+    choice is made once for all lanes."""
     dim = sampler.dim
-    if not isinstance(dim, torch.Tensor):
-        if dim % 2 == 1:
-            return sampler._replace(dim=dim + 1), sampler.cache
-        u0, u1 = sampler._pair(dim // 2)
-        return sampler._replace(dim=dim + 1, cache=u1), u0
-    odd = dim % 2 == 1
+    if dim % 2 == 1:
+        return sampler._replace(dim=dim + 1), sampler.cache
     u0, u1 = sampler._pair(dim // 2)
-    cache = sampler.cache if sampler.cache is not None else torch.zeros_like(u0)
-    return (sampler._replace(dim=dim + 1, cache=torch.where(odd, cache, u1)),
-            torch.where(odd, cache, u0))
-
-
-def lanewise(sampler, n: int):
-    """The sampler with its per-lane state as [n] tensors: the dimension
-    counter (and the stash) of a Sobol or pmj02 sampler becomes one entry a
-    lane, so lanes at different depths can share a pool; other samplers
-    already keep their state a lane."""
-    if not isinstance(sampler, (SobolSampler, Pmj02Sampler)) or isinstance(sampler.dim,
-                                                                          torch.Tensor):
-        return sampler
-    dev = sampler.pixel_hash.device
-    cache = sampler.cache if sampler.cache is not None else torch.zeros(n, device=dev)
-    return sampler._replace(dim=torch.full((n,), sampler.dim, dtype=torch.int64, device=dev),
-                            cache=cache, sample_index=_lane_index(
-                                torch.as_tensor(sampler.sample_index, device=dev).expand(n)))
+    return sampler._replace(dim=dim + 1, cache=u1), u0
 
 
 def _lane_index(sample_index):

@@ -6,11 +6,10 @@ uint32 values live in int64 tensors masked to 0xFFFFFFFF (core/pcg.py):
 a product of two of them can wrap the int64, but its low 32 bits are
 exact, and every shift is taken on a masked, non-negative value.
 
-Every sampler type has two row operations: `select(mask, a, b)` (lane i
-from a where mask[i], else from b: the persistent wavefront's refill) and
-`sampler.take(ids)` (the rows ids: the split pass's compaction). Both pass
-a sampler's shared leaves (pmj02's [S * N, 2] table, named in `_shared`)
-and its one-for-all-lanes Python ints through untouched.
+Every sampler type has one row operation, `sampler.take(ids)` (the rows
+ids: the split pass's compaction). It passes a sampler's shared leaves
+(pmj02's [S * N, 2] table, named in `_shared`) and its one-for-all-lanes
+Python ints through untouched.
 """
 from __future__ import annotations
 
@@ -48,36 +47,23 @@ def hash_draw(key, ctr):
     return (ctr + 1) & MASK32, (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def _map_rows(fn, a, b=None, shared=()):
-    """Apply fn to every per-lane leaf of the sampler NamedTuple a (with b's
-    leaf beside it when b is given), nested NamedTuples included; shared
-    leaves and Python ints pass through, and a Python int must agree in a
-    and b."""
+def _map_rows(fn, a, shared=()):
+    """Apply fn to every per-lane leaf of the sampler NamedTuple a, nested
+    NamedTuples included; shared leaves and Python ints pass through."""
     out = {}
     for name, x in zip(a._fields, a):
-        y = None if b is None else getattr(b, name)
         if isinstance(x, tuple):
-            out[name] = _map_rows(fn, x, y, getattr(x, "_shared", ()))
-        elif name in shared or x is None or not isinstance(x, torch.Tensor):
-            if b is not None and not isinstance(x, torch.Tensor) and x != y:
-                raise ValueError(f"sampler field {name!r} differs between the lanes: "
-                                 f"{x!r} and {y!r}; make it per-lane first")
+            out[name] = _map_rows(fn, x, getattr(x, "_shared", ()))
+        elif name in shared or not isinstance(x, torch.Tensor):
             out[name] = x
         else:
-            out[name] = fn(x) if b is None else fn(x, y)
+            out[name] = fn(x)
     return type(a)(**out)
-
-
-def select(mask, a, b):
-    """Lane i of sampler a where mask[i], else of sampler b (the same type)."""
-    def sel(x, y):
-        return torch.where(mask.reshape(mask.shape + (1,) * (x.ndim - 1)), x, y)
-    return _map_rows(sel, a, b, getattr(a, "_shared", ()))
 
 
 def take(sampler, ids):
     """The sampler of the lanes ids (an index tensor)."""
-    return _map_rows(lambda x: x[ids], sampler, shared=getattr(sampler, "_shared", ()))
+    return _map_rows(lambda x: x[ids], sampler, getattr(sampler, "_shared", ()))
 
 
 def next_2d(sampler):
@@ -112,7 +98,6 @@ class IndependentSampler(NamedTuple):
 
     next_2d = next_2d
     next_3d = next_3d
-    select = staticmethod(select)
     take = take
 
 
@@ -136,5 +121,4 @@ class HashSampler(NamedTuple):
 
     next_2d = next_2d
     next_3d = next_3d
-    select = staticmethod(select)
     take = take

@@ -25,19 +25,16 @@ the albedo of the closure there (the per-kind closures' `albedo`, or K9's
 albedo output on the fused route; evaluated at the first bounce only, the
 only one that records it), the geometric normal and the hit distance.
 
-Fused rays (AKR_FUSE_RAYS=1, read at every call): bounce k's NEE shadow
-ray and bounce k+1's closest-hit ray trace in one traversal of 2N lanes,
-the shadow lanes as any hits capped at the shadow distance, and the
-pending contribution lands one bounce later. On without per-depth taps,
-with NEE and a light, in scenes without alpha, as in the JAX package.
-
 Partial tracing (the split-compacted pass, pt.py): depth_end stops the
 bounce loop early, finalize=False returns the raw state dict (sampler
 included), and resume_state with depth_beg continues it; any row subset
 of a state (take_rows) resumes bit-exactly.
 
 Rays go through Scene.intersect_alpha / occlude_alpha, which are
-intersect / occlude on opaque scenes.
+intersect / occlude on opaque scenes: one closest-hit traversal a bounce,
+and each NEE shadow ray as its own occlusion query. (The JAX package's
+fused shadow rays, which trace with the next bounce's rays, are not
+ported: on the H100 they never beat this loop.)
 
 Spans and counters (stats.py): each bounce is a `bounce` span (the last
 intersect too) holding bounce.surface, .emission, .nee, .shade, .shadow
@@ -63,7 +60,6 @@ spectral mode never shades through K9 and refuses per-depth taps.
 """
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable
@@ -71,7 +67,6 @@ from typing import Callable
 import torch
 
 from .. import stats
-from ..accel.trace import Hit
 from ..core.math import RAY_TMAX, dot, face_forward, offset_ray_origin
 from ..core.sampling import INV_PI, mis_weight
 from ..core.spectral import (
@@ -83,6 +78,7 @@ from ..svm.surface import DiffuseBsdf, SurfaceClosure
 from .fused_shade import fused_shade, fused_shade_enabled
 
 _shade_spans: list[str] = []  # "shade.<k>", the span of kind k's group
+_F, _B = torch.float32, torch.bool
 
 
 def _shade_span(k: int) -> str:
@@ -95,61 +91,6 @@ def kind_rows(mask):
     """The ids of the lanes where `mask` is True (a host read)."""
     with stats.read("kind_rows"):
         return torch.nonzero(mask).squeeze(1)
-
-
-def fuse_rays_enabled() -> bool:
-    """AKR_FUSE_RAYS=1: trace each bounce's shadow rays with the next
-    bounce's closest-hit rays in one traversal."""
-    return os.environ.get("AKR_FUSE_RAYS", "0") == "1"
-
-
-def uses_fused_rays(scene: Scene, settings: PTSettings) -> bool:
-    """Whether a path loop pipelines its shadow rays (the JAX package's
-    rule, without the per-depth taps that turn it off): the switch, NEE
-    with a light, no alpha."""
-    return (fuse_rays_enabled() and settings.use_nee and scene.arrays.lights.num_lights > 0
-            and not scene.has_alpha)
-
-
-def pending_rows(n: int, dev, wavelengths: int = 0) -> dict:
-    """The pending-shadow rows of fused rays, empty; with `wavelengths`
-    also the pending spectral contribution."""
-    rows = {"p_ro": torch.zeros((n, 3), device=dev), "p_wi": torch.zeros((n, 3), device=dev),
-            "p_dist": torch.zeros((n,), device=dev), "p_contrib": torch.zeros((n, 3), device=dev),
-            "p_valid": torch.zeros((n,), dtype=torch.bool, device=dev),
-            "p_ex0": torch.full((n,), -1, dtype=torch.int32, device=dev),
-            "p_ex1": torch.full((n,), -1, dtype=torch.int32, device=dev)}
-    if wavelengths:
-        rows["p_contrib_s"] = torch.zeros((n, wavelengths), device=dev)
-    return rows
-
-
-def fused_trace(scene: Scene, st: dict, zeros_2n):
-    """One traversal of [path rays | pending shadow rays]: the path rays'
-    Hit and the pending lanes' occlusion. The shadow lanes trace as any
-    hits (per-lane on the cluster tier; K1 runs them closest hit) up to
-    their distance, excluding the triangles NEE left."""
-    n = st["ray_o"].shape[0]
-    dev = zeros_2n.device
-    lanes = torch.cat([torch.zeros((n,), dtype=torch.bool, device=dev),
-                       torch.ones((n,), dtype=torch.bool, device=dev)])
-    hit2 = scene.intersect(
-        torch.cat([st["ray_o"], st["p_ro"]]), torch.cat([st["ray_d"], st["p_wi"]]), zeros_2n,
-        torch.cat([torch.where(st["active"], RAY_TMAX, -1.0),
-                   torch.where(st["p_valid"], st["p_dist"], -1.0)]),
-        exclude0=torch.cat([st["exclude"], st["p_ex0"]]),
-        exclude1=torch.cat([torch.full((n,), -1, dtype=torch.int32, device=dev), st["p_ex1"]]),
-        any_hit_mask=lanes)
-    return Hit(*(x[:n] for x in hit2)), hit2.valid[n:]
-
-
-def resolve_pending(st: dict, occluded) -> None:
-    """Land the pending NEE contributions that were not occluded."""
-    ok = st["p_valid"] & ~occluded
-    st["radiance"] = st["radiance"] + torch.where(ok[..., None], st["p_contrib"], 0.0)
-    if "p_contrib_s" in st:
-        st["radiance_s"] = st["radiance_s"] + torch.where(ok[..., None], st["p_contrib_s"], 0.0)
-    st["p_valid"] = torch.zeros_like(st["p_valid"])
 
 
 def take_rows(state: dict, ids) -> dict:
@@ -169,11 +110,13 @@ class PTSettings:
     color: str = "rgb"  # "rgb" | "spectral" (hero-wavelength transport)
 
 
-def dispatch_shade(scene: Scene, si, extra: dict, fn, lanes, force_diffuse: bool = False):
+def dispatch_shade(scene: Scene, si, extra: dict, fn, lanes, spec, force_diffuse: bool = False):
     """fn(closure, extra_rows) -> dict of per-lane tensors, evaluated for the
     lanes where `lanes` is True, grouped by shader kind. Other lanes get
-    zeros. With "lambdas" in extra (spectral mode), each group's closures
-    take their lanes' hero wavelengths."""
+    zeros, and so does every output that `spec` names ((key, trailing
+    shape, dtype) rows) when no lane produced it. With "lambdas" in extra
+    (spectral mode), each group's closures take their lanes' hero
+    wavelengths."""
     n = lanes.shape[0]
     out: dict = {}
 
@@ -191,16 +134,19 @@ def dispatch_shade(scene: Scene, si, extra: dict, fn, lanes, force_diffuse: bool
             frame = tuple(f[rows] for f in si["frame"])
             closure = SurfaceClosure(DiffuseBsdf(refl), frame, si["ng"][rows])
             scatter(rows, fn(closure, {k: v[rows] for k, v in extra.items()}))
-        return out
-    for k in range(len(scene.kinds)):
-        rows = kind_rows(lanes & (si["kind"] == k))
-        if rows.numel() == 0:
-            continue
-        stats.counts["dispatch_groups"] += 1
-        with stats.span(_shade_span(k)):
-            lam0 = extra["lambdas"][rows, 0] if "lambdas" in extra else None
-            closure = scene.kind_closure(si, k, rows, lambda0=lam0)
-            scatter(rows, fn(closure, {key: v[rows] for key, v in extra.items()}))
+    else:
+        for k in range(len(scene.kinds)):
+            rows = kind_rows(lanes & (si["kind"] == k))
+            if rows.numel() == 0:
+                continue
+            stats.counts["dispatch_groups"] += 1
+            with stats.span(_shade_span(k)):
+                lam0 = extra["lambdas"][rows, 0] if "lambdas" in extra else None
+                closure = scene.kind_closure(si, k, rows, lambda0=lam0)
+                scatter(rows, fn(closure, {key: v[rows] for key, v in extra.items()}))
+    for key, shape, dtype in spec:
+        if key not in out:
+            out[key] = torch.zeros((n,) + shape, dtype=dtype, device=lanes.device)
     return out
 
 
@@ -326,18 +272,19 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
     zeros_n = torch.zeros((n,), device=dev)
     nee = settings.use_nee and a.lights.num_lights > 0
     fused = spectral is None and uses_fused_shade(scene, settings, dev)
-    fuse_rays = radiance_cb is None and uses_fused_rays(scene, settings)
-    if fuse_rays:
-        zeros_2n = torch.zeros((2 * n,), device=dev)
-        if "p_valid" not in st:
-            st.update(pending_rows(n, dev, n_w if spectral is not None else 0))
+    # the dispatch's outputs that the loop reads, zeros where no lane is live
+    shade_spec = [("wi", (3,), _F), ("f", (3,), _F), ("pdf", (), _F), ("valid", (), _B)]
+    if nee:
+        shade_spec.append(("direct", (3,), _F))
+    if spectral is not None:
+        shade_spec.append(("f_s", (n_w,), _F))
+        if nee:
+            shade_spec.append(("direct_s", (n_w,), _F))
+        if dispersion:
+            shade_spec.append(("disp", (), _B))
 
     def intersect_live():
         with stats.span("traversal.intersect"):
-            if fuse_rays:  # also lands the previous bounce's pending shadows
-                hit, occluded = fused_trace(scene, st, zeros_2n)
-                resolve_pending(st, occluded)
-                return hit
             return scene.intersect_alpha(
                 st["ray_o"], st["ray_d"], zeros_n,
                 torch.where(st["active"], RAY_TMAX, -1.0), exclude0=st["exclude"],
@@ -435,17 +382,10 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
                     stats.counts["fused_shades"] += 1
                     sh = _fused_shade_live(scene.shade_bake, si, extra, st["active"])
                 else:
-                    sh = dispatch_shade(scene, si, extra, partial(shade, albedo=depth == 0),
-                                        st["active"], settings.force_diffuse)
-                if not sh:  # no live lane: every output is zero
-                    sh = {k: torch.zeros((n,) + s, dtype=dt, device=dev) for k, s, dt in (
-                        ("wi", (3,), torch.float32), ("f", (3,), torch.float32),
-                        ("pdf", (), torch.float32), ("valid", (), torch.bool),
-                        ("direct", (3,), torch.float32), ("albedo", (3,), torch.float32))}
-                    if spectral is not None:
-                        sh.update(direct_s=torch.zeros((n, n_w), device=dev),
-                                  f_s=torch.zeros((n, n_w), device=dev),
-                                  disp=torch.zeros((n,), dtype=torch.bool, device=dev))
+                    sh = dispatch_shade(
+                        scene, si, extra, partial(shade, albedo=depth == 0), st["active"],
+                        shade_spec + [("albedo", (3,), _F)] if depth == 0 else shade_spec,
+                        settings.force_diffuse)
             if spectral is not None and dispersion:
                 # hero-wavelength dispersion: a lane that newly meets a
                 # dispersive closure (its IOR taken at lambda0) terminates its
@@ -461,14 +401,7 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
                 st["first_albedo"] = torch.where(lane_hit[..., None], sh["albedo"],
                                                  st["first_albedo"])
 
-            if ls is not None and fuse_rays:
-                # the next bounce's traversal (or the last intersect) lands it
-                st.update(p_ro=ls.shadow_ro, p_wi=ls.wi, p_dist=ls.shadow_dist,
-                          p_valid=light_valid, p_contrib=st["beta"] * sh["direct"],
-                          p_ex0=si["tri_id"].to(torch.int32), p_ex1=ls.dest_tri)
-                if spectral is not None:
-                    st["p_contrib_s"] = st["beta_s"] * sh["direct_s"]
-            elif ls is not None:
+            if ls is not None:
                 with stats.span("bounce.shadow"):
                     with stats.span("traversal.occlude"):
                         occluded = scene.occlude_alpha(

@@ -53,15 +53,6 @@ class ReconnectionRecord(NamedTuple):
     dist: torch.Tensor  # [N] |x_{k-1} - V|
 
 
-def _with_zeros(out: dict, n: int, device, spec) -> dict:
-    """dispatch_shade's result with zeros for the keys it has none of (no
-    lane was shaded)."""
-    for key, shape, dtype in spec:
-        if key not in out:
-            out[key] = torch.zeros((n,) + shape, dtype=dtype, device=device)
-    return out
-
-
 _F, _B = torch.float32, torch.bool
 _SHADE_SPEC = (("direct", (3,), _F), ("wi", (3,), _F), ("f", (3,), _F), ("pdf", (), _F),
                ("valid", (), _B), ("roughness", (), _F))
@@ -124,7 +115,7 @@ def _bounce(scene, settings, st, depth: int, sampler, record_mode: bool,
 
     sampler, u_bsdf = sampler.next_3d()
     extra = {"wo": wo, "u_bsdf": u_bsdf, "ls_wi": ls.wi, "ls_li": ls.li, "ls_pdf": ls.pdf}
-    sh = _with_zeros(dispatch_shade(scene, si, extra, _shade, st["active"]), n, dev, _SHADE_SPEC)
+    sh = dispatch_shade(scene, si, extra, _shade, st["active"], _SHADE_SPEC)
 
     occluded = scene.occlude_alpha(
         ls.shadow_ro, ls.wi, zeros_n, torch.where(light_valid, ls.shadow_dist, -1.0),
@@ -305,18 +296,17 @@ def trace_shift_reconnect(scene, settings: PTSettings, ray_o, ray_d, sampler,
         ok = ok & ~occ
 
         # f1, pdf_y1 at x'_{k-1} (the shifted connection segment)
-        cv = _with_zeros(dispatch_shade(scene, si, {"wo": pre["wo"], "wi": wi_p}, _eval_conn,
-                                        do_connect),
-                         n, dev, (("f", (3,), _F), ("pdf", (), _F)))
+        cv = dispatch_shade(scene, si, {"wo": pre["wo"], "wi": wi_p}, _eval_conn, do_connect,
+                            (("f", (3,), _F), ("pdf", (), _F)))
         f1, pdf_y1 = cv["f"], cv["pdf"]
 
         # V-side with wo'_V = -wi': NEE re-eval (fd, pd) and the base exit
         # direction re-eval (f2, pdf_y2)
         wo_v = -wi_p
-        vv = _with_zeros(
-            dispatch_shade(scene, v_si, {"wo": wo_v, "dwi": rec.direct_wi, "wi": rec.wi}, _eval_v,
-                           do_connect & rec.valid),
-            n, dev, (("fd", (3,), _F), ("pd", (), _F), ("f2", (3,), _F), ("pdf_y2", (), _F)))
+        vv = dispatch_shade(
+            scene, v_si, {"wo": wo_v, "dwi": rec.direct_wi, "wi": rec.wi}, _eval_v,
+            do_connect & rec.valid,
+            (("fd", (3,), _F), ("pd", (), _F), ("f2", (3,), _F), ("pdf_y2", (), _F)))
         front_v = (dot(v_si["ng"], wi_p) < 0.0) & (v_si["light_id"] >= 0)
         le_v = _emission_at(scene, v_si, wo_v, do_connect & front_v)
         lpdf_v = pdf_direct(a.lights, v_si["light_id"], v_si["prim_pdf"], v_si["area"],

@@ -9,29 +9,26 @@ peaks at 2.1 GiB on an 80 GB H100, so nothing splits the pixels.
 render_pt routes as the JAX package does, in its order:
 - AKR_MEGAKERNEL=1 and an eligible scene (megakernel.megakernel_eligible)
   in RGB: the path megakernel K8, one launch per pass;
-- AKR_PERSISTENT=1 in RGB: the persistent wavefront (wavefront.py), one
-  pool of lanes at mixed depths refilled from the (pixel, sample) queue;
 - else the pass, split-compacted when AKR_SPLIT_DEPTH=d is set with
   0 < d < max_depth (_split_depth): depths [0, d) trace over one
-  wavefront of all pixels (or AKR_MAX_LANES pixels a block), then the
-  lanes still live resume on compacted chunks of max(512, lanes //
-  AKR_SPLIT_FRAC) (default 8, at least 2). Compaction is a row permutation
-  of independent lanes, so the image is the unsplit one bit for bit. The
+  wavefront of all pixels, then the lanes still live resume on compacted
+  chunks of max(512, npix // 8). Compaction is a row permutation of
+  independent lanes, so the image is the unsplit one bit for bit. The
   JAX package's default split (rr_depth + 1 on a TPU cluster-tier scene)
   is a TPU default; the port splits only when asked.
 A method with "color": "spectral" renders by hero-wavelength spectral
 transport (trace_paths' `spectral`): each sample draws one more 1D value
 after the film sample for the lane's wavelengths, so the RGB draw order is
 untouched. Like the JAX package, spectral renders take the pass, unsplit:
-neither K8, the persistent wavefront nor the split takes them, and the
-shade is the per-kind dispatch (never K9).
+neither K8 nor the split takes them, and the shade is the per-kind
+dispatch (never K9).
 The pass and the split shade each bounce as trace_paths routes it
 (common.uses_fused_shade): on the card through K9 wherever the scene's
 kinds bake, unless AKR_PALLAS_SHADE=0; on the CPU through K9's plain
 version only with AKR_PALLAS_SHADE set (not "0").
-The stats say which tier rendered ("tier": wavefront, persistent or
-megakernel), which shade ran ("shade") and which traversal the rays took
-("traversal": Scene.traversal, or "megakernel (K8)"); a split pass adds
+The stats say which tier rendered ("tier": wavefront or megakernel), which
+shade ran ("shade") and which traversal the rays took ("traversal":
+Scene.traversal, or "megakernel (K8)"); a split pass adds
 "split_depth" and "split_live", the live count of each phase 1.
 
 Spans (stats.py): render.job around every render_pt call, and on the
@@ -44,6 +41,9 @@ Not ported, on purpose or not yet:
   (AKR_MAX_PASS_SECONDS) and the SMEM / 128k-lane lids of
   max_wavefront_lanes: TPU workarounds with no counterpart on a GPU;
 - AKR_SPLIT_VERBOSE's stderr line (the live counts are in the stats);
+- the JAX package's persistent wavefront, fused shadow rays and lane
+  cap: on the H100 neither pass shape beat this pass, and nothing needs
+  to split the pixels;
 - checkpoint/resume and the live preview.
 """
 from __future__ import annotations
@@ -63,18 +63,8 @@ from ..core.lds import make_sampler
 from ..core.math import disable_tf32
 from ..core.spectral import sample_wavelengths
 from ..scene import Scene
-from .common import (
-    PTSettings, clamp_radiance, take_rows, trace_paths, uses_fused_rays, uses_fused_shade,
-)
+from .common import PTSettings, clamp_radiance, take_rows, trace_paths, uses_fused_shade
 from .megakernel import megakernel_eligible, render_pt_megakernel
-
-
-def lane_cap(npix: int) -> int:
-    """The lanes a wavefront may hold: AKR_MAX_LANES (at least 1,024, as the
-    JAX package reads it) when that is set, else one wavefront of all
-    pixels."""
-    env = os.environ.get("AKR_MAX_LANES")
-    return max(1024, int(env)) if env else npix
 
 
 def _split_depth(settings: PTSettings) -> int | None:
@@ -90,15 +80,12 @@ def _split_depth(settings: PTSettings) -> int | None:
     return None
 
 
-def camera_sample(scene: Scene, filt, sample_index: int, seed: int, sampler_config: dict | None,
-                  pix=None):
-    """The camera rays of one sample for the pixels `pix` (every pixel by
-    default): (ray_o, ray_d [N, 3], filter weight [N], the sampler after
-    the camera draw)."""
+def camera_sample(scene: Scene, filt, sample_index: int, seed: int, sampler_config: dict | None):
+    """The camera rays of one sample for every pixel: (ray_o, ray_d [N, 3],
+    filter weight [N], the sampler after the camera draw)."""
     with akr_stats.span("render.camera"):
         width, height = scene.camera.width, scene.camera.height
-        if pix is None:
-            pix = torch.arange(width * height, dtype=torch.int64, device=scene.device)
+        pix = torch.arange(width * height, dtype=torch.int64, device=scene.device)
         sampler = make_sampler(sampler_config, pix, sample_index, seed)
         sampler, u_film = sampler.next_2d()
         off, fw = filt.sample(u_film)
@@ -125,40 +112,29 @@ def render_sample(scene: Scene, settings: PTSettings, filt, sample_index: int, s
 
 
 def render_sample_split(scene: Scene, settings: PTSettings, filt, sample_index: int, seed: int,
-                        sampler_config: dict | None, split_d: int, film: Film) -> list:
+                        sampler_config: dict | None, split_d: int, film: Film) -> int:
     """One sample for every pixel through the split-compacted pass, added
-    to `film` in place: per block of lane_cap pixels, phase 1 traces
-    depths [0, split_d) and reads the live count (one host read), then the
-    live rows, ordered first by a stable sort, resume in chunks, each
-    chunk's radiance set back by index. Rows that did not resume are
-    clamped here (phase 2's arrive clamped). Under fused rays a lane with
-    a pending shadow counts as live, so its light lands. Returns the live
-    counts, one a block."""
+    to `film` in place: phase 1 traces depths [0, split_d) and reads the
+    live count (one host read), then the live rows, ordered first by a
+    stable sort, resume in chunks of max(512, npix // 8), each chunk's
+    radiance set back by index. Rows that did not resume are clamped here
+    (phase 2's arrive clamped). Returns the live count."""
     npix = scene.camera.width * scene.camera.height
-    pb = min(npix, lane_cap(npix))
-    pc = max(512, pb // max(2, int(os.environ.get("AKR_SPLIT_FRAC", "8"))))
-    pending = uses_fused_rays(scene, settings)
-    live_counts = []
-    for p0 in range(0, npix, pb):
-        pix = torch.arange(p0, min(p0 + pb, npix), dtype=torch.int64, device=scene.device)
-        ray_o, ray_d, fw, sampler = camera_sample(scene, filt, sample_index, seed,
-                                                  sampler_config, pix)
-        st = trace_paths(scene, settings, ray_o, ray_d, sampler, depth_end=split_d,
-                         finalize=False)
-        live = st["active"] | st["p_valid"] if pending else st["active"]
-        perm = torch.argsort((~live).to(torch.int8), stable=True)
-        with akr_stats.read("split_live"):
-            cnt = int(live.sum())
-        live_counts.append(cnt)
-        radiance = clamp_radiance(settings, st["radiance"], st["base_replay"])
-        for c0 in range(0, cnt, pc):
-            ids = perm[c0:min(c0 + pc, cnt)]
-            radiance[ids] = trace_paths(scene, settings, None, None, None,
-                                        resume_state=take_rows(st, ids), depth_beg=split_d)[0]
-        p1 = p0 + pix.shape[0]
-        with akr_stats.span("render.film"):
-            add_samples_aligned(Film(film.accum[p0:p1], film.weight[p0:p1]), radiance, fw)
-    return live_counts
+    pc = max(512, npix // 8)
+    ray_o, ray_d, fw, sampler = camera_sample(scene, filt, sample_index, seed, sampler_config)
+    st = trace_paths(scene, settings, ray_o, ray_d, sampler, depth_end=split_d, finalize=False)
+    live = st["active"]
+    perm = torch.argsort((~live).to(torch.int8), stable=True)
+    with akr_stats.read("split_live"):
+        cnt = int(live.sum())
+    radiance = clamp_radiance(settings, st["radiance"], st["base_replay"])
+    for c0 in range(0, cnt, pc):
+        ids = perm[c0:min(c0 + pc, cnt)]
+        radiance[ids] = trace_paths(scene, settings, None, None, None,
+                                    resume_state=take_rows(st, ids), depth_beg=split_d)[0]
+    with akr_stats.span("render.film"):
+        add_samples_aligned(film, radiance, fw)
+    return cnt
 
 
 def render_pt(scene: Scene, config: PTConfig, task=None, progress_cb=None, session=None):
@@ -190,12 +166,6 @@ def _render_pt(scene: Scene, config: PTConfig, task, progress_cb, session):
         stats.update(tier="megakernel", shade="megakernel (K8)", traversal="megakernel (K8)",
                      color="rgb")
         return img, stats
-    if os.environ.get("AKR_PERSISTENT", "0") == "1" and not spectral:
-        from .wavefront import render_pt_wavefront
-
-        img, stats = render_pt_wavefront(scene, config, task, progress_cb, session)
-        stats["color"] = "rgb"
-        return img, stats
     split_d = _split_depth(settings)
     spp_chunk = min(config.spp, config.spp_per_pass)
     # the task seed rides as seed_extra, exactly as in the JAX package
@@ -206,8 +176,7 @@ def _render_pt(scene: Scene, config: PTConfig, task, progress_cb, session):
     done = 0  # samples accumulated; the absolute sample index keys the sampler
     stats = {"time": [], "spp": [], "tier": "wavefront",
              "shade": "fused (K9)" if uses_fused_shade(scene, settings) else "dispatch",
-             "traversal": scene.traversal, "fused_rays": uses_fused_rays(scene, settings),
-             "color": settings.color}
+             "traversal": scene.traversal, "color": settings.color}
     if split_d is not None:
         stats.update(split_depth=split_d, split_live=[])
     t0 = time.time()
@@ -218,8 +187,8 @@ def _render_pt(scene: Scene, config: PTConfig, task, progress_cb, session):
             akr_stats.counts["samples"] += 1
             with akr_stats.span("render.sample"):
                 if split_d is not None:
-                    stats["split_live"] += render_sample_split(
-                        scene, settings, filt, done + s, seed, sampler_config, split_d, film)
+                    stats["split_live"].append(render_sample_split(
+                        scene, settings, filt, done + s, seed, sampler_config, split_d, film))
                     continue
                 radiance, fw = render_sample(scene, settings, filt, done + s, seed,
                                              sampler_config)

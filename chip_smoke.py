@@ -135,32 +135,26 @@ Phases (any failure exits non-zero; nothing is caught):
    the device events and idle share of one GPT sample and one mutation
    step (torch.profiler);
 26. the PT pass shapes: cbox 64x64, 16 spp, pmj02bn, d12 through the CLI
-   on the pass, the persistent wavefront (sequential and fused rays),
-   fused-rays PT on the dispatch route and on path B (K9) and the split
-   pass at d = 6, each held to phase 4's gates against
-   testdata/cbox64_spp{16,256}.npy, the split bit-equal to the pass; K1 on
-   a fused 2N-lane traversal and K9 on a fused path-B bounce against their
-   plain versions, bit-equal; classroom 96x96 with fused rays and with the
-   split, held to phase 17's gates and against phase 8's image (the split
-   bit-equal), with K2, K3 and K4 on a fused traversal (per-lane any hit)
-   against their plain versions; the alpha fixture
+   on the pass and the split pass at d = 6, each held to phase 4's gates
+   against testdata/cbox64_spp{16,256}.npy, the split bit-equal to the
+   pass; classroom 96x96 with the split, held to phase 17's gates and
+   bit-equal to phase 8's image; the alpha fixture
    (tests/torch_alpha_scene.py) on the card, its alpha-tested hits and
    staged occlusion equal to the CPU's through K1 and through the pair
    sweep;
-27. the pass shapes at full width (render_pt, SHAPE_RENDERS renders after a
-   warm-up): cbox 1024x1024 at CBOX_SPP through the persistent wavefront,
-   sequential and fused, and fused-rays PT; classroom 1920x1080 at 1 spp
-   with fused rays and with the split at d = 6: Mpaths/s (median and
-   spread), K1's and K4's launches a sample, peak device bytes a lane, and
-   one sample of each by torch.profiler (device events, idle share);
+27. the split at full width (render_pt, SHAPE_RENDERS renders after a
+   warm-up): classroom 1920x1080 at 1 spp with the split at d = 6:
+   Mpaths/s (median and spread), K1's and K4's launches a sample, peak
+   device bytes a lane, and one sample by torch.profiler (device events,
+   idle share);
 28. spectral correctness: the cbox fixture at 64x64, 16 spp, pmj02bn, d12
    (scenes/cbox/pt.json with "color": "spectral") and the dispersive prism
    at 64x64, 16 spp, d12 (scenes/prism/spectral.json) through the CLI, each
    held to phase 4's gates against the committed JAX spectral images
    (testdata/{cbox,prism}64_spectral_spp{16,256}.npy); blinds 64^2 spectral
-   under AKR_PALLAS_SHADE=1, AKR_MEGAKERNEL=1 and AKR_PERSISTENT=1 takes
-   the pass (no K8 or K9 launch; the image bit-equal to the pass's) where
-   the RGB render takes each switch's route; the spectral functions
+   under AKR_PALLAS_SHADE=1 and AKR_MEGAKERNEL=1 takes the pass (no K8 or
+   K9 launch; the image bit-equal to the pass's) where the RGB render takes
+   each switch's route; the spectral functions
    (wavelengths, the uplift, the reflectance, the CIE sensor, D65) on the
    card against the CPU on 2^18 seeded inputs; the shader-ops fixture
    (tests/torch_shader_scene.py: Perlin noise, plastic, metal, a
@@ -3131,90 +3125,43 @@ class captured:
         setattr(self.mod, self.attr, self.real)
 
 
-def pair_sweep_parity(label, cl, o, d, tmin, tmax, ex0=None, ex1=None, ex2=None, mask=None):
-    """K2, K3 and K4 against their plain versions on one traversal's rays
-    (phase 7's checks): e_con equal (the bit patterns up to the sign of a
-    zero), e_init and the walk's prefix bit-equal, K4's hits bit-equal.
-    Returns the max abs errors."""
-    import torch
-
-    from akari_render_tpu_torch.accel import pairs
-
-    s = pairs.sort_rays(cl, o, d, tmin, tmax, ex0, ex1, ex2, mask)
-    cb6 = pairs.cluster_bounds(cl)
-    e_con = pairs.cull_einit(s.summ, cb6)
-    e_con_p = pairs.cull_einit_torch(s.summ, cb6)
-    k2_check(label, e_con, e_con_p, s.summ, cb6)
-    k3_args = (cb6, s.o_soa, s.inv_soa, s.lim, e_con)
-    got3 = pairs.refine_walk(*k3_args)
-    want3 = pairs.refine_walk_torch(*k3_args)
-    k3_check(label, got3, want3)
-    args = (*want3[1:], cl.tri_row, cl.tri, cl.xf, s.o_soa, s.d_soa, s.lim, s.ex, s.best0, False)
-    got4 = pairs.sweep_walk(*args, boxes=pairs.candidate_test_boxes(cl, cb6))
-    want4 = pairs.sweep_walk_torch(*args)
-    torch.cuda.synchronize()
-    n_mask = 0 if mask is None else int(mask.sum())
-    print(f"K4 parity, {label}: {o.shape[0]} rays ({n_mask} any-hit lanes), hits "
-          f"{int((want4[1] >= 0).sum())}, bit-equal {torch.equal(got4, want4)}", flush=True)
-    check(torch.equal(got4, want4), f"K4 differs from its plain version ({label})")
-    return {"K2": max_abs_diff(e_con, e_con_p), "K3": max_abs_diff(got3[0], want3[0]),
-            "K4": max_abs_diff(got4, want4)}
-
-
+# the split pass's depth in phases 26-27
+SPLIT_D = 6
 # the PT pass shapes of phases 26 and 27: name -> (switches, the shade and
 # the tier the stats report)
 PASS_SHAPES = {
     "pass": ({}, "dispatch", "wavefront"),
-    "persistent": ({"AKR_PERSISTENT": "1"}, "dispatch", "persistent"),
-    "persistent fused": ({"AKR_PERSISTENT": "1", "AKR_FUSE_RAYS": "1"}, "dispatch",
-                         "persistent"),
-    "fused rays": ({"AKR_FUSE_RAYS": "1"}, "dispatch", "wavefront"),
-    "fused rays path B": ({"AKR_FUSE_RAYS": "1", "AKR_PALLAS_SHADE": "1"}, "fused (K9)",
-                          "wavefront"),
-    "split": ({"AKR_SPLIT_DEPTH": str(6)}, "dispatch", "wavefront"),
+    "split": ({"AKR_SPLIT_DEPTH": str(SPLIT_D)}, "dispatch", "wavefront"),
 }
-# the split pass's depth in phases 26-27
-SPLIT_D = 6
-# phase 27: renders of each route timed (the median and the spread reported),
-# and the samples of the persistent wavefront's profiled call
+# phase 27: renders of each route timed (the median and the spread reported)
 SHAPE_RENDERS = 3
-WF_PROFILE_SPP = 2
 
 
 def pass_shapes_correctness(device, base96):
     """Phase 26: the cbox fixture at 64^2, 16 spp, pmj02bn, d12 through the
     CLI on each PASS_SHAPES route, held to phase 4's gates against
     testdata/cbox64_spp{16,256}.npy (the pass: phase 20's dispatch render
-    where it is there), the split bit-equal to the pass; K1
-    on a fused traversal of the fused route and K9 on a shade of the
-    fused path-B route against their plain versions. Then classroom 96^2
-    with fused rays and with the split, held to phase 17's gates and
-    against phase 8's image `base96` (the split bit-equal), with K2, K3
-    and K4 on a fused traversal against their plain versions. Last the
-    alpha fixture (tests/torch_alpha_scene.py) on the card: intersect_alpha
-    and occlude_alpha, through K1 and through the pair sweep
-    (AKR_FORCE_BVH), equal to the CPU's. Returns each kernel's errors on
-    this traffic and the launches of each cbox route."""
+    where it is there), the split bit-equal to the pass. Then classroom
+    96^2 with the split, held to phase 17's gates and bit-equal to phase
+    8's image `base96`. Last the alpha fixture (tests/torch_alpha_scene.py)
+    on the card: intersect_alpha and occlude_alpha, through K1 and through
+    the pair sweep (AKR_FORCE_BVH), equal to the CPU's. Returns the
+    launches of each cbox route."""
     import numpy as np
 
-    from akari_render_tpu_torch import scene as scene_mod
     from akari_render_tpu_torch.cli import main as cli_main
     from akari_render_tpu_torch.core.image_io import read_exr
-    from akari_render_tpu_torch.integrators import common
 
     testdata = ROOT / "akari_render_tpu_torch" / "testdata"
     jax16 = np.load(testdata / "cbox64_spp16.npy")
     gt = np.load(testdata / "cbox64_spp256.npy")
-    images, errs, launches = {}, {}, {}
+    images, launches = {}, {}
     for name, (switches, shade, tier) in PASS_SHAPES.items():
-        out = OUT / f"cbox64_shape_{name.replace(' ', '_')}.exr"
+        out = OUT / f"cbox64_shape_{name}.exr"
         if name == "pass" and (OUT / "cbox64_dispatch.exr").exists():
             images[name] = read_exr(OUT / "cbox64_dispatch.exr")  # phase 20's render
             continue
-        fused_rays = "AKR_FUSE_RAYS" in switches
-        with env_switch(**{"AKR_PALLAS_SHADE": "0", **switches}), \
-                captured(scene_mod, "intersect_tris", lambda o, *a, **kw: o.shape[0] == 2 * 4096
-                         ) as k1_in, captured(common, "_fused_shade_live") as k9_in:
+        with env_switch(**{"AKR_PALLAS_SHADE": "0", **switches}):
             reset_launches()
             t0 = time.perf_counter()
             stats = cli_main(["-s", str(CBOX), "-m", str(CBOX_METHOD), "--res", "64", "--spp",
@@ -3222,49 +3169,25 @@ def pass_shapes_correctness(device, base96):
             wall = time.perf_counter() - t0
             got = read_launches()
         launches[f"cbox 64^2 {name}"] = got
-        check(stats["tier"] == tier and stats["shade"] == shade
-              and stats["fused_rays"] == fused_rays,
-              f"cbox 64^2 {name} took the {stats['tier']} tier, {stats['shade']} shade, fused "
-              f"rays {stats['fused_rays']}")
-        check(got["K1"] > 0 and (got["K9"] > 0) == (shade == "fused (K9)")
-              and all(got[k] == 0 for k in ("K2", "K3", "K4", "K5", "K7", "K8")),
+        check(stats["tier"] == tier and stats["shade"] == shade,
+              f"cbox 64^2 {name} took the {stats['tier']} tier, {stats['shade']} shade")
+        check(got["K1"] > 0
+              and all(got[k] == 0 for k in ("K2", "K3", "K4", "K5", "K7", "K8", "K9")),
               f"cbox 64^2 {name} launches {got}")
         images[name] = read_exr(out)
         text = image_gates(f"cbox 64^2 {name}", images[name], jax16, gt, MEAN_TOL, MSE_RATIO)
-        extra = {k: stats[k] for k in ("pool", "refills", "bounces", "split_live") if k in stats}
+        extra = {"split_live": stats["split_live"]} if "split_live" in stats else {}
         print(f"cbox 64^2 16spp pmj02bn d12, {name} ({wall:.2f} s CLI): {text}; launches and "
               f"counts {got} {extra}", flush=True)
-        if name == "fused rays":
-            a, kw = k1_in.calls[0]
-            hk, _, hp = k1_check("a fused traversal of cbox 64^2 (2N lanes)", a, kw["tiles"])
-            errs["K1"] = max_abs_diff(hk.t, hp.t)
-        if name == "fused rays path B":
-            bake, si, extra_in, lanes = k9_in.calls[0][0]
-            args = (bake, *si["frame"], si["ng"], *(extra_in[k] for k in (
-                "wo", "ls_wi", "ls_li", "ls_pdf", "u_bsdf")), si["mat"])
-            errs["K9"] = k9_check("a bounce of cbox 64^2 with fused rays (path B)", args,
-                                  live=lanes)["max_abs_err"]
     check(np.array_equal(images["split"], images["pass"]),
           f"cbox 64^2: the split pass differs from the pass by "
           f"{float(np.abs(images['split'] - images['pass']).max()):.3g}")
-    for name in ("persistent", "persistent fused", "fused rays", "fused rays path B"):
-        diff = float(np.abs(images[name] - images["pass"]).max())
-        print(f"cbox 64^2 {name} against the pass: max abs {diff:.3g}", flush=True)
 
-    for name in ("fused rays", "split"):
-        with env_switch(**PASS_SHAPES[name][0]), captured(
-                scene_mod, "_cluster_trace",
-                lambda *a, **kw: kw.get("any_hit_mask") is not None) as k4_in:
-            img = classroom_correctness(device, "pairs-static", base96, label=name)
-        if name == "split":
-            check(np.array_equal(img, base96), "classroom 96^2: the split pass differs from the "
-                                               "pass")
-        else:
-            a, kw = k4_in.calls[0]
-            errs.update(pair_sweep_parity("a fused traversal of classroom 96^2 (2N lanes)", *a,
-                                          mask=kw["any_hit_mask"]))
+    with env_switch(**PASS_SHAPES["split"][0]):
+        img = classroom_correctness(device, "pairs-static", base96, label="split")
+    check(np.array_equal(img, base96), "classroom 96^2: the split pass differs from the pass")
     alpha_on_card(device)
-    return errs, launches
+    return launches
 
 
 def alpha_on_card(device):
@@ -3309,127 +3232,85 @@ def alpha_on_card(device):
                                                  f"{got}")
 
 
-def _shape_scene(device, which: str):
-    """(scene, task, PTSettings, filter, spp) of phase 27's configurations:
-    cbox 1024^2 (pt.json, pmj02bn, d12) at CBOX_SPP, classroom 1920x1080
-    (pt.json, d12) at 1 spp."""
-    from akari_render_tpu_torch.config import RenderTask
-    from akari_render_tpu_torch.core.filters import filter_from_config
-    from akari_render_tpu_torch.integrators.common import PTSettings
-    from akari_render_tpu_torch.scene import load_scene
-
-    if which == "cbox":
-        scene, task, settings, filt = cbox_setup(device)
-        return scene, task, settings, filt, CBOX_SPP
-    task = RenderTask.from_file(CLASSROOM_METHOD)
-    m = task.method
-    settings = PTSettings(max_depth=m.max_depth, rr_depth=m.rr_depth, use_nee=m.use_nee,
-                          clamp_indirect=m.clamp_indirect)
-    return (load_scene(str(CLASSROOM), device=device), task, settings,
-            filter_from_config(task.filter_config), 1)
-
-
 def pass_shapes_full_width(device):
-    """Phase 27: the new routes at full width, each rendered SHAPE_RENDERS
-    times through render_pt (cbox 1024^2 at CBOX_SPP: the persistent
-    wavefront, sequential and fused, and fused-rays PT; classroom 1080p at
-    1 spp: fused rays and the split at SPLIT_D; a one-sample warm-up before
-    each scene's first route), with the counts reset before and read after
-    each: Mpaths/s (the median and the spread), K1's and K4's launches a
-    sample, peak device bytes a lane; then one sample of each by
-    torch.profiler (device events, busy time) against an unprofiled one
-    (the idle share). A sample of the persistent wavefront is half a 2-spp
-    render: its pool (one wavefront of all pixels) then refills as it
-    does in a render. Returns the numbers."""
+    """Phase 27: the split at SPLIT_D on classroom 1920x1080 (pt.json, d12)
+    at 1 spp, rendered SHAPE_RENDERS times through render_pt after a
+    one-sample warm-up, with the counts reset before and read after each:
+    Mpaths/s (the median and the spread), K1's and K4's launches a sample,
+    peak device bytes a lane; then one sample by torch.profiler (device
+    events, busy time) against an unprofiled one (the idle share). Returns
+    the numbers."""
     import copy
 
     import numpy as np
     import torch
 
+    from akari_render_tpu_torch.config import RenderTask
     from akari_render_tpu_torch.core.film import Film
-    from akari_render_tpu_torch.integrators.pt import render_pt, render_sample, render_sample_split
-    from akari_render_tpu_torch.integrators.wavefront import render_pt_wavefront
+    from akari_render_tpu_torch.core.filters import filter_from_config
+    from akari_render_tpu_torch.integrators.common import PTSettings
+    from akari_render_tpu_torch.integrators.pt import render_pt, render_sample_split
+    from akari_render_tpu_torch.scene import load_scene
 
-    routes = (("cbox", "persistent"), ("cbox", "persistent fused"), ("cbox", "fused rays"),
-              ("classroom", "fused rays"), ("classroom", "split"))
-    found, samples = {}, {}
-    for which in ("cbox", "classroom"):
-        scene, task, settings, filt, spp = _shape_scene(device, which)
-        npix = scene.camera.width * scene.camera.height
-        for w, name in routes:
-            if w != which:
-                continue
-            switches, shade, tier = PASS_SHAPES[name]
-            cfg = copy.copy(task.method)
-            cfg.spp = cfg.spp_per_pass = spp
-            warm = copy.copy(cfg)
-            warm.spp = warm.spp_per_pass = 1
-            runs = []
-            with env_switch(**{"AKR_PALLAS_SHADE": "0", **switches}):
-                if not samples or next(reversed(samples)).split()[0] != which:
-                    render_pt(scene, warm, task)  # the scene's first route: a warm-up
-                for r in range(SHAPE_RENDERS):
-                    if r == 0:
-                        torch.cuda.reset_peak_memory_stats()
-                    reset_launches()
-                    img, stats = render_pt(scene, cfg, task)
-                    got = read_launches()
-                    runs.append({"render_s": stats["total_time"],
-                                 "mpaths_s": npix * spp / stats["total_time"] / 1e6,
-                                 "launches": got, "stats": {k: stats[k] for k in (
-                                     "pool", "refills", "bounces", "split_live") if k in stats}})
-                    if r == 0:
-                        peak = torch.cuda.max_memory_allocated()
-            check(stats["tier"] == tier and stats["shade"] == shade,
-                  f"{which} {name}: the {stats['tier']} tier, {stats['shade']} shade")
-            check(bool(np.all(np.isfinite(img))) and float(img.mean()) > 0.0,
-                  f"{which} {name}: image finiteness")
-            rates = sorted(r["mpaths_s"] for r in runs)
-            got = runs[0]["launches"]
-            k4 = got["K4"] / spp
-            key = f"{which} {name}"
-            found[key] = {"mpaths_s_median": rates[len(rates) // 2], "mpaths_s": rates,
-                          "k1_per_sample": got["K1"] / spp, "k4_per_sample": k4,
-                          "peak_bytes_per_lane": peak / npix, "launches": got,
-                          **runs[0]["stats"]}
-            print(f"{key} at full width ({spp} spp, d12): Mpaths/s median "
-                  f"{rates[len(rates) // 2]:.4f} over {SHAPE_RENDERS} renders "
-                  f"({rates[0]:.4f}-{rates[-1]:.4f}), K1 {got['K1'] / spp:g} and K4 {k4:g} "
-                  f"launches a sample, peak device memory {peak / 2**30:.3f} GiB "
-                  f"({peak / npix:.0f} B a lane); launches and counts {got} "
-                  f"{runs[0]['stats']}", flush=True)
+    task = RenderTask.from_file(CLASSROOM_METHOD)
+    m = task.method
+    settings = PTSettings(max_depth=m.max_depth, rr_depth=m.rr_depth, use_nee=m.use_nee,
+                          clamp_indirect=m.clamp_indirect)
+    scene = load_scene(str(CLASSROOM), device=device)
+    filt = filter_from_config(task.filter_config)
+    npix = scene.camera.width * scene.camera.height
+    switches, shade, tier = PASS_SHAPES["split"]
+    cfg = copy.copy(m)
+    cfg.spp = cfg.spp_per_pass = 1
+    runs = []
+    with env_switch(**{"AKR_PALLAS_SHADE": "0", **switches}):
+        render_pt(scene, cfg, task)  # a warm-up
+        for r in range(SHAPE_RENDERS):
+            if r == 0:
+                torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            img, stats = render_pt(scene, cfg, task)
+            got = read_launches()
+            runs.append({"render_s": stats["total_time"],
+                         "mpaths_s": npix / stats["total_time"] / 1e6, "launches": got,
+                         "split_live": stats["split_live"]})
+            if r == 0:
+                peak = torch.cuda.max_memory_allocated()
+    key = "classroom split"
+    check(stats["tier"] == tier and stats["shade"] == shade,
+          f"{key}: the {stats['tier']} tier, {stats['shade']} shade")
+    check(bool(np.all(np.isfinite(img))) and float(img.mean()) > 0.0, f"{key}: image finiteness")
+    rates = sorted(r["mpaths_s"] for r in runs)
+    got = runs[0]["launches"]
+    found = {"mpaths_s_median": rates[len(rates) // 2], "mpaths_s": rates,
+             "k1_per_sample": got["K1"], "k4_per_sample": got["K4"],
+             "peak_bytes_per_lane": peak / npix, "launches": got,
+             "split_live": runs[0]["split_live"]}
+    print(f"{key} at full width (1 spp, d12): Mpaths/s median {rates[len(rates) // 2]:.4f} over "
+          f"{SHAPE_RENDERS} renders ({rates[0]:.4f}-{rates[-1]:.4f}), K1 {got['K1']:g} and K4 "
+          f"{got['K4']:g} launches a sample, peak device memory {peak / 2**30:.3f} GiB "
+          f"({peak / npix:.0f} B a lane); launches {got}, live {runs[0]['split_live']}",
+          flush=True)
 
-            def sample(scene=scene, task=task, settings=settings, filt=filt, cfg=cfg,
-                       switches=switches, name=name):
-                with env_switch(**{"AKR_PALLAS_SHADE": "0", **switches}):
-                    if name.startswith("persistent"):
-                        two = copy.copy(cfg)
-                        two.spp = two.spp_per_pass = WF_PROFILE_SPP
-                        render_pt_wavefront(scene, two, task)
-                    elif name == "split":
-                        film = Film.new(scene.camera.width, scene.camera.height, scene.device)
-                        render_sample_split(scene, settings, filt, 0, task.seed, task.sampler,
-                                            SPLIT_D, film)
-                    else:
-                        render_sample(scene, settings, filt, 0, task.seed, task.sampler)
-            samples[key] = sample
+    def sample():
+        with env_switch(**{"AKR_PALLAS_SHADE": "0", **switches}):
+            film = Film.new(scene.camera.width, scene.camera.height, scene.device)
+            render_sample_split(scene, settings, filt, 0, task.seed, task.sampler, SPLIT_D, film)
+
     t0 = time.perf_counter()
-    events = device_events_per_call(samples, busy=True)
-    for key, (count, busy_ms) in events.items():
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        samples[key]()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t1) * 1e3
-        per = WF_PROFILE_SPP if "persistent" in key else 1
-        found[key].update(events_per_sample=count / per, busy_ms=busy_ms / per,
-                          sample_ms=wall_ms / per, idle_share=1.0 - busy_ms / wall_ms)
-        print(f"{key}, one sample (torch.profiler, device activity only; {per} spp per call): "
-              f"{count / per:g} device events, device busy {busy_ms / per:.3f} ms; unprofiled "
-              f"{wall_ms / per:.3f} ms, device idle {100 * (1.0 - busy_ms / wall_ms):.1f} %",
-              flush=True)
+    (count, busy_ms), = device_events_per_call({key: sample}, busy=True).values()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sample()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) * 1e3
+    found.update(events_per_sample=count, busy_ms=busy_ms, sample_ms=wall_ms,
+                 idle_share=1.0 - busy_ms / wall_ms)
+    print(f"{key}, one sample (torch.profiler, device activity only): {count:g} device events, "
+          f"device busy {busy_ms:.3f} ms; unprofiled {wall_ms:.3f} ms, device idle "
+          f"{100 * (1.0 - busy_ms / wall_ms):.1f} %", flush=True)
     print(f"pass shapes profile: {time.perf_counter() - t0:.1f} s", flush=True)
-    return found
+    return {key: found}
 
 
 def spectral_correctness(device):
@@ -3468,8 +3349,7 @@ def spectral_correctness(device):
     # common.py:592-596), on blinds, which takes each of them in RGB
     spectral_blinds = method_file("blinds_spectral.json", BLINDS_METHOD, color="spectral")
     images = {}
-    for switch, rgb_route in (("", None), ("AKR_PALLAS_SHADE", "K9"), ("AKR_MEGAKERNEL", "K8"),
-                              ("AKR_PERSISTENT", "persistent")):
+    for switch, rgb_route in (("", None), ("AKR_PALLAS_SHADE", "K9"), ("AKR_MEGAKERNEL", "K8")):
         with env_switch(**({switch: "1"} if switch else {})):
             for method in ((BLINDS_METHOD,) if switch else ()) + (spectral_blinds,):
                 spectral = method == spectral_blinds
@@ -3478,8 +3358,7 @@ def spectral_correctness(device):
                 stats = cli_main(["-s", str(BLINDS), "-m", str(method), "--res", "64", "--spp",
                                   str(SWITCH_SPP), "-o", str(out), "--device", device])
                 got = read_launches()
-                took = {"K9": got["K9"] > 0, "K8": got["K8"] > 0,
-                        "persistent": stats["tier"] == "persistent"}
+                took = {"K9": got["K9"] > 0, "K8": got["K8"] > 0}
                 if spectral:
                     images[switch] = read_exr(out)
                     check(stats["tier"] == "wavefront" and stats["shade"] == "dispatch"
@@ -3885,10 +3764,10 @@ def main():
     lap("phase 24 (MCMC cbox 64^2)")
     gpt_mcmc_full_width(device)
     lap("phase 25 (GPT and MCMC cbox 1024^2)")
-    shape_errs, shape_launches = pass_shapes_correctness(device, base96)
-    lap("phase 26 (the pass shapes at cbox 64^2 and classroom 96^2; alpha)")
+    shape_launches = pass_shapes_correctness(device, base96)
+    lap("phase 26 (the split at cbox 64^2 and classroom 96^2; alpha)")
     shapes = pass_shapes_full_width(device)
-    lap("phase 27 (the pass shapes at full width)")
+    lap("phase 27 (the split at classroom 1080p)")
     spectral_launches = spectral_correctness(device)
     lap("phase 28 (spectral cbox and prism 64^2, the routes, the functions, the shader ops)")
     spectral = spectral_full_width(device, rgb_cbox)
@@ -3897,12 +3776,12 @@ def main():
     lap("phase 30 (pcg32_draws, an MCMC job)")
 
     kernels = [entry, *pair_entries.values(), other["K5"], other["K7"], fused["K8"], fused["K9"]]
-    for k in kernels:  # the new routes' traffic and launches
+    for k in kernels:  # the pass shapes' launches
         name = k["name"].split()[0]
-        if name in shape_errs:
-            k["pass_shapes"] = {"max_abs_err": shape_errs[name], "launches": {
-                **{r: c[name] for r, c in shape_launches.items() if c[name]},
-                **{r: v["launches"][name] for r, v in shapes.items() if v["launches"][name]}}}
+        got = {**{r: c[name] for r, c in shape_launches.items() if c[name]},
+               **{r: v["launches"][name] for r, v in shapes.items() if v["launches"][name]}}
+        if got:
+            k["pass_shapes"] = {"launches": got}
     for k in kernels:  # the spectral renders' launches
         name = k["name"].split()[0]
         got = {**{r: c[name] for r, c in spectral_launches.items() if c[name]},

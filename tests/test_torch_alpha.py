@@ -3,8 +3,6 @@ occlude_alpha): JAX's tests/test_scene.py alpha cases on scenes written by
 the port's scenegraph/write.py (tests/torch_alpha_scene.py), each held
 against the JAX package's traversal on the same rays (hit ids and
 occlusion bit-equal, t within 1e-5)."""
-from pathlib import Path
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,12 +11,10 @@ import torch
 from akari_render_tpu.scene import load_scene as j_load_scene
 from akari_render_tpu.svm.precompute import get_table as j_get_table
 from akari_render_tpu_torch.core.filters import BoxFilter
-from akari_render_tpu_torch.integrators.common import PTSettings, uses_fused_rays
+from akari_render_tpu_torch.integrators.common import PTSettings
 from akari_render_tpu_torch.integrators.megakernel import megakernel_eligible
 from akari_render_tpu_torch.scene import load_scene as t_load_scene
 from torch_alpha_scene import alpha_rays, write_alpha_scene
-
-ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -99,20 +95,14 @@ def test_dense_alpha_unbiased(tmp_path, jax_table):
     assert abs(float(to.float().mean()) - (1.0 - trans ** ns)) < 0.035
 
 
-def test_opaque_scene_skips_restarts(tmp_path, jax_table, monkeypatch):
+def test_opaque_scene_skips_restarts(tmp_path, jax_table):
     """Opaque texels: no alpha, the plain traversal; an alpha scene turns
-    fused rays, the shade bake and the megakernel off, as in JAX."""
+    the shade bake and the megakernel off, as in JAX."""
     js, ts = _scenes(tmp_path, jax_table, 255)
     assert not ts.has_alpha and not js.has_alpha
     jh, th = _both(js, ts, "intersect_alpha", *alpha_rays(64, 7, 1.5))
     _hits_equal(jh, th)
     assert bool((th.tri_id <= 1).all())
-    monkeypatch.setenv("AKR_FUSE_RAYS", "1")
-    settings = PTSettings()
-    cbox = t_load_scene(str(ROOT / "scenes/cbox/scene.json"), 8, 8, device="cpu",
-                        ggx_table=jax_table)
-    assert uses_fused_rays(cbox, settings) and cbox.shade_bake is not None
-    cbox.has_alpha = True
-    assert not uses_fused_rays(cbox, settings)
     _, ta = _scenes(tmp_path, jax_table, 128)
-    assert ta.shade_bake is None and not megakernel_eligible(ta, settings, None, BoxFilter(0.5))
+    assert ta.shade_bake is None
+    assert not megakernel_eligible(ta, PTSettings(), None, BoxFilter(0.5))

@@ -1,8 +1,8 @@
 """PyTorch port, dispersion through the hero-wavelength spectral transport:
-the JAX package's cases (tests/test_dispersion.py) on the port, the port
-against JAX on the dispersive prism, and fused rays against the sequential
-trace in spectral mode. The fixtures come from tools/make_prism_scene.py
-(the glass wedge with a Cauchy B of 0.04 um^2, and with 0)."""
+the JAX package's cases (tests/test_dispersion.py) on the port and the
+port against JAX on the dispersive prism. The fixtures come from
+tools/make_prism_scene.py (the glass wedge with a Cauchy B of 0.04 um^2,
+and with 0)."""
 import json
 import subprocess
 import sys
@@ -158,18 +158,6 @@ def test_prism_spectral_matches_jax(scenes, jax_table):
     np.testing.assert_allclose(timg.mean(axis=(0, 1)), jimg.mean(axis=(0, 1)), rtol=0.01)
     rel = np.abs(timg - jimg) / np.maximum(np.abs(jimg), 1e-3)
     assert np.mean(np.all(rel <= 1e-3, axis=-1)) >= 0.95
-
-
-def test_fused_rays_spectral(scenes, jax_table, monkeypatch):
-    """AKR_FUSE_RAYS=1 with spectral transport: the pending shadow's
-    spectral contribution lands a bounce later, so the image is the
-    sequential one up to the order of float sums."""
-    sc = _load(scenes / "disp", jax_table, 24)
-    seq = _render(sc, "spectral", spp=4)
-    monkeypatch.setenv("AKR_FUSE_RAYS", "1")
-    img, stats = t_render_pt(sc, PTConfig(spp=4, max_depth=5, spp_per_pass=4, color="spectral"))
-    assert stats["fused_rays"] and stats["color"] == "spectral"
-    np.testing.assert_allclose(img, seq, rtol=1e-4, atol=1e-5)
 
 
 def test_cli_renders_spectral_prism(tmp_path, jax_table, monkeypatch):

@@ -126,7 +126,7 @@ def test_plain_matches_dispatch_shade(path, table):
         out["albedo"] = closure.albedo(e["wo"])
         return out
 
-    ref = common.dispatch_shade(ts, si, ex, shade, torch.ones(N_LANES, dtype=torch.bool))
+    ref = common.dispatch_shade(ts, si, ex, shade, torch.ones(N_LANES, dtype=torch.bool), ())
     for k in ("direct", "albedo"):
         np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), atol=5e-5, rtol=5e-4, err_msg=k)
     fa, fb = ref["f"].numpy(), got["f"].numpy()

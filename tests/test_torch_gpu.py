@@ -836,10 +836,9 @@ def test_render_mcmc_on_card_matches_cpu(cuda, monkeypatch):
 @pytest.mark.parametrize("shade", ["default", "0"])
 def test_split_pass_on_card_bit_exact(cuda, monkeypatch, shade):
     """cbox 64x64, 4 spp, pmj02bn, d12 (pt.json) on the card: the split
-    pass at d = 6 equals the pass bit for bit, sequential and under fused
-    rays (a row permutation of independent lanes), and reports its live
-    counts; K1 launched. On the default shade (K9) and on the dispatch
-    (AKR_PALLAS_SHADE=0)."""
+    pass at d = 6 equals the pass bit for bit (a row permutation of
+    independent lanes), and reports its live counts; K1 launched. On the
+    default shade (K9) and on the dispatch (AKR_PALLAS_SHADE=0)."""
     if shade == "default":
         monkeypatch.delenv("AKR_PALLAS_SHADE", raising=False)
     else:
@@ -847,40 +846,14 @@ def test_split_pass_on_card_bit_exact(cuda, monkeypatch, shade):
     task = RenderTask.from_file(ROOT / "scenes/cbox/pt.json")
     task.method.spp = task.method.spp_per_pass = 4
     scene = load_scene(str(ROOT / "scenes/cbox/scene.json"), 64, 64, device=cuda)
-    for fuse in ("0", "1"):
-        monkeypatch.setenv("AKR_FUSE_RAYS", fuse)
-        monkeypatch.delenv("AKR_SPLIT_DEPTH", raising=False)
-        whole, _ = render_pt(scene, task.method, task)
-        monkeypatch.setenv("AKR_SPLIT_DEPTH", "6")
-        before = k1.launches
-        split, stats = render_pt(scene, task.method, task)
-        assert k1.launches > before and stats["split_depth"] == 6
-        assert len(stats["split_live"]) == 4 and stats["fused_rays"] == (fuse == "1")
-        assert np.isfinite(split).all() and np.array_equal(split, whole), fuse
-
-
-def test_persistent_wavefront_on_card_matches_pass(cuda, monkeypatch):
-    """cbox 64x64, 4 spp, pmj02bn, d12 on the card: the persistent
-    wavefront, sequential and fused, within rtol=2e-4, atol=2e-5 of the
-    pass (each item's radiance is the pass's; index_add_ sums the film in
-    any order), with a 1,024-lane pool as well. The persistent wavefront
-    shades through the per-kind dispatch, so the pass does too
-    (AKR_PALLAS_SHADE=0)."""
-    monkeypatch.setenv("AKR_PALLAS_SHADE", "0")
-    task = RenderTask.from_file(ROOT / "scenes/cbox/pt.json")
-    task.method.spp = task.method.spp_per_pass = 4
-    scene = load_scene(str(ROOT / "scenes/cbox/scene.json"), 64, 64, device=cuda)
-    want, _ = render_pt(scene, task.method, task)
-    monkeypatch.setenv("AKR_PERSISTENT", "1")
-    for fuse, lanes in (("0", None), ("1", None), ("0", "1024")):
-        monkeypatch.setenv("AKR_FUSE_RAYS", fuse)
-        if lanes:
-            monkeypatch.setenv("AKR_MAX_LANES", lanes)
-        before = k1.launches
-        got, stats = render_pt(scene, task.method, task)
-        assert stats["tier"] == "persistent" and k1.launches > before
-        assert stats["pool"] == (1024 if lanes else 64 * 64)
-        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+    monkeypatch.delenv("AKR_SPLIT_DEPTH", raising=False)
+    whole, _ = render_pt(scene, task.method, task)
+    monkeypatch.setenv("AKR_SPLIT_DEPTH", "6")
+    before = k1.launches
+    split, stats = render_pt(scene, task.method, task)
+    assert k1.launches > before and stats["split_depth"] == 6
+    assert len(stats["split_live"]) == 4
+    assert np.isfinite(split).all() and np.array_equal(split, whole)
 
 
 def test_alpha_traversal_on_card_matches_cpu(cuda, tmp_path, monkeypatch):

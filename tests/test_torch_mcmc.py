@@ -148,28 +148,6 @@ def test_render_mcmc_matches_jax(scenes):
     direct pass at 2 spp: the image's channel means within 2 % of JAX's
     and the acceptance within 0.02 (measured on the CPU: the means, b and
     the acceptance equal)."""
-    _render_mcmc_matches_jax(scenes)
-
-
-def test_render_mcmc_fused_rays_matches_jax(scenes, monkeypatch):
-    """The same check with AKR_FUSE_RAYS=1 on both sides: the chains'
-    paths (and the direct pass) trace their shadow rays with the next
-    bounce's rays, 2N lanes a traversal."""
-    monkeypatch.setenv("AKR_FUSE_RAYS", "1")
-    js, ts = scenes
-    lanes = []
-    orig = ts.intersect
-
-    def spy(o, *args, **kw):
-        lanes.append((o.shape[0], kw.get("any_hit_mask") is not None))
-        return orig(o, *args, **kw)
-
-    monkeypatch.setattr(ts, "intersect", spy)
-    _render_mcmc_matches_jax(scenes)
-    assert lanes and all(masked and n % 2 == 0 for n, masked in lanes)
-
-
-def _render_mcmc_matches_jax(scenes):
     js, ts = scenes
     jimg, jstats = jmcmc.render_mcmc(js, JMCMCConfig(**CFG))
     timg, tstats = mcmc.render_mcmc(ts, MCMCConfig(**CFG))

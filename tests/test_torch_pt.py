@@ -1,5 +1,6 @@
 """PyTorch port, the slice end to end: matbox through the JAX package's and
-the port's path tracer at the same seed, and the port's CLI."""
+the port's path tracer at the same seed, the pass on the cbox stand-in in
+several configurations, and the port's CLI."""
 import json
 from pathlib import Path
 
@@ -7,11 +8,13 @@ import numpy as np
 import pytest
 import torch
 
+from akari_render_tpu.config import PTConfig as JPTConfig
 from akari_render_tpu.config import RenderTask as JRenderTask
 from akari_render_tpu.integrators.pt import render_pt as j_render_pt
 from akari_render_tpu.scene import load_scene as j_load_scene
 from akari_render_tpu.svm.precompute import get_table as j_get_table
 from akari_render_tpu_torch import cli
+from akari_render_tpu_torch.config import PTConfig as TPTConfig
 from akari_render_tpu_torch.config import RenderTask as TRenderTask
 from akari_render_tpu_torch.core.image_io import read_exr
 from akari_render_tpu_torch.integrators.pt import render_pt as t_render_pt
@@ -21,6 +24,16 @@ from akari_render_tpu_torch.svm import precompute as t_pre
 ROOT = Path(__file__).resolve().parents[1]
 SCENE = ROOT / "scenes/matbox/scene.json"
 METHOD = ROOT / "scenes/matbox/pt.json"
+CBOX = ROOT / "scenes/cbox/scene.json"
+# name -> (PTConfig fields, sampler) of the cbox 32x32 pass cases
+PASS_CASES = {
+    "spp4_d5_rr3": (dict(spp=4, max_depth=5, rr_depth=3), None),
+    "spp2_d4_rr2": (dict(spp=2, max_depth=4, rr_depth=2), None),
+    "spp2_d8_rr1": (dict(spp=2, max_depth=8, rr_depth=1), None),
+    "pmj02bn_spp4_d4_rr3": (dict(spp=4, max_depth=4, rr_depth=3, spp_per_pass=4),
+                            {"type": "pmj02bn", "seed": 0}),
+    "spp8_d6_rr3": (dict(spp=8, max_depth=6, rr_depth=3, spp_per_pass=8), None),
+}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -68,6 +81,26 @@ def test_slice_matches_jax(jax_table):
     np.testing.assert_allclose(tm, jm, rtol=0.01)
     rel = np.abs(timg - jimg) / np.maximum(np.abs(jimg), 1e-3)
     assert np.mean(np.all(rel <= 1e-3, axis=-1)) >= 0.95
+
+
+@pytest.mark.parametrize("case", list(PASS_CASES))
+def test_pass_matches_jax(case, jax_table, monkeypatch):
+    """cbox 32x32 through the port's default pass and the JAX package's
+    render_pt, both on the per-kind dispatch with the same GGX table:
+    within rtol=2e-4, atol=2e-5 (the sampler streams are bit-exact, so
+    the paths make the same decisions)."""
+    for k in ("AKR_SPLIT_DEPTH", "AKR_PALLAS_SHADE", "AKR_MEGAKERNEL"):
+        monkeypatch.delenv(k, raising=False)
+    fields, sampler = PASS_CASES[case]
+    jtask = JRenderTask(method_type="pt", method=None, sampler=sampler) if sampler else None
+    ttask = TRenderTask(method_type="pt", method=None, sampler=sampler) if sampler else None
+    want, _ = j_render_pt(j_load_scene(str(CBOX), 32, 32), JPTConfig(**fields), task=jtask)
+    got, stats = t_render_pt(t_load_scene(str(CBOX), 32, 32, device="cpu", ggx_table=jax_table),
+                             TPTConfig(**fields), ttask)
+    assert stats["tier"] == "wavefront" and stats["shade"] == "dispatch"
+    assert stats["spp_total"] == fields["spp"]
+    assert got.shape == (32, 32, 3) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4, atol=2e-5)
 
 
 def test_cli_writes_exr_and_stats(tmp_path, port_uses_jax_table):
