@@ -36,15 +36,23 @@ and each NEE shadow ray as its own occlusion query. (The JAX package's
 fused shadow rays, which trace with the next bounce's rays, are not
 ported: on the H100 they never beat this loop.)
 
+The loop is written as a generator, trace_steps, that yields a request
+wherever it needs the host: each traversal call (a Traverse, the Scene
+method to call by name with its arguments) and each read of the loop
+condition (a LiveRead, with the loop's state at that point, which
+trace_paths can resume). trace_paths answers them at once (run_eagerly,
+answer); piecewise.py runs the work between two requests as a CUDA graph
+and answers them between replays.
+
 Spans and counters (stats.py): each bounce is a `bounce` span (the last
 intersect too) holding bounce.surface, .emission, .nee, .shade, .shadow
 and .continue. bounce.shade wraps either route: on the dispatch each kind's
 group is a shade.<kind> span and counts in dispatch_groups; a bounce shaded
 by K9 counts in fused_shades. traversal.intersect and traversal.occlude
-wrap the calls here, not Scene's methods, so a benchmark's own range
-inside them stays the innermost one. The host reads are read.any_live (the
-loop condition) and, on the dispatch, read.kind_rows (each kind's
-nonzero); K9 reads nothing.
+wrap the calls here (answer), not Scene's methods, so a benchmark's own
+range inside them stays the innermost one. The host reads are
+read.any_live (the loop condition) and, on the dispatch, read.kind_rows
+(each kind's nonzero); K9 reads nothing.
 
 Spectral transport (`spectral`: the lanes' SampledWavelengths, four hero
 wavelengths a lane): the path decisions (BSDF sampling, RR, MIS) run in
@@ -62,7 +70,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -97,6 +105,47 @@ def take_rows(state: dict, ids) -> dict:
     """The rows ids of a trace_paths state (every per-lane tensor and the
     sampler's lanes)."""
     return {k: v.take(ids) if k == "sampler" else v[ids] for k, v in state.items()}
+
+
+class Traverse(NamedTuple):
+    """A request of trace_steps: call the Scene method `method` (looked up
+    on the scene at the call) on `args` and `kw`, inside the span `span`."""
+
+    span: str
+    method: str
+    args: tuple
+    kw: dict
+
+
+class LiveRead(NamedTuple):
+    """A request of trace_steps: whether any lane of `active` lives (a host
+    read). `state` is the loop's state there, the sampler under "sampler":
+    trace_paths resumes it (resume_state) where the answer is False."""
+
+    active: torch.Tensor
+    state: dict
+
+
+def answer(scene: Scene, req):
+    """The host's answer to a request of trace_steps, made now."""
+    if isinstance(req, LiveRead):
+        with stats.read("any_live"):
+            return bool(torch.any(req.active))
+    with stats.span(req.span):
+        return getattr(scene, req.method)(*req.args, **req.kw)
+
+
+def run_eagerly(scene: Scene, steps):
+    """Run a generator of requests (trace_steps, or one that yields from
+    it) to its end, answering each request as it comes; its return value."""
+    reply = None
+    while True:
+        try:
+            req = steps.send(reply)
+        except StopIteration as stop:
+            return stop.value
+        reply = answer(scene, req)
+        del req  # its tensors live no longer than the call they are made for
 
 
 @dataclass
@@ -227,6 +276,17 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
     spectral: the lanes' SampledWavelengths (lambdas, pdf [N, W]) for
     spectral transport (the module's docstring); the radiance returned is
     then the sensor's linear sRGB."""
+    return run_eagerly(scene, trace_steps(scene, settings, ray_o, ray_d, sampler, radiance_cb,
+                                          depth_end, resume_state, depth_beg, finalize, spectral))
+
+
+def trace_steps(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
+                radiance_cb: Callable | None = None, depth_end: int | None = None,
+                resume_state: dict | None = None, depth_beg: int = 0, finalize: bool = True,
+                spectral=None):
+    """trace_paths as a generator: it yields a Traverse at every traversal
+    call and a LiveRead at every test of the loop condition, takes the
+    answer back by send(), and returns what trace_paths returns."""
     a = scene.arrays
     if spectral is not None and radiance_cb is not None:
         raise NotImplementedError("spectral transport with per-depth taps")
@@ -283,12 +343,10 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
         if dispersion:
             shade_spec.append(("disp", (), _B))
 
-    def intersect_live():
-        with stats.span("traversal.intersect"):
-            return scene.intersect_alpha(
-                st["ray_o"], st["ray_d"], zeros_n,
-                torch.where(st["active"], RAY_TMAX, -1.0), exclude0=st["exclude"],
-            )
+    def intersect_request():
+        return Traverse("traversal.intersect", "intersect_alpha",
+                        (st["ray_o"], st["ray_d"], zeros_n,
+                         torch.where(st["active"], RAY_TMAX, -1.0)), {"exclude0": st["exclude"]})
 
     def add_emission(depth: int, si, lane_hit, wo):
         """Surface-light hit with MIS weighting (pt.rs:230-258)."""
@@ -336,16 +394,14 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
             out["albedo"] = closure.albedo(ex["wo"])
         return out
 
-    def any_live():
-        with stats.read("any_live"):
-            return bool(torch.any(st["active"]))
-
     d_end = settings.max_depth if depth_end is None else min(depth_end, settings.max_depth)
     depth = depth_beg
-    while depth < d_end and (radiance_cb is not None or any_live()):
+    while depth < d_end:
+        if radiance_cb is None and not (yield LiveRead(st["active"], {**st, "sampler": sampler})):
+            break
         with stats.span("bounce"):
             stats.counts["bounces"] += 1
-            hit = intersect_live()
+            hit = yield intersect_request()
             lane_hit = st["active"] & hit.valid
             st["active"] = lane_hit
             with stats.span("bounce.surface"):
@@ -403,12 +459,11 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
 
             if ls is not None:
                 with stats.span("bounce.shadow"):
-                    with stats.span("traversal.occlude"):
-                        occluded = scene.occlude_alpha(
-                            ls.shadow_ro, ls.wi, zeros_n,
-                            torch.where(light_valid, ls.shadow_dist, -1.0),
-                            exclude0=si["tri_id"].to(torch.int32), exclude1=ls.dest_tri,
-                        )
+                    occluded = yield Traverse(
+                        "traversal.occlude", "occlude_alpha",
+                        (ls.shadow_ro, ls.wi, zeros_n,
+                         torch.where(light_valid, ls.shadow_dist, -1.0)),
+                        {"exclude0": si["tri_id"].to(torch.int32), "exclude1": ls.dest_tri})
                     direct_ok = light_valid & ~occluded
                     contrib = st["beta"] * sh["direct"]
                     st["radiance"] = st["radiance"] + torch.where(direct_ok[..., None], contrib,
@@ -451,7 +506,7 @@ def trace_paths(scene: Scene, settings: PTSettings, ray_o, ray_d, sampler,
 
     # last iteration: intersect plus surface emission only (depth == max_depth)
     with stats.span("bounce"):
-        hit = intersect_live()
+        hit = yield intersect_request()
         lane_hit = st["active"] & hit.valid
         with stats.span("bounce.surface"):
             si = scene.surface_interaction(hit.tri_id, hit.bary)

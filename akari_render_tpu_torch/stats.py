@@ -18,7 +18,16 @@ never read the device:
   each at a `read(site)` (counted at the site on every device);
 - pcg_kernel_draws, pcg_plain_draws: PCG32 float draws (lanes x draws a
   call) taken by core/pcg.py::pcg32_draws through its kernel and through
-  its plain version; the first over their sum is the kernel's share.
+  its plain version; the first over their sum is the kernel's share;
+- mcmc_graph_steps, mcmc_eager_steps: MCMC mutation steps run from CUDA
+  graphs to their end (integrators/mcmc.py::GraphedSteps, captured or
+  replayed) and run eagerly (the first step of a job, a route that takes
+  no graphs, a step finished eagerly after every lane died); the first
+  over their sum is the graphs' share of the steps.
+
+A step replayed from CUDA graphs adds to every counter what the captured
+code added while it was captured (integrators/piecewise.py), so it counts
+as an eager step does.
 
 Spans: `span(name)` is a context manager. While no profiler collects it is
 one shared no-op object. While one does (torch.profiler.profile, or any
@@ -68,7 +77,8 @@ class RenderStats:
 
 
 counts = {"bounces": 0, "dispatch_groups": 0, "fused_shades": 0, "samples": 0, "host_reads": 0,
-          "pcg_kernel_draws": 0, "pcg_plain_draws": 0}
+          "pcg_kernel_draws": 0, "pcg_plain_draws": 0, "mcmc_graph_steps": 0,
+          "mcmc_eager_steps": 0}
 spans: dict[str, list[int]] = {}
 _stack: list = []  # the open spans, innermost last
 

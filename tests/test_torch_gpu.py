@@ -833,6 +833,90 @@ def test_render_mcmc_on_card_matches_cpu(cuda, monkeypatch):
     np.testing.assert_allclose(gst["b"], cst["b"], rtol=0.02)
 
 
+def test_graphed_mutation_steps_match_eager_on_card(cuda, monkeypatch):
+    """cbox 64x64, 4,096 chains, d7, 8 mutation steps on the card's default
+    route (K9), from the same bootstrapped carry: GraphedSteps (step 1
+    eager, step 2 captured and replayed once, steps 3-8 replayed, the
+    traversal called eagerly between two segments) against the eager step.
+    pss, cur_*, b, b_cnt, n_acc, n_mut and the chains' PCG32 state
+    bit-equal; the splat film within 1e-6 relative (the card's index_add_
+    sums in any order); the counters that the captured code adds to
+    (bounces, fused_shades, pcg_kernel_draws) equal, 7 steps from graphs."""
+    from akari_render_tpu_torch import stats
+    from akari_render_tpu_torch.config import MCMCConfig
+    from akari_render_tpu_torch.core.film import Film
+    from akari_render_tpu_torch.core.samplers import IndependentSampler
+    from akari_render_tpu_torch.integrators import mcmc
+
+    monkeypatch.delenv("AKR_PALLAS_SHADE", raising=False)
+    scene = load_scene(str(ROOT / "scenes/cbox/scene.json"), 64, 64, device=cuda)
+    chains, steps, seed = 4096, 8, 5
+    cfg = MCMCConfig(n_chains=chains, n_bootstrap=16384)
+    settings, d = mcmc._mcmc_settings(cfg)
+    filt = GaussianFilter(1.5)
+    assert mcmc.graphs_apply(scene, settings)
+    boot = mcmc.bootstrap_chains(scene, settings, filt, cfg, d, chains, seed)
+
+    def run(step):
+        zero = torch.zeros((), dtype=torch.int64, device=cuda)
+        carry = mcmc.Chains(*(x.clone() for x in boot[:4]),
+                            IndependentSampler.new(torch.arange(chains, device=cuda),
+                                                   seed=seed ^ 0xC4A1).rng,
+                            Film.new(64, 64, cuda), torch.zeros((), device=cuda), zero, zero,
+                            zero)
+        before = dict(stats.counts)
+        for _ in range(steps):
+            carry = step(carry)
+        torch.cuda.synchronize()
+        return carry, {k: v - before[k] for k, v in stats.counts.items()}
+
+    want, want_counts = run(mcmc.make_mutate_step(scene, settings, filt, cfg, d))
+    graphed = mcmc.GraphedSteps(mcmc.make_mutate_step(scene, settings, filt, cfg, d))
+    got, got_counts = run(graphed)
+    graphed.close()
+    for name in ("pss", "cur_p", "cur_color", "cur_f", "b", "b_cnt", "n_acc", "n_mut"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(got.rng.state, want.rng.state)
+    scale = float(want.film.splat.abs().max())
+    assert scale > 0.0
+    assert float((got.film.splat - want.film.splat).abs().max()) <= 1e-6 * scale
+    for k in ("bounces", "fused_shades", "pcg_kernel_draws", "host_reads"):
+        assert got_counts[k] == want_counts[k], k
+    assert got_counts["pcg_plain_draws"] == 0
+    assert got_counts["mcmc_graph_steps"] == steps - 1
+    assert got_counts["mcmc_eager_steps"] == 1
+
+
+def test_render_mcmc_graphed_on_card_matches_cpu(cuda, monkeypatch):
+    """render_mcmc on the card's default route, K9 with the mutation steps
+    from CUDA graphs, against the CPU on K9's plain version
+    (AKR_PALLAS_SHADE=1; cbox 32x32, d7, 256 chains, 4 spp-equivalents,
+    4,096 bootstrap samples, the direct pass at 2 spp): the image's means
+    and b within 2 % and the acceptance within 0.02, as the dispatch's test
+    holds them; every step but the first from graphs on the card."""
+    from akari_render_tpu_torch import stats
+    from akari_render_tpu_torch.config import MCMCConfig
+    from akari_render_tpu_torch.integrators.mcmc import render_mcmc
+
+    monkeypatch.setenv("AKR_PALLAS_SHADE", "1")
+    cbox = ROOT / "scenes/cbox/scene.json"
+    table = load_scene(str(cbox), 32, 32, device=cuda).ggx_table_np
+    cfg = MCMCConfig(spp=4, n_chains=256, n_bootstrap=4096, direct_spp=2)
+    out = []
+    for dev in ("cpu", cuda):
+        before = dict(stats.counts)
+        img, st = render_mcmc(load_scene(str(cbox), 32, 32, device=dev, ggx_table=table), cfg)
+        graph_steps = stats.counts["mcmc_graph_steps"] - before["mcmc_graph_steps"]
+        assert st["shade"] == "fused (K9)"
+        assert graph_steps == (st["steps"] - 1 if dev == cuda else 0)
+        assert np.all(np.isfinite(img)) and img.mean() > 0.0
+        out.append((img, st))
+    (cimg, cst), (gimg, gst) = out
+    assert gst["steps"] == cst["steps"] == 32 * 32 * 4 // 256
+    np.testing.assert_allclose(gimg.mean(axis=(0, 1)), cimg.mean(axis=(0, 1)), rtol=0.02)
+    assert abs(gst["acceptance"] - cst["acceptance"]) <= 0.02
+    np.testing.assert_allclose(gst["b"], cst["b"], rtol=0.02)
+
 @pytest.mark.parametrize("shade", ["default", "0"])
 def test_split_pass_on_card_bit_exact(cuda, monkeypatch, shade):
     """cbox 64x64, 4 spp, pmj02bn, d12 (pt.json) on the card: the split

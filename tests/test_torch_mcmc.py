@@ -17,6 +17,7 @@ from akari_render_tpu.core.samplers import IndependentSampler as JIndependentSam
 from akari_render_tpu.integrators import mcmc as jmcmc
 from akari_render_tpu.scene import load_scene as j_load_scene
 from akari_render_tpu.svm.precompute import get_table as j_get_table
+from akari_render_tpu_torch import stats
 from akari_render_tpu_torch.config import MCMCConfig
 from akari_render_tpu_torch.core.film import Film
 from akari_render_tpu_torch.core import sampling as t_sampling
@@ -157,3 +158,55 @@ def test_render_mcmc_matches_jax(scenes):
     np.testing.assert_allclose(timg.mean(axis=(0, 1)), jimg.mean(axis=(0, 1)), rtol=0.02)
     assert abs(tstats["acceptance"] - jstats["acceptance"]) <= 0.02
     np.testing.assert_allclose(tstats["b"], jstats["b"], rtol=0.02)
+
+
+@pytest.fixture(scope="module")
+def cbox32():
+    """cbox 32x32 with JAX's GGX table."""
+    table = np.asarray(j_get_table("ggx_dielectric_s"))
+    return t_load_scene(str(CBOX), 32, 32, device="cpu", ggx_table=table)
+
+
+@pytest.mark.parametrize("shade", ["dispatch", "fused"])
+@pytest.mark.parametrize("chains", [256, 4])
+def test_segmented_steps_match_eager(cbox32, monkeypatch, chains, shade):
+    """GraphedSteps without graphs (the CPU): the step's segments run one
+    after the other, the traversal called eagerly between two, into the
+    static carry, against the plain eager step over 8 steps on cbox 32x32,
+    d7, on the per-kind dispatch and on K9's plain version: pss, cur_*,
+    the chains' PCG32 state, b, b_cnt, n_acc, n_mut and the splat film
+    bit-equal, and the bounce loop's counters equal. With 4 chains every
+    lane dies before d7 in some steps, so those finish eagerly from the
+    LiveRead's state (with 256 chains, never)."""
+    monkeypatch.setenv("AKR_PALLAS_SHADE", "1" if shade == "fused" else "0")
+    cfg = MCMCConfig(max_depth=7, n_chains=chains, n_bootstrap=1024)
+    settings, d = mcmc._mcmc_settings(cfg)
+    filt = GaussianFilter(1.5)
+    boot = mcmc.bootstrap_chains(cbox32, settings, filt, cfg, d, chains, SEED)
+
+    def run(step, steps=8):
+        zero = torch.zeros((), dtype=torch.int64)
+        carry = mcmc.Chains(*(x.clone() for x in boot[:4]),
+                            IndependentSampler.new(torch.arange(chains), seed=SEED ^ 0xC4A1).rng,
+                            Film.new(32, 32, "cpu"), torch.zeros(()), zero, zero, zero)
+        before = dict(stats.counts)
+        for _ in range(steps):
+            carry = step(carry)
+        return carry, {k: v - before[k] for k, v in stats.counts.items()}
+
+    want, want_counts = run(mcmc.make_mutate_step(cbox32, settings, filt, cfg, d))
+    graphed = mcmc.GraphedSteps(mcmc.make_mutate_step(cbox32, settings, filt, cfg, d))
+    exits = []
+    finish = graphed._finish_eagerly
+    graphed._finish_eagerly = lambda live: (exits.append(live), finish(live))
+    got, got_counts = run(graphed)
+    for name in ("pss", "cur_p", "cur_color", "cur_f", "b", "b_cnt", "n_acc", "n_mut"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(got.rng.state, want.rng.state)
+    assert torch.equal(got.film.splat, want.film.splat)
+    assert (len(exits) > 0) == (chains == 4)
+    for k in ("bounces", "fused_shades", "dispatch_groups", "host_reads", "pcg_plain_draws"):
+        assert got_counts[k] == want_counts[k], k
+    assert got_counts["mcmc_eager_steps"] == want_counts["mcmc_eager_steps"] == 8
+    assert got_counts["mcmc_graph_steps"] == 0
+    assert not mcmc.graphs_apply(cbox32, settings)

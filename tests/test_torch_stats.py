@@ -210,3 +210,25 @@ def test_metric_readers_read_nothing_from_a_package_without_the_api(monkeypatch)
     monkeypatch.delattr(stats, "snapshot")
     for name in READERS:
         assert _reader(name)({"trace": {"samples": SPP}}) is None, name
+
+
+def test_mcmc_graph_step_pct_reads_the_step_counters(monkeypatch):
+    """The reader of mcmc_graph_step_pct: 100 x mcmc_graph_steps / (that +
+    mcmc_eager_steps) from stats.snapshot() in a traced run; None in a run
+    without --trace 1, where no step ran, and from a package without the
+    two counters (the benchmark also reads a checkout from before them)."""
+    read = _reader("mcmc_graph_step_pct")
+    run = {"trace": {"samples": SPP}}
+    monkeypatch.setitem(stats.counts, "mcmc_graph_steps", 31)
+    monkeypatch.setitem(stats.counts, "mcmc_eager_steps", 1)
+    assert read(run) == pytest.approx(96.875)
+    assert read({"trace": None}) is None
+    monkeypatch.setitem(stats.counts, "mcmc_eager_steps", 0)
+    assert read(run) == pytest.approx(100.0)
+    monkeypatch.setitem(stats.counts, "mcmc_graph_steps", 0)
+    assert read(run) is None
+    older = {k: v for k, v in stats.counts.items() if not k.startswith("mcmc_")}
+    monkeypatch.setattr(stats, "snapshot", lambda: {"counts": dict(older), "spans": {}})
+    assert read(run) is None
+    monkeypatch.delattr(stats, "snapshot")
+    assert read(run) is None
