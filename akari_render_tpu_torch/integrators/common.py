@@ -159,13 +159,16 @@ class PTSettings:
     color: str = "rgb"  # "rgb" | "spectral" (hero-wavelength transport)
 
 
-def dispatch_shade(scene: Scene, si, extra: dict, fn, lanes, spec, force_diffuse: bool = False):
+def dispatch_shade(scene: Scene, si, extra: dict, fn, lanes, spec, force_diffuse: bool = False,
+                   evaluate=None):
     """fn(closure, extra_rows) -> dict of per-lane tensors, evaluated for the
     lanes where `lanes` is True, grouped by shader kind. Other lanes get
     zeros, and so does every output that `spec` names ((key, trailing
     shape, dtype) rows) when no lane produced it. With "lambdas" in extra
     (spectral mode), each group's closures take their lanes' hero
-    wavelengths."""
+    wavelengths. evaluate(k, rows), where given, answers for kind k's group
+    (the lanes `rows`) in place of the closure built and called here
+    (shade_graphs.py)."""
     n = lanes.shape[0]
     out: dict = {}
 
@@ -190,9 +193,12 @@ def dispatch_shade(scene: Scene, si, extra: dict, fn, lanes, spec, force_diffuse
                 continue
             stats.counts["dispatch_groups"] += 1
             with stats.span(_shade_span(k)):
-                lam0 = extra["lambdas"][rows, 0] if "lambdas" in extra else None
-                closure = scene.kind_closure(si, k, rows, lambda0=lam0)
-                scatter(rows, fn(closure, {key: v[rows] for key, v in extra.items()}))
+                if evaluate is not None:
+                    scatter(rows, evaluate(k, rows))
+                else:
+                    lam0 = extra["lambdas"][rows, 0] if "lambdas" in extra else None
+                    closure = scene.kind_closure(si, k, rows, lambda0=lam0)
+                    scatter(rows, fn(closure, {key: v[rows] for key, v in extra.items()}))
     for key, shape, dtype in spec:
         if key not in out:
             out[key] = torch.zeros((n,) + shape, dtype=dtype, device=lanes.device)

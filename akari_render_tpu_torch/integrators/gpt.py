@@ -4,10 +4,13 @@ of akari_render_tpu/integrators/gpt.py; reference gpt.rs).
 A sample of a pixel is a base path and four shifted paths (+-x, +-y,
 reflected at the borders) replaying the same primary-sample-space (PSS)
 vector, which comes from a PCG32 stream keyed by (sample index ^ scrambled
-seed, pixel) as in the JAX package. Gradient films Gx/Gy, the primal and
-their squares are binned by raster position; Jacobi iterations of the
-screened-Poisson system reconstruct the image (uniform, or the
-reference's weighted mode with inverse-variance weights).
+seed, pixel) as in the JAX package. The primal and its square are binned
+by raster position; the gradient films Gx/Gy hold at pixel p the sum of
+the two ends of the pair (p, p + e) a sample, so they estimate I(p + e) -
+I(p) at full strength, where the JAX package's hold the ends' mean
+(gpt_sample_films); Jacobi iterations of the screened-Poisson system
+reconstruct the image (uniform, or the reference's weighted mode with
+inverse-variance weights).
 
 Shift mapping: "reconnect" (the default, the method JSON's `reconnect`)
 replays the prefix and reconnects to the base path's recorded vertex
@@ -38,12 +41,13 @@ import torch
 
 from ..camera import generate_rays
 from ..config import GPTConfig
-from ..core.film import Film, add_samples, develop
+from ..core.color import remove_nan
+from ..core.film import Film, add_samples, add_samples_aligned, develop
 from ..core.filters import filter_from_config
 from ..core.math import disable_tf32
 from ..core.pcg import MASK32, Pcg32, u64_from_limbs
 from ..scene import Scene
-from ..stats import RenderStats
+from .. import stats as akr_stats
 from .common import PTSettings, trace_paths, uses_fused_shade
 from .gpt_reconnect import trace_base_record, trace_shift_reconnect
 from .mcmc import ReplaySampler, draw_pss, sample_dimension
@@ -80,10 +84,40 @@ def _reflect_offset(pix, off, width: int, height: int):
 
 def gpt_sample_films(scene: Scene, config: GPTConfig, filt, settings, D: int, seed: int,
                      shift_mode: str, films, sample_idx: int, pix_lin) -> None:
-    """Accumulate one GPT sample of the pixels `pix_lin` (int64 [N]) into
-    the six films (primal, gx, gy and their squares), in place. Each
-    pixel's PSS stream depends only on (pix_lin, sample), as in the JAX
-    package."""
+    """Accumulate one GPT sample of every pixel (`pix_lin`, int64 [H*W],
+    the film's pixels in order) into the six films (primal, gx, gy and
+    their squares), in place. Each pixel's PSS stream depends only on
+    (pix_lin, sample), as in the JAX package.
+
+    The gradient films at full strength. A shift of base pixel a to
+    b = reflect(a + e), e = +-stride along x or y, gives one end of the
+    pair (a, b): g(a -> b) = w (F(b') J - F(a)), w the end's MIS weight
+    (1 / (1 + J) for the reconnection, 1/2 for the pss shift and for the
+    separate weights' camera-vertex part), or -F(a) where the shift fails.
+    Over corresponding paths the weights of the two ends of a pair sum to
+    one, so E[g(p -> q) - g(q -> p)] = I(q) - I(p), I a pixel's radiance
+    through its own camera samples. In a sample, Gx[p] takes base p's +x
+    end g(p -> p + s) and minus base (p + s)'s -x end, added into a scratch
+    film of the sample: the sum of the pair's two ends, which estimates
+    I(p + s) - I(p). Every film pixel gains weight 1 a sample, whatever it
+    holds, so `develop` gives the mean over the samples of that sum:
+    E Gx[p] = I(p + s) - I(p) at every p with p + s inside the image, the
+    first and the last pair of each row included. So for Gy along columns.
+
+    A shift that the border reflected (b != a + e) is traced, and its end
+    goes into no film. At stride 1 it is a second draw of an end that its
+    base's opposite shift already gives (base 0's -x shift lands on pixel
+    1, as its +x shift does; base W-1's +x shift lands on W-2, as its -x
+    shift does; in the reconnection mode the two are the same path bit for
+    bit): added, the pair (0, 1) would hold two ends of one side. At a
+    larger stride it pairs a and b = s - a, which no film pixel holds. So a
+    pixel p with p + s outside the image holds no pair and reads 0 (at
+    stride 1 the last column of Gx, the last row of Gy, which
+    screened_poisson reads no constraint from).
+
+    The square films take the square of the sample's sum at each pixel, so
+    gx_sq - gx^2 is the variance of one sample's full-strength estimate,
+    which the weighted solve reads."""
     width, height = scene.camera.width, scene.camera.height
     n = pix_lin.shape[0]
     primal, gx, gy, primal_sq, gx_sq, gy_sq = films
@@ -94,59 +128,84 @@ def gpt_sample_films(scene: Scene, config: GPTConfig, filt, settings, D: int, se
     rng, pss = draw_pss(Pcg32.new_seq(u64_from_limbs(hi, pix_lin)), D)
     ones = torch.ones((n,), device=pix_lin.device)
 
-    if shift_mode == "reconnect":
-        p_film, ray_o, ray_d, fw, sampler = _camera(scene, filt, pix, ReplaySampler(pss, 0, rng))
-        (base, base0), rec, sampler = trace_base_record(
-            scene, settings, ray_o, ray_d, sampler,
-            min_dist=config.shift_mapping_min_dist, min_rough=config.shift_mapping_min_roughness)
-        base = base * fw[..., None]
-        # separate-weights split (gpt.rs:192-204, pt.rs:415-417): base0, the
-        # camera vertex's contributions, pairs at weight 1/2; the rest pairs
-        # under the reconnection-jacobian MIS
-        base0 = base0 * fw[..., None]
-        base_rest = base - base0
-        rng = sampler.rng
-    else:
-        p_film, base, rng = _eval_from_pixel(scene, settings, filt, pix, pss, rng)
-    add_samples(primal, p_film, base, ones, width, height)
-    add_samples(primal_sq, p_film, base * base, ones, width, height)
-
-    for dx, dy in OFFSETS:
-        spix = _reflect_offset(pix, (dx * config.stride, dy * config.stride), width, height)
+    with akr_stats.span("gpt.base"):
         if shift_mode == "reconnect":
-            # every shift clones the sampler from the same rng state
-            _, s_o, s_d, sfw, sampler = _camera(scene, filt, spix, ReplaySampler(pss, 0, rng))
-            (sh0, sh_rest), jac, success, _ = trace_shift_reconnect(
-                scene, settings, s_o, s_d, sampler, rec,
+            p_film, ray_o, ray_d, fw, sampler = _camera(scene, filt, pix,
+                                                        ReplaySampler(pss, 0, rng))
+            (base, base0), rec, sampler = trace_base_record(
+                scene, settings, ray_o, ray_d, sampler,
                 min_dist=config.shift_mapping_min_dist,
                 min_rough=config.shift_mapping_min_roughness)
-            sh0 = sh0 * sfw[..., None]
-            sh_rest = sh_rest * sfw[..., None]
-            ok = success[..., None]
-            jac3 = jac[..., None]
-            if config.separate_weights:
-                # the camera-vertex replay part pairs at 1/2 (jacobian-1
-                # PSS shift); the reconnection part pairs under jacobian MIS
-                # on success and falls to -base_rest on failure
-                g = (sh0 - base0) * 0.5 + torch.where(
-                    ok, (sh_rest * jac3 - base_rest) / (1.0 + jac3), -base_rest)
-            else:
-                # the lumped pair weighting (gpt.rs:318-331)
-                base_full = base0 + base_rest
-                g = torch.where(ok, ((sh0 + sh_rest) * jac3 - base_full) / (1.0 + jac3),
-                                -base_full)
+            base = base * fw[..., None]
+            # separate-weights split (gpt.rs:192-204, pt.rs:415-417): base0,
+            # the camera vertex's contributions, pairs at weight 1/2; the rest
+            # pairs under the reconnection-jacobian MIS
+            base0 = base0 * fw[..., None]
+            base_rest = base - base0
+            rng = sampler.rng
         else:
-            _, shifted, rng = _eval_from_pixel(scene, settings, filt, spix, pss, rng)
-            # PSS replay shift has jacobian 1 -> symmetric half weights
-            g = (shifted - base) * 0.5
-        # forward differences: G[p] estimates I[p + e] - I[p], stored at the
-        # lower-index pixel of the pair
-        positive = dx + dy > 0
-        grad = g if positive else -g
-        gp = (pix if positive else spix).to(torch.float32) + 0.5
-        target, tsq = (gx, gx_sq) if dx != 0 else (gy, gy_sq)
-        add_samples(target, gp, grad, ones, width, height)
-        add_samples(tsq, gp, grad * grad, ones, width, height)
+            p_film, base, rng = _eval_from_pixel(scene, settings, filt, pix, pss, rng)
+    with akr_stats.span("gpt.films"):
+        add_samples(primal, p_film, base, ones, width, height)
+        add_samples(primal_sq, p_film, base * base, ones, width, height)
+
+    # an axis's shifts in OFFSETS' order, then its films: one sample's sum
+    # of the axis lives while the shifts along it are traced
+    for axis, (film, film_sq) in enumerate(((gx, gx_sq), (gy, gy_sq))):
+        total = None
+        for off in ((dx * config.stride, dy * config.stride) for dx, dy in OFFSETS
+                    if (dy, dx)[axis] == 0):
+            spix = _reflect_offset(pix, off, width, height)
+            akr_stats.counts["gpt_shifts"] += 1
+            akr_stats.counts["gpt_shift_lanes"] += n
+            with akr_stats.span("gpt.shift"):
+                if shift_mode == "reconnect":
+                    # every shift clones the sampler from the same rng state
+                    _, s_o, s_d, sfw, sampler = _camera(scene, filt, spix,
+                                                        ReplaySampler(pss, 0, rng))
+                    (sh0, sh_rest), jac, success, _ = trace_shift_reconnect(
+                        scene, settings, s_o, s_d, sampler, rec,
+                        min_dist=config.shift_mapping_min_dist,
+                        min_rough=config.shift_mapping_min_roughness)
+                else:
+                    _, shifted, rng = _eval_from_pixel(scene, settings, filt, spix, pss, rng)
+            with akr_stats.span("gpt.films"):
+                if shift_mode == "reconnect":
+                    sh0 = sh0 * sfw[..., None]
+                    sh_rest = sh_rest * sfw[..., None]
+                    ok = success[..., None]
+                    jac3 = jac[..., None]
+                    if config.separate_weights:
+                        # the camera-vertex replay part pairs at 1/2
+                        # (jacobian-1 PSS shift); the reconnection part pairs
+                        # under jacobian MIS on success and falls to
+                        # -base_rest on failure
+                        g = (sh0 - base0) * 0.5 + torch.where(
+                            ok, (sh_rest * jac3 - base_rest) / (1.0 + jac3), -base_rest)
+                    else:
+                        # the lumped pair weighting (gpt.rs:318-331)
+                        base_full = base0 + base_rest
+                        g = torch.where(ok, ((sh0 + sh_rest) * jac3 - base_full) / (1.0 + jac3),
+                                        -base_full)
+                else:
+                    # PSS replay shift has jacobian 1 -> symmetric half weights
+                    g = (shifted - base) * 0.5
+                # the end of pair (p, p + e) goes to the pair's lower pixel p,
+                # signed as I(p + e) - I(p): lane p's own pixel for a +e
+                # shift, the shifted pixel for a -e one; a reflected shift's
+                # end goes nowhere
+                kept = (spix[:, axis] - pix[:, axis]) == off[axis]
+                g = torch.where(kept[..., None], remove_nan(g if off[axis] > 0 else -g), 0.0)
+                if off[axis] > 0:
+                    total = g if total is None else total.add_(g)
+                else:
+                    if total is None:
+                        total = torch.zeros_like(g)
+                    total.index_add_(0, spix[:, 1] * width + spix[:, 0], g)
+        if total is not None:
+            with akr_stats.span("gpt.films"):
+                add_samples_aligned(film, total, ones)
+                add_samples_aligned(film_sq, total * total, ones)
 
 
 def render_gpt(scene: Scene, config: GPTConfig, task=None, progress_cb=None,
@@ -154,7 +213,12 @@ def render_gpt(scene: Scene, config: GPTConfig, task=None, progress_cb=None,
     """Render; returns (the reconstruction [H, W, 3] numpy float32, stats
     with the primal, gx and gy images, the shift mode and the shade).
     shift_mode: an explicit argument > the method JSON's `reconnect` >
-    "reconnect"."""
+    "reconnect". The span render.job carries the task's seed as its args."""
+    with akr_stats.span("render.job", str(task.seed if task else 0)):
+        return _render_gpt(scene, config, task, progress_cb, shift_mode, session)
+
+
+def _render_gpt(scene: Scene, config: GPTConfig, task, progress_cb, shift_mode, session):
     disable_tf32()
     t0 = time.time()
     if shift_mode is None:
@@ -169,34 +233,38 @@ def render_gpt(scene: Scene, config: GPTConfig, task=None, progress_cb=None,
     seed = task.seed if task else 0
     films = tuple(Film.new(width, height, dev) for _ in range(6))
     pix_lin = torch.arange(width * height, dtype=torch.int64, device=dev)
-    render_stats = RenderStats()
+    render_stats = akr_stats.RenderStats()
     series = {"time": [], "spp": []}
     for s in range(config.spp):
-        gpt_sample_films(scene, config, filt, settings, D, seed, shift_mode, films, s, pix_lin)
+        with akr_stats.span("render.sample"):
+            gpt_sample_films(scene, config, filt, settings, D, seed, shift_mode, films, s,
+                             pix_lin)
         if progress_cb:
             _sync(dev)
             series["time"].append(time.time() - t0)
             series["spp"].append(s + 1)
             progress_cb(s + 1, config.spp, series)
 
-    primal, gx, gy, primal_sq, gx_sq, gy_sq = (develop(f, width, height) for f in films)
-    variances = None
-    if not config.uniform_weights:
-        variances = tuple(torch.clamp(sq - m ** 2, min=1e-8)
-                          for sq, m in ((primal_sq, primal), (gx_sq, gx), (gy_sq, gy)))
-    recon = screened_poisson(primal, gx, gy, variances, iters=config.reconstruction_iter)
-    img = recon.cpu().numpy().astype(np.float32)
-    stats = {
-        "total_time": time.time() - t0,
-        "spp_total": config.spp,
-        "shift_mode": shift_mode,
-        # the reconnection needs the closures' roughness, which K9 lacks
-        "shade": ("fused (K9)" if shift_mode == "pss" and uses_fused_shade(scene, settings)
-                  else "dispatch"),
-        "primal": primal.cpu().numpy(),
-        "gx": gx.cpu().numpy(),
-        "gy": gy.cpu().numpy(),
-    }
+    with akr_stats.span("render.finish"):
+        primal, gx, gy, primal_sq, gx_sq, gy_sq = (develop(f, width, height) for f in films)
+        variances = None
+        if not config.uniform_weights:
+            variances = tuple(torch.clamp(sq - m ** 2, min=1e-8)
+                              for sq, m in ((primal_sq, primal), (gx_sq, gx), (gy_sq, gy)))
+        with akr_stats.span("gpt.solve"):
+            recon = screened_poisson(primal, gx, gy, variances, iters=config.reconstruction_iter)
+        img = recon.cpu().numpy().astype(np.float32)
+        stats = {
+            "total_time": time.time() - t0,
+            "spp_total": config.spp,
+            "shift_mode": shift_mode,
+            # the reconnection needs the closures' roughness, which K9 lacks
+            "shade": ("fused (K9)" if shift_mode == "pss" and uses_fused_shade(scene, settings)
+                      else "dispatch"),
+            "primal": primal.cpu().numpy(),
+            "gx": gx.cpu().numpy(),
+            "gy": gy.cpu().numpy(),
+        }
     if session is not None:
         render_stats.record(stats["total_time"], config.spp)
         if session.save_stats:

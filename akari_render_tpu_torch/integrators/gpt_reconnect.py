@@ -20,7 +20,8 @@ the connection ray's any-hit query excludes x'_{k-1}'s and V's triangles
 and runs where the connection is otherwise eligible. Other lanes get
 zeros where the JAX package computes values it then discards. The shade
 always takes the per-kind dispatch, as in the JAX package: it needs the
-closure's roughness, which K9 does not give.
+closure's roughness, which K9 does not give. On the card each kind's
+group replays as a CUDA graph (shade_graphs.shade).
 
 Rays go through Scene.intersect_alpha / occlude_alpha, as in the JAX
 package (intersect / occlude on opaque scenes).
@@ -34,7 +35,8 @@ import torch
 from ..core.math import RAY_TMAX, dot, face_forward, length, offset_ray_origin
 from ..core.sampling import mis_weight
 from ..lights import pdf_direct
-from .common import PTSettings, _emission_at, dispatch_shade, nee_light_sample
+from .common import PTSettings, _emission_at, nee_light_sample
+from .shade_graphs import shade
 
 
 class ReconnectionRecord(NamedTuple):
@@ -115,7 +117,7 @@ def _bounce(scene, settings, st, depth: int, sampler, record_mode: bool,
 
     sampler, u_bsdf = sampler.next_3d()
     extra = {"wo": wo, "u_bsdf": u_bsdf, "ls_wi": ls.wi, "ls_li": ls.li, "ls_pdf": ls.pdf}
-    sh = dispatch_shade(scene, si, extra, _shade, st["active"], _SHADE_SPEC)
+    sh = shade(scene, si, extra, _shade, st["active"], _SHADE_SPEC)
 
     occluded = scene.occlude_alpha(
         ls.shadow_ro, ls.wi, zeros_n, torch.where(light_valid, ls.shadow_dist, -1.0),
@@ -296,14 +298,14 @@ def trace_shift_reconnect(scene, settings: PTSettings, ray_o, ray_d, sampler,
         ok = ok & ~occ
 
         # f1, pdf_y1 at x'_{k-1} (the shifted connection segment)
-        cv = dispatch_shade(scene, si, {"wo": pre["wo"], "wi": wi_p}, _eval_conn, do_connect,
-                            (("f", (3,), _F), ("pdf", (), _F)))
+        cv = shade(scene, si, {"wo": pre["wo"], "wi": wi_p}, _eval_conn, do_connect,
+                   (("f", (3,), _F), ("pdf", (), _F)))
         f1, pdf_y1 = cv["f"], cv["pdf"]
 
         # V-side with wo'_V = -wi': NEE re-eval (fd, pd) and the base exit
         # direction re-eval (f2, pdf_y2)
         wo_v = -wi_p
-        vv = dispatch_shade(
+        vv = shade(
             scene, v_si, {"wo": wo_v, "dwi": rec.direct_wi, "wi": rec.wi}, _eval_v,
             do_connect & rec.valid,
             (("fd", (3,), _F), ("pd", (), _F), ("f2", (3,), _F), ("pdf_y2", (), _F)))

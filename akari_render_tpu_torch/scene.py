@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import io
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import numpy as np
@@ -144,6 +144,9 @@ class Scene:
     has_alpha: bool = False
     # per kind: can its alpha be below 1 (an image node), else None (all can)
     kind_alpha: list | None = None
+    # the CUDA graphs of the per-kind shade's call sites, made at a site's
+    # first call and kept with the scene (integrators/shade_graphs.py)
+    shade_graphs: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     # restarts of the alpha-tested traversal a ray may take; a lane still
     # rejecting after them reports a miss
@@ -422,6 +425,11 @@ class Scene:
             "mat": si["mat"][rows], "uv": si["uv"][rows], "p": si["p"][rows],
             "ng": si["ng"][rows], "frame": tuple(f[rows] for f in si["frame"]),
         }
+        return self.closure_at(sub, kind_idx, lambda0=lambda0)
+
+    def closure_at(self, sub, kind_idx: int, lambda0=None):
+        """The world-space closure of one kind over every lane of `sub`
+        (the fields mat, uv, p, ng and frame of an interaction's lanes)."""
         return dispatch_closure(self.kinds[kind_idx],
                                 self.eval_context(sub, kind_idx, lambda0=lambda0))
 

@@ -23,7 +23,10 @@ never read the device:
   graphs to their end (integrators/mcmc.py::GraphedSteps, captured or
   replayed) and run eagerly (the first step of a job, a route that takes
   no graphs, a step finished eagerly after every lane died); the first
-  over their sum is the graphs' share of the steps.
+  over their sum is the graphs' share of the steps;
+- gpt_shifts, gpt_shift_lanes: GPT's shifted paths traced
+  (integrators/gpt.py::gpt_sample_films, four calls a sample) and their
+  lanes (a pixel each).
 
 A step replayed from CUDA graphs adds to every counter what the captured
 code added while it was captured (integrators/piecewise.py), so it counts
@@ -78,7 +81,7 @@ class RenderStats:
 
 counts = {"bounces": 0, "dispatch_groups": 0, "fused_shades": 0, "samples": 0, "host_reads": 0,
           "pcg_kernel_draws": 0, "pcg_plain_draws": 0, "mcmc_graph_steps": 0,
-          "mcmc_eager_steps": 0}
+          "mcmc_eager_steps": 0, "gpt_shifts": 0, "gpt_shift_lanes": 0}
 spans: dict[str, list[int]] = {}
 _stack: list = []  # the open spans, innermost last
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import math
 import os
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import numpy as np
@@ -83,6 +84,38 @@ class EvalContext(NamedTuple):
     # [N] hero wavelength (nm) in spectral mode, None in RGB mode: a
     # dispersive glass evaluates its IOR there
     lambda0: object = None
+
+
+# A closure's host constants are copied to the device where it is built: a
+# stream sync (a host read), which a CUDA graph cannot capture. Inside
+# keep_constants(store) (integrators/shade_graphs.py: the eager run before
+# a call site's captures, and the captures) each is copied once, into
+# `store`, and the closures built after take it from there.
+_kept: dict | None = None
+
+
+@contextmanager
+def keep_constants(store: dict):
+    """Inside, the closures take their host constants from `store`, each
+    copied to the device at its first use only."""
+    global _kept
+    outer, _kept = _kept, store
+    try:
+        yield
+    finally:
+        _kept = outer
+
+
+def _to_device(site: str, key, make):
+    """make()'s tensor, a copy to the device (a read of `site`); inside
+    keep_constants, the store's copy of (site, key)."""
+    if _kept is not None and (site, key) in _kept:
+        return _kept[(site, key)]
+    with stats.read(site):
+        t = make()
+    if _kept is not None:
+        _kept[(site, key)] = t
+    return t
 
 
 # the closure ops: in alpha mode each evaluates to its alpha instead
@@ -330,10 +363,10 @@ class _Evaluator:
         roughness = self.f(node[2])
         shape = roughness.shape + (3,)
         dev = roughness.device
-        with stats.read("metal_ior"):  # copies to the device: stream syncs
-            n_c = torch.tensor(n_rgb, dtype=torch.float32, device=dev).expand(shape)
-        with stats.read("metal_ior"):
-            k_c = torch.tensor(k_rgb, dtype=torch.float32, device=dev).expand(shape)
+        n_c = _to_device("metal_ior", ("n", name), lambda: torch.tensor(
+            n_rgb, dtype=torch.float32, device=dev)).expand(shape)
+        k_c = _to_device("metal_ior", ("k", name), lambda: torch.tensor(
+            k_rgb, dtype=torch.float32, device=dev)).expand(shape)
         return ConductorReflection(torch.ones(shape, device=dev),
                                    lambda c: fr_complex(c, n_c, k_c),
                                    TrowbridgeReitz.from_roughness(roughness))
@@ -381,8 +414,8 @@ class _Evaluator:
             coat_tint=self.color(inp["coat_tint"]),
         )
         # tangent-space normal input: x/y negated (principled.rs:200-215)
-        with stats.read("normal_sign"):  # a copy to the device: a stream sync
-            sign = torch.tensor([-1.0, -1.0, 1.0], device=color.device)
+        sign = _to_device("normal_sign", None,
+                          lambda: torch.tensor([-1.0, -1.0, 1.0], device=color.device))
         return normal_map(bsdf, self.f3(inp["normal"]) * sign, ctx.ng, ctx.frame)
 
 
@@ -395,9 +428,8 @@ def _albedo_fn(ctx: EvalContext, roughness, eta, roughness_c=None, eta_c=None):
 
     if roughness_c is not None and eta_c is not None:
         zc = math.sqrt(abs((eta_c - 1.0) / (eta_c + 1.0)))
-        curve_np = albedo_curve_np(ctx.table_np, roughness_c, zc)
-        with stats.read("albedo_curve"):  # a copy to the device: a stream sync
-            curve = torch.as_tensor(curve_np, device=roughness.device)
+        curve = _to_device("albedo_curve", (roughness_c, zc), lambda: torch.as_tensor(
+            albedo_curve_np(ctx.table_np, roughness_c, zc), device=roughness.device))
         return lambda cos: curve_eval(curve, cmap(cos))
     z = torch.sqrt(torch.abs((eta - 1.0) / (eta + 1.0)))
     cell = {}

@@ -179,7 +179,7 @@ Phases (any failure exits non-zero; nothing is caught):
    device events (torch.profiler).
 
 `python3 chip_smoke.py --only 26,27` runs the build and the listed phases
-alone (26 after phase 8's image; likewise 11, 14, 21, 28, 29 and 30, 29
+alone (26 after phase 8's image; likewise 11, 14, 21, 23, 28, 29 and 30, 29
 with phase 21's RGB row where 21 is named too) and prints no result line
 (phase 30 prints its kernel's JSON entry): a quick check of them on the
 card.
@@ -294,9 +294,14 @@ AOV_ROUGH_MEAN_REL = 0.01
 # the gradient-domain path tracer and Kelemen PSSMLT (phases 23-25)
 CBOX_GPT = ROOT / "scenes" / "cbox" / "gpt.json"
 CBOX_MCMC = ROOT / "scenes" / "cbox" / "mcmc.json"
-# phase 23: GPT's gradients against JAX's, by correlation (the gradients'
-# means are near zero)
+# phase 23: GPT's gradients against JAX's at the pixels where JAX's film
+# holds one pair's two ends (their mean; the port's holds their sum), by
+# correlation (the gradients' means are near zero) and by the slope of the
+# port's on JAX's, within GRAD_SLOPE_TOL of 2 (the card's paths are JAX's
+# samples, which GRAD_CORR holds)
 GRAD_CORR = 0.99
+GRAD_SLOPE = 2.0
+GRAD_SLOPE_TOL = 0.05
 # phase 24: the chains on the card drift from JAX's as float sums differ,
 # so the image is held statistically: means within 2 %, MSE against the JAX
 # 256-spp PT image within 1.25x the JAX MCMC image's own
@@ -2795,15 +2800,23 @@ def image_gates(label: str, img, want, gt, mean_tol: float, mse_ratio: float) ->
 def gpt_correctness(device):
     """Phase 23: cbox 64^2, 4 spp through the CLI with scenes/cbox/gpt.json
     (the reconnection shift; its bounces shade through the dispatch) held
-    against the committed JAX render (testdata/cbox64_gpt_spp4.npz): the
-    reconstruction and the primal by phase 4's gates against
-    testdata/cbox64_spp256.npy, the gradients by correlation; then the pss
-    shift on the dispatch route and on path B (K9), the two within 1 % in
-    their means."""
+    against the committed JAX render (testdata/cbox64_gpt_spp4.npz), whose
+    gradient films hold the mean of a pair's two ends where the port's hold
+    their sum: the gradients at JAX's paired pixels (bench_torch/check.py::
+    paired) by correlation and by their slope on JAX's (2); the primal by
+    phase 4's gates against testdata/cbox64_spp256.npy, and the
+    reconstruction by those gates against the port's screened_poisson of
+    JAX's films at 2x (the card's own gradients at the few pixels where
+    JAX's film holds a reflected end, which no factor turns into a pair);
+    then the pss shift on the dispatch route and on path B (K9), the two
+    within 1 % in their means."""
     import numpy as np
+    import torch
 
     from akari_render_tpu_torch.cli import main as cli_main
     from akari_render_tpu_torch.core.image_io import read_exr
+    from akari_render_tpu_torch.integrators.gpt import screened_poisson
+    from bench_torch.check import paired
 
     testdata = ROOT / "akari_render_tpu_torch" / "testdata"
     ref = np.load(testdata / "cbox64_gpt_spp4.npz")
@@ -2820,14 +2833,27 @@ def gpt_correctness(device):
           f"cbox 64^2 GPT took the {stats['shift_mode']} shift, {stats['shade']} shade")
     check(got["K1"] > 0 and got["K8"] == 0 and got["K9"] == 0 and got["dispatch_groups"] > 0,
           f"cbox 64^2 GPT launches {got}")
-    for name, img in (("recon", read_exr(out)), ("primal", stats["primal"])):
-        text = image_gates(f"cbox 64^2 GPT {name}", img, ref[name], gt, MEAN_TOL, MSE_RATIO)
-        print(f"cbox 64^2 4spp GPT reconnect {name}: {text}", flush=True)
-    for name in ("gx", "gy"):
-        corr = float(np.corrcoef(stats[name].ravel(), ref[name].ravel())[0, 1])
-        print(f"cbox 64^2 GPT {name}: correlation with JAX's {corr:.6f}, mean abs port "
-              f"{np.abs(stats[name]).mean():.6g} jax {np.abs(ref[name]).mean():.6g}", flush=True)
+    full = {}
+    for name, axis in (("gx", 1), ("gy", 0)):
+        line = paired(64, 1)
+        keep = np.broadcast_to(line[None, :, None] if axis == 1 else line[:, None, None],
+                               stats[name].shape)
+        port_g, jax_g = stats[name][keep], ref[name][keep]
+        corr = float(np.corrcoef(port_g, jax_g)[0, 1])
+        slope = float(np.dot(port_g, jax_g) / np.dot(jax_g, jax_g))
+        print(f"cbox 64^2 GPT {name}: at JAX's {int(line.sum())} paired of 64 lines, "
+              f"correlation with JAX's {corr:.6f}, slope {slope:.6f}, mean abs port "
+              f"{np.abs(port_g).mean():.6g} jax {np.abs(jax_g).mean():.6g}", flush=True)
         check(corr >= GRAD_CORR, f"cbox 64^2 GPT {name} correlates {corr:.4f} with JAX's")
+        check(abs(slope - GRAD_SLOPE) <= GRAD_SLOPE_TOL,
+              f"cbox 64^2 GPT {name}: slope {slope:.4f} on JAX's, not {GRAD_SLOPE}")
+        full[name] = np.where(keep, GRAD_SLOPE * ref[name], stats[name])
+    want = screened_poisson(*(torch.as_tensor(np.asarray(a, np.float32)) for a in (
+        ref["primal"], full["gx"], full["gy"]))).numpy()
+    for name, img, jax_img in (("recon", read_exr(out), want),
+                               ("primal", stats["primal"], ref["primal"])):
+        text = image_gates(f"cbox 64^2 GPT {name}", img, jax_img, gt, MEAN_TOL, MSE_RATIO)
+        print(f"cbox 64^2 4spp GPT reconnect {name}: {text}", flush=True)
     print(f"cbox 64^2 GPT reconnect: {wall:.2f} s CLI, launches and counts {got}", flush=True)
 
     pss = method_file("cbox_gpt_pss.json", CBOX_GPT, reconnect=False)
@@ -3692,6 +3718,9 @@ def main():
         if 21 in ONLY:
             rgb_cbox = cbox_full_width(device)
             lap("phase 21")
+        if 23 in ONLY:
+            gpt_correctness(device)
+            lap("phase 23")
         if 26 in ONLY:
             pass_shapes_correctness(device, classroom_correctness(device))
             lap("phase 26")
@@ -3799,7 +3828,7 @@ def main():
 
 
 # `--only 26,27`: the build and those phases alone (26 after phase 8's
-# image; 11, 14, 21 and 26-30 can be named), for a quick check on the
+# image; 11, 14, 21, 23 and 26-30 can be named), for a quick check on the
 # card; the full run takes no arguments
 ONLY = ({int(x) for x in sys.argv[sys.argv.index("--only") + 1].split(",")}
         if "--only" in sys.argv else set())

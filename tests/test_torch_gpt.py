@@ -23,13 +23,15 @@ from akari_render_tpu.scene import load_scene as j_load_scene
 from akari_render_tpu.svm.precompute import get_table as j_get_table
 from akari_render_tpu_torch.camera import generate_rays as t_generate_rays
 from akari_render_tpu_torch.config import GPTConfig
+from akari_render_tpu_torch.core.film import Film, develop
+from akari_render_tpu_torch.core.filters import filter_from_config
 from akari_render_tpu_torch.core.pcg import Pcg32, u64_from_limbs
 from akari_render_tpu_torch.integrators import gpt, gpt_reconnect
 from akari_render_tpu_torch.integrators.common import PTSettings
 from akari_render_tpu_torch.integrators.mcmc import (ReplaySampler, draw_pss, kelemen_mutate,
                                                       sample_dimension)
 from akari_render_tpu_torch.scene import load_scene as t_load_scene
-from torch_gpt_checks import assert_images_match
+from torch_gpt_checks import assert_full_strength, assert_images_match, paired_pixels
 
 ROOT = Path(__file__).resolve().parents[1]
 CBOX = ROOT / "scenes/cbox/scene.json"
@@ -188,15 +190,44 @@ def test_base_record_and_shift_match_jax(scenes):
 
 @pytest.mark.parametrize("mode", ["reconnect", "pss"])
 def test_render_gpt_matches_jax(scenes, mode):
-    """cbox 16x16, 2 spp, d3 in each shift mode: the reconstruction, the
-    primal and both gradient images with channel means within 1 % and
-    >= 95 % of the pixels within 1e-3 relative (test_slice_matches_jax's
-    standard; measured on the CPU: every pixel, within 4.8e-7 absolute)."""
+    """cbox 16x16, 2 spp, d3 in each shift mode, against the JAX package
+    (test_slice_matches_jax's standard: channel means within 1 % and >= 95 %
+    of the pixels within 1e-3 relative; measured on the CPU before the
+    films came to full strength: every pixel within 4.8e-7 absolute).
+
+    The factors. A sample's gradient pixel p that holds the two ends a, b
+    of the pair (p, p + e) holds their sum a + b in the port
+    (gpt.gpt_sample_films) and their mean (a + b) / 2 in the JAX package,
+    which divides by the two splats: so the port's gx and gy are exactly
+    2x JAX's at every pixel where JAX's film holds one pair
+    (torch_gpt_checks.assert_full_strength; the port's last column of gx
+    and last row of gy, which hold no pair, read 0). The primal is JAX's.
+    The reconstruction is JAX's screened_poisson (called as it is) fed the
+    port's films, which are those 2x films. The square films: at one
+    sample the port's gx_sq holds (a + b)^2, the square of its gx, so 4x
+    the square of JAX's one-sample gx at those pixels (JAX's own square
+    film holds (a^2 + b^2) / 2, no square of a full-strength sample)."""
     js, ts = scenes
     jimg, jstats = jgpt.render_gpt(js, JGPTConfig(spp=2, max_depth=DEPTH), None, shift_mode=mode)
     timg, tstats = gpt.render_gpt(ts, GPTConfig(spp=2, max_depth=DEPTH), None, shift_mode=mode)
     assert tstats["shift_mode"] == mode and tstats["spp_total"] == 2
-    assert_images_match(timg, jimg, "recon")
-    for k in ("primal", "gx", "gy"):
-        assert_images_match(tstats[k], jstats[k], k)
+    assert_images_match(tstats["primal"], jstats["primal"], "primal")
+    assert_full_strength(tstats, jstats)
+    want = jgpt.screened_poisson(*(jnp.asarray(tstats[k]) for k in ("primal", "gx", "gy")),
+                                 None, iters=GPTConfig().reconstruction_iter)
+    assert_images_match(timg, np.asarray(want), "recon")
     assert timg.mean() > 0.01 and np.abs(tstats["gx"]).mean() > 1e-3
+
+    _, j1 = jgpt.render_gpt(js, JGPTConfig(spp=1, max_depth=DEPTH), None, shift_mode=mode)
+    cfg = GPTConfig(spp=1, max_depth=DEPTH)
+    films = tuple(Film.new(RES, RES, "cpu") for _ in range(6))
+    gpt.gpt_sample_films(ts, cfg, filter_from_config(None),
+                         PTSettings(max_depth=DEPTH, rr_depth=cfg.rr_depth, use_nee=cfg.use_nee),
+                         sample_dimension(DEPTH), 0, mode, films, 0,
+                         torch.arange(RES * RES, dtype=torch.int64))
+    _, gx, gy, _, gx_sq, gy_sq = (develop(f, RES, RES).numpy() for f in films)
+    for name, g, sq, axis in (("gx", gx, gx_sq, 1), ("gy", gy, gy_sq, 0)):
+        np.testing.assert_array_equal(sq, g * g)
+        keep = paired_pixels(RES, RES, axis)
+        want_sq = (2.0 * np.asarray(j1[name])) ** 2
+        assert_images_match(sq[keep][:, None], want_sq[keep][:, None], f"{name}_sq")

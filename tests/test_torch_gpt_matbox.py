@@ -5,6 +5,7 @@ on the CPU (a file of its own: JAX compiles matbox's GPT graph for about a
 minute, and a file is one worker's share)."""
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,7 +17,7 @@ from akari_render_tpu.svm.precompute import get_table as j_get_table
 from akari_render_tpu_torch.config import GPTConfig
 from akari_render_tpu_torch.integrators import gpt
 from akari_render_tpu_torch.scene import load_scene as t_load_scene
-from torch_gpt_checks import assert_images_match
+from torch_gpt_checks import assert_full_strength, assert_images_match
 
 MATBOX = Path(__file__).resolve().parents[1] / "scenes/matbox/scene.json"
 
@@ -33,9 +34,13 @@ def _few_torch_threads():
 
 def test_render_gpt_matbox_matches_jax():
     """matbox 16x16, 2 spp, d3, the reconnection shift (the mode whose
-    bounces shade through the dispatch): the reconstruction, primal and
-    gradients with channel means within 1 % and >= 95 % of the pixels
-    within 1e-3 relative of JAX's."""
+    bounces shade through the dispatch), against JAX's, each with channel
+    means within 1 % and >= 95 % of the pixels within 1e-3 relative: the
+    primal; gx and gy at exactly 2x JAX's wherever JAX's film holds one
+    pair's two ends (their mean there, the port's their sum:
+    torch_gpt_checks.assert_full_strength), 0 where the port's holds no
+    pair; the reconstruction against JAX's screened_poisson fed the port's
+    films."""
     table = np.asarray(j_get_table("ggx_dielectric_s"))
     js = j_load_scene(str(MATBOX), 16, 16)
     ts = t_load_scene(str(MATBOX), 16, 16, device="cpu", ggx_table=table)
@@ -44,6 +49,8 @@ def test_render_gpt_matbox_matches_jax():
                                    shift_mode="reconnect")
     timg, tstats = gpt.render_gpt(ts, GPTConfig(spp=2, max_depth=3), None)
     assert tstats["shift_mode"] == "reconnect"
-    assert_images_match(timg, jimg, "recon")
-    for k in ("primal", "gx", "gy"):
-        assert_images_match(tstats[k], jstats[k], k)
+    assert_images_match(tstats["primal"], jstats["primal"], "primal")
+    assert_full_strength(tstats, jstats)
+    want = jgpt.screened_poisson(*(jnp.asarray(tstats[k]) for k in ("primal", "gx", "gy")),
+                                 None, iters=GPTConfig().reconstruction_iter)
+    assert_images_match(timg, np.asarray(want), "recon")

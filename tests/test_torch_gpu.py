@@ -773,36 +773,104 @@ def test_fused_route_aux_albedo_on_card(cuda, monkeypatch):
         assert torch.equal(aux["0"][k], aux["1"][k])
 
 
-def test_render_gpt_on_card_matches_cpu(cuda, monkeypatch):
-    """cbox 32x32, 2 spp, d7 through render_gpt on the card and on the CPU
-    (the same samples, the same GGX table, the per-kind dispatch on both:
-    AKR_PALLAS_SHADE=0), in each shift mode: the
-    reconstruction, primal and gradients with channel means within 1e-3
-    (of the image's mean magnitude for the gradients) and all but 1 % of
-    the pixels within 1e-3 (a lane whose float decision flips moves its
-    pixels); K1 launched on the card."""
+def _gpt_on_card_and_cpu(cuda, res: int, modes):
+    """render_gpt of cbox res x res, 2 spp, d7 on the CPU and on the card,
+    in each shift mode, with the same samples and GGX table; for each mode
+    the two sides' reconstruction, primal and gradients, held to each other:
+    channel means within 1e-3 (of the image's mean magnitude for the
+    gradients) and all but 1 % of the pixels within 1e-3 (a lane whose
+    float decision flips moves its pixels). K1 launched on the card.
+    Returns the stats of both sides, by mode."""
     from akari_render_tpu_torch.config import GPTConfig
     from akari_render_tpu_torch.integrators.gpt import render_gpt
 
-    monkeypatch.setenv("AKR_PALLAS_SHADE", "0")
     cbox = ROOT / "scenes/cbox/scene.json"
-    table = load_scene(str(cbox), 32, 32, device=cuda).ggx_table_np
-    for mode in ("reconnect", "pss"):
+    table = load_scene(str(cbox), res, res, device=cuda).ggx_table_np
+    seen = {}
+    for mode in modes:
         out = []
         for dev in ("cpu", cuda):
-            before = k1.launches
-            img, stats = render_gpt(load_scene(str(cbox), 32, 32, device=dev, ggx_table=table),
+            before = k1.launches, fs.launches
+            img, stats = render_gpt(load_scene(str(cbox), res, res, device=dev, ggx_table=table),
                                     GPTConfig(spp=2), shift_mode=mode)
-            assert (k1.launches > before) == (dev == cuda)
-            out.append({"recon": img, **{k: stats[k] for k in ("primal", "gx", "gy")}})
-        for name, want in out[0].items():
-            got = out[1][name]
+            assert (k1.launches > before[0]) == (dev == cuda)
+            stats["k9_launches"] = fs.launches - before[1]
+            out.append(({"recon": img, **{k: stats[k] for k in ("primal", "gx", "gy")}}, stats))
+        for name, want in out[0][0].items():
+            got = out[1][0][name]
             assert np.all(np.isfinite(got)), (mode, name)
             scale = np.maximum(np.abs(want.mean((0, 1))), np.abs(want).mean((0, 1)))
             assert np.all(np.abs(got.mean((0, 1)) - want.mean((0, 1))) <= 1e-3 * scale), (mode,
                                                                                           name)
             off = np.abs(got - want).max(axis=-1) > 1e-3 * np.maximum(np.abs(want).max(-1), 1.0)
             assert off.mean() <= 0.01, (mode, name, off.mean())
+        seen[mode] = (out[0][1], out[1][1])
+    return seen
+
+
+def test_render_gpt_on_card_matches_cpu(cuda, monkeypatch):
+    """cbox 32x32 in each shift mode on the per-kind dispatch on both sides
+    (AKR_PALLAS_SHADE=0), held by _gpt_on_card_and_cpu."""
+    monkeypatch.setenv("AKR_PALLAS_SHADE", "0")
+    for cpu, card in _gpt_on_card_and_cpu(cuda, 32, ("reconnect", "pss")).values():
+        assert cpu["shade"] == card["shade"] == "dispatch"
+
+
+def test_render_gpt_default_route_on_card_matches_cpu(cuda, monkeypatch):
+    """cbox 64x64 on the card's default route, held by
+    _gpt_on_card_and_cpu against the CPU on the same route: the
+    reconnection shift on the dispatch (its route everywhere), the pss
+    shift on K9 (the card's default; on the CPU K9's plain version, which
+    AKR_PALLAS_SHADE=1 opts in to there and leaves the card's default as
+    it is)."""
+    monkeypatch.setenv("AKR_PALLAS_SHADE", "1")
+    seen = _gpt_on_card_and_cpu(cuda, 64, ("reconnect", "pss"))
+    cpu, card = seen["reconnect"]
+    assert cpu["shade"] == card["shade"] == "dispatch" and card["k9_launches"] == 0
+    cpu, card = seen["pss"]
+    assert cpu["shade"] == card["shade"] == "fused (K9)" and card["k9_launches"] > 0
+
+
+def test_graphed_shift_shade_matches_eager_dispatch_on_card(cuda, monkeypatch):
+    """cbox 64x64 (4,096 lanes: buckets of 1,024 to 4,096 rows), 2 spp,
+    d7, the reconnection shift on the card: the shift's per-kind shade
+    replayed as CUDA graphs (shade_graphs.shade, the card's default)
+    against the eager dispatch_shade in its place, the graphed render
+    second, after its sites captured in a first: the gradient films
+    bit-equal (each path's values are), the primal and the image within
+    float32 sums in another order (the primal's filter splats add with
+    atomics: two eager renders differ as much), the same dispatch groups
+    and the host reads but the closures' constants (three copies a group
+    on the eager dispatch, none in a replay), and a graph for every bucket
+    of each of the three call sites."""
+    from akari_render_tpu_torch import stats
+    from akari_render_tpu_torch.config import GPTConfig
+    from akari_render_tpu_torch.integrators import common, gpt, gpt_reconnect, shade_graphs
+
+    scene = load_scene(str(ROOT / "scenes/cbox/scene.json"), 64, 64, device=cuda)
+    cfg = GPTConfig(spp=2, max_depth=7)
+    gpt.render_gpt(scene, cfg, None, shift_mode="reconnect")  # the captures
+    sites = [v for k, v in scene.shade_graphs.items() if k != "shared"]
+    assert len(sites) == 3
+    for site in sites:
+        assert sorted(site.graphs) == shade_graphs.buckets(64 * 64) == [1024, 1536, 2048,
+                                                                          3072, 4096]
+    out = {}
+    for name, fn in (("graphed", shade_graphs.shade), ("eager", common.dispatch_shade)):
+        monkeypatch.setattr(gpt_reconnect, "shade", fn)
+        stats.reset()
+        img, st = gpt.render_gpt(scene, cfg, None, shift_mode="reconnect")
+        torch.cuda.synchronize()
+        out[name] = (img, st, dict(stats.counts))
+    (gimg, gst, gc), (eimg, est, ec) = out["graphed"], out["eager"]
+    for key in ("gx", "gy"):
+        np.testing.assert_array_equal(gst[key], est[key], err_msg=key)
+    np.testing.assert_allclose(gst["primal"], est["primal"], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(gimg, eimg, rtol=1e-5, atol=1e-6)
+    assert np.abs(est["gx"]).mean() > 0
+    for key in ("dispatch_groups", "gpt_shifts", "gpt_shift_lanes"):
+        assert gc[key] == ec[key], key
+    assert gc["host_reads"] == ec["host_reads"] - 3 * ec["dispatch_groups"]
 
 
 def test_render_mcmc_on_card_matches_cpu(cuda, monkeypatch):

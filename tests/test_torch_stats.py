@@ -18,7 +18,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from akari_render_tpu.svm.precompute import get_table as j_get_table
 from akari_render_tpu_torch import stats
-from akari_render_tpu_torch.config import RenderTask
+from akari_render_tpu_torch.config import GPTConfig, RenderTask
+from akari_render_tpu_torch.integrators.gpt import render_gpt
 from akari_render_tpu_torch.integrators.pt import render_pt
 from akari_render_tpu_torch.scene import load_scene
 
@@ -230,5 +231,46 @@ def test_mcmc_graph_step_pct_reads_the_step_counters(monkeypatch):
     older = {k: v for k, v in stats.counts.items() if not k.startswith("mcmc_")}
     monkeypatch.setattr(stats, "snapshot", lambda: {"counts": dict(older), "spans": {}})
     assert read(run) is None
+    monkeypatch.delattr(stats, "snapshot")
+    assert read(run) is None
+
+
+def test_gpt_spans_and_counters_under_a_profiler(scene):
+    """render_gpt (the reconnection shift on the per-kind dispatch, d3)
+    under a profiler: render.job once, render.sample a sample, gpt.base a
+    sample, gpt.shift four times a sample, gpt.films, render.finish and
+    gpt.solve once, and the dispatch's shade.0; the counters gpt_shifts
+    and gpt_shift_lanes count the shifts and their lanes (a pixel each)
+    with the profiler on or off; gpt_dispatch_host_ms_per_sample reads
+    the shade.<k> spans' host time over the samples."""
+    stats.reset()
+    render_gpt(scene, GPTConfig(spp=SPP, max_depth=3))
+    assert stats.snapshot()["spans"] == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        render_gpt(scene, GPTConfig(spp=SPP, max_depth=3))
+    snap = stats.snapshot()
+    s, c = snap["spans"], snap["counts"]
+    for name, calls in (("render.job", 1), ("render.sample", SPP), ("gpt.base", SPP),
+                        ("gpt.shift", 4 * SPP), ("render.finish", 1), ("gpt.solve", 1)):
+        assert s[name][0] == calls, name
+    assert s["gpt.films"][0] >= SPP and s["shade.0"][0] > 0
+    assert c["gpt_shifts"] == 2 * 4 * SPP
+    assert c["gpt_shift_lanes"] == 2 * 4 * SPP * RES * RES
+    v = _reader("gpt_dispatch_host_ms_per_sample")({"trace": {"samples": SPP}})
+    assert v == pytest.approx(s["shade.0"][1] / SPP / 1e6)
+    assert 0 < v < s["render.sample"][1] / SPP / 1e6
+
+
+def test_gpt_dispatch_reader_reads_nothing_without_the_spans(monkeypatch):
+    """gpt_dispatch_host_ms_per_sample is None in a run without --trace 1,
+    where no shade.<k> or render.sample span was timed (a render_gpt from
+    before its spans opens shade.<k> alone), and from a package without
+    stats.snapshot."""
+    read = _reader("gpt_dispatch_host_ms_per_sample")
+    run = {"trace": {"samples": SPP}}
+    assert read({"trace": None}) is None
+    for spans in ({}, {"shade.0": [4, 10_000, 10_000]}, {"render.sample": [2, 50_000, 0]}):
+        monkeypatch.setattr(stats, "snapshot", lambda spans=spans: {"counts": {}, "spans": spans})
+        assert read(run) is None, spans
     monkeypatch.delattr(stats, "snapshot")
     assert read(run) is None
