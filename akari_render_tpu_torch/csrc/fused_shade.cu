@@ -37,6 +37,28 @@
 // The arithmetic is reduced_closure.cuh's, op for op (-fmad=false), as in
 // K8; has_spec / has_metal are template parameters, so a scene without a
 // specular layer or metal compiles those lobes out.
+//
+// Two more entries serve GPT's reconnection shift
+// (integrators/gpt_reconnect.py), each one masked launch over the
+// wavefront's rows as they lie, as K9's design 1 (no compaction, no
+// gathers, no host read; zeros on the dead lanes), with the plain versions
+// fused_shade_torch(roughness=True) and fused_eval_torch:
+// - K9r, a bounce's shade with roughness (fused_shade_rough_kernel): K9's
+//   closure, and in place of the albedo the roughness of the lobe that the
+//   sample's pick chose (the table's column kMtRough, else 1), which the
+//   shift's eligibility test reads. Bound: bytes. A live lane reads K9's
+//   104 B and writes 12 floats and a bool (49 B); a dead lane writes its
+//   49 B of zeros; a flag a lane.
+// - K9e, the closure evaluated at given directions (fused_eval_kernel<.., D>):
+//   at a connection the shifted vertex's f and pdf toward V (D = 1), and
+//   V's at the light's and the base path's directions (D = 2), one launch
+//   each: the two read different surfaces and different lanes (V's only
+//   where the base path recorded a vertex), and a launch of one generic
+//   kernel a surface keeps each lane's inputs to one frame and one
+//   material. Bound: bytes. A live lane reads the frame, ng and wo (60 B),
+//   D directions (12 B each) and a material id (4 B), and writes D x 16 B;
+//   a dead lane writes its D x 16 B of zeros; a flag a lane. The closure is
+//   ~240 FP32 operations a direction (chip_smoke.py's K9E_DIR_FLOPS).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,7 +87,8 @@ struct Args {
   int N;
 };
 
-__device__ __forceinline__ V3 ld3(const Args& a, int q, int64_t i) {
+template <class A>
+__device__ __forceinline__ V3 ld3(const A& a, int q, int64_t i) {
   const float* p = a.in3[q] + i * a.in3_stride[q];
   return {__ldg(p), __ldg(p + 1), __ldg(p + 2)};
 }
@@ -97,11 +120,90 @@ __global__ void __launch_bounds__(kThreads) fused_shade_kernel(const Args a) {
   a.valid[i] = o.valid;
 }
 
+struct RoughArgs {
+  const float* tab;
+  const float* in3[kIn3];  // as Args
+  int64_t in3_stride[kIn3];
+  const float* ls_pdf;
+  const int32_t* mat;
+  const bool* live;
+  float* out3[3];  // direct, wi, f: [N, 3] contiguous
+  float* pdf;
+  bool* valid;
+  float* roughness;
+  int N;
+};
+
 template <bool SPEC, bool METAL>
-int launch(const Args& a, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads) fused_shade_rough_kernel(const RoughArgs a) {
+  const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= a.N) return;
+  akr::ShadeOut o{};
+  if (a.live == nullptr || a.live[i]) {
+    const int64_t m = a.mat[i];
+    const V3 u = ld3(a, 7, i);
+    o = akr::reduced_shade<SPEC, METAL, false, true>(
+        a.tab + m * akr::kMatCols, ld3(a, 0, i), ld3(a, 1, i), ld3(a, 2, i), ld3(a, 3, i),
+        ld3(a, 4, i), ld3(a, 5, i), ld3(a, 6, i), __ldg(a.ls_pdf + i), u.x, u.y, u.z);
+  }
+  st3(a.out3[0], i, o.direct);
+  st3(a.out3[1], i, o.wi);
+  st3(a.out3[2], i, o.f);
+  a.pdf[i] = o.pdf;
+  a.valid[i] = o.valid;
+  a.roughness[i] = o.roughness;
+}
+
+constexpr int kMaxDirs = 2;
+
+struct EvalArgs {
+  const float* tab;
+  const float* in3[5 + kMaxDirs];  // t, b, n, ng, wo, then the D directions
+  int64_t in3_stride[5 + kMaxDirs];
+  const int32_t* mat;
+  const bool* live;
+  float* f[kMaxDirs];  // [N, 3] contiguous
+  float* pdf[kMaxDirs];
+  int N;
+};
+
+template <bool SPEC, bool METAL, int D>
+__global__ void __launch_bounds__(kThreads) fused_eval_kernel(const EvalArgs a) {
+  const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= a.N) return;
+  V3 f[D];
+  float pdf[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    f[d] = {0.f, 0.f, 0.f};
+    pdf[d] = 0.f;
+  }
+  if (a.live == nullptr || a.live[i]) {
+    const int64_t m = a.mat[i];
+    const akr::Closure c = akr::make_closure<SPEC>(a.tab + m * akr::kMatCols, ld3(a, 0, i),
+                                                   ld3(a, 1, i), ld3(a, 2, i), ld3(a, 3, i),
+                                                   ld3(a, 4, i));
+#pragma unroll
+    for (int d = 0; d < D; ++d) akr::reduced_eval<SPEC, METAL>(c, ld3(a, 5 + d, i), f[d], pdf[d]);
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    st3(a.f[d], i, f[d]);
+    a.pdf[d][i] = pdf[d];
+  }
+}
+
+template <class A, class K>
+int launch_on(K kernel, const A& a, cudaStream_t stream) {
   const unsigned grid = unsigned((int64_t(a.N) + kThreads - 1) / kThreads);
-  fused_shade_kernel<SPEC, METAL><<<grid, kThreads, 0, stream>>>(a);
+  kernel<<<grid, kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool SPEC, bool METAL>
+int launch_eval(const EvalArgs& a, int dirs, cudaStream_t s) {
+  return dirs == 1 ? launch_on(fused_eval_kernel<SPEC, METAL, 1>, a, s)
+                   : launch_on(fused_eval_kernel<SPEC, METAL, 2>, a, s);
 }
 
 }  // namespace
@@ -131,10 +233,10 @@ extern "C" int akr_fused_shade(const float* tab, int M, int has_spec, int has_me
   a.valid = valid;
   a.N = N;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (has_spec && has_metal) return launch<true, true>(a, s);
-  if (has_spec) return launch<true, false>(a, s);
-  if (has_metal) return launch<false, true>(a, s);
-  return launch<false, false>(a, s);
+  if (has_spec && has_metal) return launch_on(fused_shade_kernel<true, true>, a, s);
+  if (has_spec) return launch_on(fused_shade_kernel<true, false>, a, s);
+  if (has_metal) return launch_on(fused_shade_kernel<false, true>, a, s);
+  return launch_on(fused_shade_kernel<false, false>, a, s);
 }
 
 // K9's resources for its lobes: out is a host array [6] (akr::kernel_info's
@@ -150,5 +252,98 @@ extern "C" int akr_fused_shade_kernel_info(int32_t* out, int M, int has_spec, in
     err = akr::kernel_info(fused_shade_kernel<false, true>, kThreads, smem, out);
   else
     err = akr::kernel_info(fused_shade_kernel<false, false>, kThreads, smem, out);
+  return static_cast<int>(err);
+}
+
+// K9r: akr_fused_shade's arguments, with out3 = direct, wi, f [N, 3] and the
+// roughness [N] in place of the albedo.
+extern "C" int akr_fused_shade_rough(const float* tab, int M, int has_spec, int has_metal,
+                                     const float* const* in3, const int64_t* in3_stride,
+                                     const float* ls_pdf, const int32_t* mat, const bool* live,
+                                     float* const* out3, float* pdf, bool* valid,
+                                     float* roughness, int N, void* stream) {
+  if (N <= 0) return 0;
+  RoughArgs a;
+  a.tab = tab;
+  for (int q = 0; q < kIn3; ++q) {
+    a.in3[q] = in3[q];
+    a.in3_stride[q] = in3_stride[q];
+  }
+  a.ls_pdf = ls_pdf;
+  a.mat = mat;
+  a.live = live;
+  for (int q = 0; q < 3; ++q) a.out3[q] = out3[q];
+  a.pdf = pdf;
+  a.valid = valid;
+  a.roughness = roughness;
+  a.N = N;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (has_spec && has_metal) return launch_on(fused_shade_rough_kernel<true, true>, a, s);
+  if (has_spec) return launch_on(fused_shade_rough_kernel<true, false>, a, s);
+  if (has_metal) return launch_on(fused_shade_rough_kernel<false, true>, a, s);
+  return launch_on(fused_shade_rough_kernel<false, false>, a, s);
+}
+
+// K9e: tab [M, 32]; in3: t, b, n, ng, wo and `dirs` (1 or 2) directions wi,
+// each [N, 3] with row stride in3_stride[q] floats (>= 3, inner stride 1);
+// mat [N] int32; live [N] bool or null -> f[d] [N, 3] and pdf[d] [N] for
+// each direction, zeros on the lanes that are not live. All device
+// pointers; launches on `stream` and returns cudaGetLastError().
+extern "C" int akr_fused_eval(const float* tab, int M, int has_spec, int has_metal,
+                              const float* const* in3, const int64_t* in3_stride,
+                              const int32_t* mat, const bool* live, float* const* f,
+                              float* const* pdf, int dirs, int N, void* stream) {
+  if (N <= 0) return 0;
+  if (dirs < 1 || dirs > kMaxDirs) return static_cast<int>(cudaErrorInvalidValue);
+  EvalArgs a{};
+  a.tab = tab;
+  for (int q = 0; q < 5 + dirs; ++q) {
+    a.in3[q] = in3[q];
+    a.in3_stride[q] = in3_stride[q];
+  }
+  a.mat = mat;
+  a.live = live;
+  for (int d = 0; d < dirs; ++d) {
+    a.f[d] = f[d];
+    a.pdf[d] = pdf[d];
+  }
+  a.N = N;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (has_spec && has_metal) return launch_eval<true, true>(a, dirs, s);
+  if (has_spec) return launch_eval<true, false>(a, dirs, s);
+  if (has_metal) return launch_eval<false, true>(a, dirs, s);
+  return launch_eval<false, false>(a, dirs, s);
+}
+
+// K9r's resources for its lobes (akr_fused_shade_kernel_info's layout).
+extern "C" int akr_fused_shade_rough_kernel_info(int32_t* out, int M, int has_spec,
+                                                 int has_metal) {
+  cudaError_t err;
+  if (has_spec && has_metal)
+    err = akr::kernel_info(fused_shade_rough_kernel<true, true>, kThreads, 0, out);
+  else if (has_spec)
+    err = akr::kernel_info(fused_shade_rough_kernel<true, false>, kThreads, 0, out);
+  else if (has_metal)
+    err = akr::kernel_info(fused_shade_rough_kernel<false, true>, kThreads, 0, out);
+  else
+    err = akr::kernel_info(fused_shade_rough_kernel<false, false>, kThreads, 0, out);
+  return static_cast<int>(err);
+}
+
+// K9e's resources for its lobes at `dirs` directions (1 or 2).
+extern "C" int akr_fused_eval_kernel_info(int32_t* out, int dirs, int has_spec, int has_metal) {
+  cudaError_t err;
+#define AKR_EVAL_INFO(S, MT)                                                           \
+  err = dirs == 1 ? akr::kernel_info(fused_eval_kernel<S, MT, 1>, kThreads, 0, out) \
+                  : akr::kernel_info(fused_eval_kernel<S, MT, 2>, kThreads, 0, out)
+  if (has_spec && has_metal)
+    AKR_EVAL_INFO(true, true);
+  else if (has_spec)
+    AKR_EVAL_INFO(true, false);
+  else if (has_metal)
+    AKR_EVAL_INFO(false, true);
+  else
+    AKR_EVAL_INFO(false, false);
+#undef AKR_EVAL_INFO
   return static_cast<int>(err);
 }

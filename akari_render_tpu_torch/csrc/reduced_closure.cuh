@@ -1,6 +1,7 @@
 // The reduced principled closure (diffuse + metal + specular layer, from
 // the baked [M, 32] material table) for one lane, shared by K8
-// (megakernel.cu) and K9 (fused_shade.cu).
+// (megakernel.cu) and K9 with its roughness and evaluation entries
+// (fused_shade.cu).
 //
 // Each function repeats its plain torch counterpart in
 // svm/reduced.py op for op (the sources are built with
@@ -15,7 +16,7 @@ namespace akr {
 
 constexpr int kMatCols = 32;
 constexpr int kMtRefl = 0, kMtAlpha = 3, kMtMetal = 4, kMtSpecEta = 5, kMtSpecCol = 6;
-constexpr int kMtN = 9, kMtK = 12, kMtLut = 16, kNcAlbedo = 16;
+constexpr int kMtN = 9, kMtK = 12, kMtRough = 15, kMtLut = 16, kNcAlbedo = 16;
 constexpr float kPi = float(3.14159265358979323846);
 constexpr float kInvPi = float(1.0 / 3.14159265358979323846);
 constexpr float kTwoPi = float(2.0 * 3.14159265358979323846);
@@ -173,7 +174,7 @@ __device__ __forceinline__ float lut1(const float* lut, float cos) {
 
 struct ShadeOut {
   V3 direct, wi, f, albedo;
-  float pdf;
+  float pdf, roughness;
   bool valid;
 };
 
@@ -190,6 +191,24 @@ __device__ __forceinline__ V3 to_local(const Closure& c, V3 v) {
 
 __device__ __forceinline__ bool side_ok(const Closure& c, V3 v) {
   return sgn(c.flip * dot3(v, c.n)) * sgn(dot3(v, c.ng)) > 0.f;
+}
+
+// The closure of a material row in the frame (t, b, n) with ng, for wo
+// (the setup of svm/reduced.py::_Closure)
+template <bool SPEC>
+__device__ __forceinline__ Closure make_closure(const float* row, V3 t, V3 b, V3 n, V3 ng,
+                                                V3 wo) {
+  Closure c;
+  c.row = row;
+  c.t = t;
+  c.b = b;
+  c.n = n;
+  c.ng = ng;
+  c.flip = sgn(dot3(ng, n));
+  c.lwo = to_local(c, wo);
+  c.wo_ok = side_ok(c, wo);
+  c.alb_o = SPEC ? lut1(row + kMtLut, c.lwo.z) : 0.f;
+  return c;
 }
 
 // FusedPrincipled.evaluate, reduced: f (includes |cos_i|) and pdf
@@ -234,22 +253,25 @@ __device__ __forceinline__ void bsdf_eval(const Closure& c, V3 li, V3& f, float&
   pdf = p;
 }
 
+// SurfaceClosure.evaluate (svm/reduced.py::_Closure.evaluate): f and pdf
+// at the world direction wi, zeros where the leak check fails
+template <bool SPEC, bool METAL>
+__device__ __forceinline__ void reduced_eval(const Closure& c, V3 wi, V3& f, float& pdf) {
+  bsdf_eval<SPEC, METAL>(c, to_local(c, wi), f, pdf);
+  const bool ok = c.wo_ok && side_ok(c, wi);
+  f = ok ? f : V3{0.f, 0.f, 0.f};
+  pdf = ok ? pdf : 0.f;
+}
+
 // One bounce's shade (svm/reduced.py::reduced_shade): NEE evaluate with the
-// MIS weight, sample_wi with evaluate, and (ALBEDO) the directional albedo.
-template <bool SPEC, bool METAL, bool ALBEDO>
+// MIS weight, sample_wi with evaluate, (ALBEDO) the directional albedo and
+// (ROUGH) the roughness of the lobe the sample picked (the table's, else
+// 1: the diffuse lobe).
+template <bool SPEC, bool METAL, bool ALBEDO, bool ROUGH = false>
 __device__ __forceinline__ ShadeOut reduced_shade(const float* row, V3 t, V3 b, V3 n, V3 ng,
                                                   V3 wo, V3 ls_wi, V3 ls_li, float ls_pdf,
                                                   float u_sel, float u0, float u1) {
-  Closure c;
-  c.row = row;
-  c.t = t;
-  c.b = b;
-  c.n = n;
-  c.ng = ng;
-  c.flip = sgn(dot3(ng, n));
-  c.lwo = to_local(c, wo);
-  c.wo_ok = side_ok(c, wo);
-  c.alb_o = SPEC ? lut1(row + kMtLut, c.lwo.z) : 0.f;
+  const Closure c = make_closure<SPEC>(row, t, b, n, ng, wo);
   const float met = row[kMtMetal];
   ShadeOut out;
 
@@ -318,6 +340,7 @@ __device__ __forceinline__ ShadeOut reduced_shade(const float* row, V3 t, V3 b, 
     }
     out.albedo = {al[0], al[1], al[2]};
   }
+  if (ROUGH) out.roughness = use_refl ? row[kMtRough] : 1.0f;
   return out;
 }
 

@@ -17,10 +17,12 @@ replays the prefix and reconnects to the base path's recorded vertex
 (gpt_reconnect.py); "pss" replays the whole PSS vector through
 trace_paths (jacobian 1, weight 1/2), so its shade goes through K9 where
 trace_paths routes it there (by default on the card for a scene that
-bakes; common.uses_fused_shade). The five wavefronts of a sample run one
-after another; each shift of the reconnection mode clones the replay
-sampler from the same fallback-stream state (gpt.rs:141-351), in a Python
-loop over the four offsets where the JAX package maps them.
+bakes; common.uses_fused_shade); the reconnection's shade takes the same
+route, through K9's roughness and evaluation entries. The five wavefronts
+of a sample run one after another; each shift of the reconnection mode
+clones the replay sampler from the same fallback-stream state
+(gpt.rs:141-351), in a Python loop over the four offsets where the JAX
+package maps them.
 
 Not ported:
 - checkpoint_path/checkpoint_every and resume (with checkpoint.py,
@@ -258,9 +260,7 @@ def _render_gpt(scene: Scene, config: GPTConfig, task, progress_cb, shift_mode, 
             "total_time": time.time() - t0,
             "spp_total": config.spp,
             "shift_mode": shift_mode,
-            # the reconnection needs the closures' roughness, which K9 lacks
-            "shade": ("fused (K9)" if shift_mode == "pss" and uses_fused_shade(scene, settings)
-                      else "dispatch"),
+            "shade": "fused (K9)" if uses_fused_shade(scene, settings) else "dispatch",
             "primal": primal.cpu().numpy(),
             "gx": gx.cpu().numpy(),
             "gy": gy.cpu().numpy(),

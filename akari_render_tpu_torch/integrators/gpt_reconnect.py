@@ -14,14 +14,25 @@ or is occluded from V; with no valid V it counts as a full PSS replay.
 Lanes step together in an eager loop that stops once every lane is dead
 (as trace_paths). Every query runs only on the lanes whose result is used:
 a dead lane's ray gets tmax -1, so K1 skips it; the closures are evaluated
-(dispatch_shade) on the live lanes of a bounce, the connection's on the
-lanes that connect (do_connect), V's on those lanes with a valid record;
+on the live lanes of a bounce, the connection's on the lanes that connect
+(do_connect), V's on those lanes with a valid record;
 the connection ray's any-hit query excludes x'_{k-1}'s and V's triangles
 and runs where the connection is otherwise eligible. Other lanes get
-zeros where the JAX package computes values it then discards. The shade
-always takes the per-kind dispatch, as in the JAX package: it needs the
-closure's roughness, which K9 does not give. On the card each kind's
-group replays as a CUDA graph (shade_graphs.shade).
+zeros where the JAX package computes values it then discards.
+
+The three shade calls (a bounce's shade with the sampled lobe's
+roughness, the connection's f and pdf at x'_{k-1}, and V's at the
+light's and the base path's directions) take the route that trace_paths
+takes for these lanes (common.uses_fused_shade: a bake, NEE with a light,
+RGB, no force_diffuse, the device's default): the same one for the base
+path and its four shifts, so the jacobian's pdf ratios compare like with
+like. On it each call is one launch of K9's roughness entry or of its
+evaluation entry over the wavefront, masked by the lanes shaded, with no
+host read (fused_shade.py; their plain versions on the CPU), each inside a
+span shade.fused and counted in gpt_fused_shades. Elsewhere (the CPU's
+default, a scene that does not bake) each call goes through the per-kind
+dispatch, as in the JAX package, whose groups replay as CUDA graphs on the
+card (shade_graphs.shade).
 
 Rays go through Scene.intersect_alpha / occlude_alpha, as in the JAX
 package (intersect / occlude on opaque scenes).
@@ -32,10 +43,12 @@ from typing import NamedTuple
 
 import torch
 
+from .. import stats
 from ..core.math import RAY_TMAX, dot, face_forward, length, offset_ray_origin
 from ..core.sampling import mis_weight
 from ..lights import pdf_direct
-from .common import PTSettings, _emission_at, nee_light_sample
+from .common import PTSettings, _emission_at, nee_light_sample, uses_fused_shade
+from .fused_shade import fused_eval, fused_shade
 from .shade_graphs import shade
 
 
@@ -71,8 +84,19 @@ def _shade(closure, ex):
     return out
 
 
+def _shade_bounce(scene, fused: bool, si, extra: dict, lanes):
+    """_shade's outputs at `lanes` (zeros elsewhere): K9's roughness entry
+    on the fused route, else the per-kind dispatch."""
+    if not fused:
+        return shade(scene, si, extra, _shade, lanes, _SHADE_SPEC)
+    with stats.span("shade.fused"):
+        stats.counts["gpt_fused_shades"] += 1
+        return fused_shade(scene.shade_bake, *si["frame"], si["ng"], *(extra[k] for k in (
+            "wo", "ls_wi", "ls_li", "ls_pdf", "u_bsdf")), si["mat"], live=lanes, roughness=True)
+
+
 def _bounce(scene, settings, st, depth: int, sampler, record_mode: bool,
-            min_dist=0.03, min_rough=0.2):
+            min_dist=0.03, min_rough=0.2, fused: bool = False):
     """One bounce shared by base/shift. Returns (st, sampler, pre) where
     `pre` carries the pre-continuation quantities the reconnection needs:
     si (this bounce's interaction = x at this index), wo, beta at the
@@ -117,7 +141,7 @@ def _bounce(scene, settings, st, depth: int, sampler, record_mode: bool,
 
     sampler, u_bsdf = sampler.next_3d()
     extra = {"wo": wo, "u_bsdf": u_bsdf, "ls_wi": ls.wi, "ls_li": ls.li, "ls_pdf": ls.pdf}
-    sh = shade(scene, si, extra, _shade, st["active"], _SHADE_SPEC)
+    sh = _shade_bounce(scene, fused, si, extra, st["active"])
 
     occluded = scene.occlude_alpha(
         ls.shadow_ro, ls.wi, zeros_n, torch.where(light_valid, ls.shadow_dist, -1.0),
@@ -226,10 +250,11 @@ def trace_base_record(scene, settings: PTSettings, ray_o, ray_d, sampler,
     sampler), radiance0 the camera vertex's own contributions."""
     st = _init_state(ray_o.shape[0], True, ray_o.device)
     st["ray_o"], st["ray_d"] = ray_o, ray_d
+    fused = uses_fused_shade(scene, settings, ray_o.device)
     depth = 0
     while depth < settings.max_depth and bool(torch.any(st["active"])):
         st, sampler, _ = _bounce(scene, settings, st, depth, sampler, True,
-                                 min_dist=min_dist, min_rough=min_rough)
+                                 min_dist=min_dist, min_rough=min_rough, fused=fused)
         depth += 1
     rec = ReconnectionRecord(
         valid=st["rec_valid"], depth=st["rec_depth"], tri=st["rec_tri"], bary=st["rec_bary"],
@@ -250,6 +275,25 @@ def _eval_v(closure, ex):
     fd, pd = closure.evaluate(ex["wo"], ex["dwi"])
     f2, pdf_y2 = closure.evaluate(ex["wo"], ex["wi"])
     return {"fd": fd, "pd": pd, "f2": f2, "pdf_y2": pdf_y2}
+
+
+def _evaluate(scene, fused: bool, si, wo, wis, lanes):
+    """The closure at si evaluated at wo and each direction of `wis` (one
+    or two) on `lanes`, zeros elsewhere: [(f, pdf)], by K9's evaluation
+    entry on the fused route, else by the per-kind dispatch (_eval_conn,
+    _eval_v)."""
+    if fused:
+        with stats.span("shade.fused"):
+            stats.counts["gpt_fused_shades"] += 1
+            return fused_eval(scene.shade_bake, *si["frame"], si["ng"], wo, wis, si["mat"],
+                              live=lanes)
+    if len(wis) == 1:
+        out = shade(scene, si, {"wo": wo, "wi": wis[0]}, _eval_conn, lanes,
+                    (("f", (3,), _F), ("pdf", (), _F)))
+        return [(out["f"], out["pdf"])]
+    out = shade(scene, si, {"wo": wo, "dwi": wis[0], "wi": wis[1]}, _eval_v, lanes,
+                (("fd", (3,), _F), ("pd", (), _F), ("f2", (3,), _F), ("pdf_y2", (), _F)))
+    return [(out["fd"], out["pd"]), (out["f2"], out["pdf_y2"])]
 
 
 def _pdf_ratio(py, px):
@@ -278,11 +322,12 @@ def trace_shift_reconnect(scene, settings: PTSettings, ray_o, ray_d, sampler,
     jacobian = torch.zeros((n,), device=dev)
     success = torch.zeros((n,), dtype=torch.bool, device=dev)
     v_si = scene.surface_interaction(rec.tri, rec.bary)
+    fused = uses_fused_shade(scene, settings, dev)
 
     depth = 0
     while depth < settings.max_depth and bool(torch.any(st["active"])):
         st, sampler, pre = _bounce(scene, settings, st, depth, sampler, False,
-                                   min_dist=min_dist, min_rough=min_rough)
+                                   min_dist=min_dist, min_rough=min_rough, fused=fused)
         si = pre["si"]
         do_connect = (rec.valid & pre["hit_valid"] & ~st["connected"] & (rec.depth - 1 == depth)
                       & ((st["first_eligible"] < 0) | (st["first_eligible"] >= rec.depth)))
@@ -298,17 +343,13 @@ def trace_shift_reconnect(scene, settings: PTSettings, ray_o, ray_d, sampler,
         ok = ok & ~occ
 
         # f1, pdf_y1 at x'_{k-1} (the shifted connection segment)
-        cv = shade(scene, si, {"wo": pre["wo"], "wi": wi_p}, _eval_conn, do_connect,
-                   (("f", (3,), _F), ("pdf", (), _F)))
-        f1, pdf_y1 = cv["f"], cv["pdf"]
+        [(f1, pdf_y1)] = _evaluate(scene, fused, si, pre["wo"], (wi_p,), do_connect)
 
         # V-side with wo'_V = -wi': NEE re-eval (fd, pd) and the base exit
         # direction re-eval (f2, pdf_y2)
         wo_v = -wi_p
-        vv = shade(
-            scene, v_si, {"wo": wo_v, "dwi": rec.direct_wi, "wi": rec.wi}, _eval_v,
-            do_connect & rec.valid,
-            (("fd", (3,), _F), ("pd", (), _F), ("f2", (3,), _F), ("pdf_y2", (), _F)))
+        (fd, pd), (f2, pdf_y2) = _evaluate(scene, fused, v_si, wo_v, (rec.direct_wi, rec.wi),
+                                           do_connect & rec.valid)
         front_v = (dot(v_si["ng"], wi_p) < 0.0) & (v_si["light_id"] >= 0)
         le_v = _emission_at(scene, v_si, wo_v, do_connect & front_v)
         lpdf_v = pdf_direct(a.lights, v_si["light_id"], v_si["prim_pdf"], v_si["area"],
@@ -316,11 +357,11 @@ def trace_shift_reconnect(scene, settings: PTSettings, ray_o, ray_d, sampler,
         # MIS against NEE from the shifted prefix vertex (pt.rs:723-726)
         w_le = mis_weight(pdf_y1, lpdf_v)
         le_term = torch.where(front_v[..., None], le_v * w_le[..., None], 0.0)
-        w_nee = mis_weight(rec.direct_light_pdf, vv["pd"])
-        nee_term = vv["fd"] * rec.direct * w_nee[..., None]
+        w_nee = mis_weight(rec.direct_light_pdf, pd)
+        nee_term = fd * rec.direct * w_nee[..., None]
         ind_term = torch.where(
-            (vv["pdf_y2"] > 0.0)[..., None],
-            vv["f2"] / torch.clamp(vv["pdf_y2"], min=1e-20)[..., None] * rec.indirect, 0.0)
+            (pdf_y2 > 0.0)[..., None],
+            f2 / torch.clamp(pdf_y2, min=1e-20)[..., None] * rec.indirect, 0.0)
         tail = le_term + nee_term + ind_term
 
         # RR continue probability as if the shifted path continued through
@@ -332,7 +373,7 @@ def trace_shift_reconnect(scene, settings: PTSettings, ray_o, ray_d, sampler,
         conn = beta_conn * tail / torch.clamp(cont_prob, min=1e-20)[..., None]
 
         # jacobian with pdf ratios (pt.rs:683-694, 762-765)
-        pdf_ratio = _pdf_ratio(pdf_y1, rec.prev_pdf) * _pdf_ratio(vv["pdf_y2"], rec.bsdf_pdf)
+        pdf_ratio = _pdf_ratio(pdf_y1, rec.prev_pdf) * _pdf_ratio(pdf_y2, rec.bsdf_pdf)
         cos_p = torch.abs(dot(v_si["ng"], wo_v))
         J = (pdf_ratio * (cos_p / torch.clamp(rec.cos_at_v, min=1e-20))
              * (rec.dist ** 2 / torch.clamp(dist_p ** 2, min=1e-20)))

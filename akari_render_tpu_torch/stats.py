@@ -26,7 +26,12 @@ never read the device:
   over their sum is the graphs' share of the steps;
 - gpt_shifts, gpt_shift_lanes: GPT's shifted paths traced
   (integrators/gpt.py::gpt_sample_films, four calls a sample) and their
-  lanes (a pixel each).
+  lanes (a pixel each);
+- gpt_fused_shades: the shade calls of GPT's reconnection shift, base
+  path and shifts (a bounce's shade, a connection's two evaluations;
+  integrators/gpt_reconnect.py), that took the fused route, one launch
+  each; beside dispatch_groups (the other route's groups) it gives the
+  route's share.
 
 A step replayed from CUDA graphs adds to every counter what the captured
 code added while it was captured (integrators/piecewise.py), so it counts
@@ -81,7 +86,7 @@ class RenderStats:
 
 counts = {"bounces": 0, "dispatch_groups": 0, "fused_shades": 0, "samples": 0, "host_reads": 0,
           "pcg_kernel_draws": 0, "pcg_plain_draws": 0, "mcmc_graph_steps": 0,
-          "mcmc_eager_steps": 0, "gpt_shifts": 0, "gpt_shift_lanes": 0}
+          "mcmc_eager_steps": 0, "gpt_shifts": 0, "gpt_shift_lanes": 0, "gpt_fused_shades": 0}
 spans: dict[str, list[int]] = {}
 _stack: list = []  # the open spans, innermost last
 

@@ -35,6 +35,7 @@ _MT_SPEC_ETA = 5  # specular layer ior
 _MT_SPEC_COL = 6  # 6:9   specular_tint * specular_weight (f0)
 _MT_N = 9  # 9:12  conductor Fresnel n (artistic, from base_color)
 _MT_K = 12  # 12:15 conductor Fresnel k
+_MT_ROUGH = 15  # the roughness of the reflection lobe (FusedPrincipled.dist_r; 1 diffuse)
 _MT_LUT = 16  # 16:32 specular-layer GGX albedo at the 16 cos knots
 MAT_COLS = _MT_LUT + NC_ALBEDO
 
@@ -174,63 +175,90 @@ def _sgn(x):
     return torch.where(x > 0.0, 1.0, -1.0)
 
 
-def reduced_shade(rrow, has_spec: bool, has_metal: bool, frame, ng, wo, ls_wi, ls_li, ls_pdf,
-                  u_sel, u0, u1, albedo: bool = False):
-    """One bounce's shade for the reduced principled closure, per lane:
-    evaluate at the NEE direction, sample_wi with evaluate, and optionally
-    the directional albedo. rrow [N, MAT_COLS] material rows; frame
-    ((t), (b), (n)) and ng, wo, ls_wi, ls_li as component triples of [N]
-    tensors. Returns dict(direct, wi, f (triples), pdf, valid[, albedo]):
-    the sh dict of pallas_shade, f and pdf zeroed by the leak check,
-    valid = sample_wi valid & leak & pdf > 0 (surface.py sample())."""
-    (tx, ty, tz), (bx, by, bz), (nx, ny, nz) = frame
-    ngx, ngy, ngz = ng
-    wox, woy, woz = wo
-    ref = rrow[:, _MT_REFL], rrow[:, _MT_REFL + 1], rrow[:, _MT_REFL + 2]
-    alpha = rrow[:, _MT_ALPHA]
-    met = rrow[:, _MT_METAL]
-    sc = rrow[:, _MT_SPEC_COL], rrow[:, _MT_SPEC_COL + 1], rrow[:, _MT_SPEC_COL + 2]
+class _Closure:
+    """The reduced closure at a set of lanes for one wo (SurfaceClosure
+    around it: the frame and the leak check), the setup that reduced_shade
+    and reduced_eval share. rrow [N, MAT_COLS] material rows; frame ((t),
+    (b), (n)), ng and wo as component triples of [N] tensors."""
 
-    def to_local(vx, vy, vz):
-        return dot3(vx, vy, vz, tx, ty, tz), dot3(vx, vy, vz, bx, by, bz), dot3(vx, vy, vz, nx, ny, nz)
+    def __init__(self, rrow, has_spec: bool, has_metal: bool, frame, ng, wo):
+        self.rrow, self.has_spec, self.has_metal = rrow, has_spec, has_metal
+        self.frame, self.ng = frame, ng
+        (nx, ny, nz) = frame[2]
+        self.flip = _sgn(dot3(*ng, nx, ny, nz))
+        self.lwo = self.to_local(*wo)
+        self.wo_ok = self.side_ok(*wo)
+        if has_spec:
+            self.lut = rrow[:, _MT_LUT:_MT_LUT + NC_ALBEDO]
+            self.alb_o = lut1(self.lut, self.lwo[2])
 
-    flip = _sgn(dot3(ngx, ngy, ngz, nx, ny, nz))
+    def to_local(self, vx, vy, vz):
+        return tuple(dot3(vx, vy, vz, *axis) for axis in self.frame)
 
-    def side_ok(vx, vy, vz):  # one half of SurfaceClosure._valid_wo_wi
-        return _sgn(flip * dot3(vx, vy, vz, nx, ny, nz)) * _sgn(dot3(vx, vy, vz, ngx, ngy, ngz)) > 0.0
+    def side_ok(self, vx, vy, vz):  # one half of SurfaceClosure._valid_wo_wi
+        return (_sgn(self.flip * dot3(vx, vy, vz, *self.frame[2]))
+                * _sgn(dot3(vx, vy, vz, *self.ng)) > 0.0)
 
-    lwo = to_local(wox, woy, woz)
-    wo_ok = side_ok(wox, woy, woz)
-    if has_spec:
-        lut = rrow[:, _MT_LUT:_MT_LUT + NC_ALBEDO]
-        alb_o = lut1(lut, lwo[2])
-
-    def bsdf_eval(lix, liy, liz):
-        B_r, pdf_r, fcos = ggx_refl_base1(alpha, lwo[0], lwo[1], lwo[2], lix, liy, liz)
+    def bsdf_eval(self, lix, liy, liz):
+        """FusedPrincipled.evaluate, reduced, at a local direction: f (a
+        triple, |cos_i| included) and pdf, before the leak check."""
+        rrow, lwo = self.rrow, self.lwo
+        ref = rrow[:, _MT_REFL], rrow[:, _MT_REFL + 1], rrow[:, _MT_REFL + 2]
+        sc = rrow[:, _MT_SPEC_COL], rrow[:, _MT_SPEC_COL + 1], rrow[:, _MT_SPEC_COL + 2]
+        B_r, pdf_r, fcos = ggx_refl_base1(rrow[:, _MT_ALPHA], lwo[0], lwo[1], lwo[2], lix, liy, liz)
         same = lwo[2] * liz > 0.0
         cos_i = torch.abs(liz)
         f = [torch.where(same, r * cos_i, 0.0) for r in ref]
         pdf = torch.where(same, cos_i * INV_PI, 0.0)
-        if has_spec:
-            alb_i = lut1(lut, liz)
-            eo = [s * alb_o for s in sc]
+        if self.has_spec:
+            alb_i = lut1(self.lut, liz)
+            eo = [s * self.alb_o for s in sc]
             ei = [s * alb_i for s in sc]
             p_s = (eo[0] + eo[1] + eo[2]) * THIRD_F
             frd = fr_dielectric1(fcos, rrow[:, _MT_SPEC_ETA])
             f = [B_r * frd * s + fc * torch.minimum(1.0 - o, 1.0 - i)
                  for s, fc, o, i in zip(sc, f, eo, ei)]
             pdf = pdf_r * p_s + pdf * (1.0 - p_s)
-        if has_metal:
+        if self.has_metal:
+            met = rrow[:, _MT_METAL]
             afc = torch.abs(fcos)
             fm = [B_r * fr_complex1(afc, rrow[:, _MT_N + c], rrow[:, _MT_K + c]) for c in range(3)]
             f = [fc + (m - fc) * met for fc, m in zip(f, fm)]
             pdf = pdf + (pdf_r - pdf) * met
         return f, pdf
 
+    def evaluate(self, wi):
+        """SurfaceClosure.evaluate(wo, wi): (f triple, pdf), zeros where the
+        leak check fails."""
+        f, pdf = self.bsdf_eval(*self.to_local(*wi))
+        ok = self.wo_ok & self.side_ok(*wi)
+        return tuple(torch.where(ok, e, 0.0) for e in f), torch.where(ok, pdf, 0.0)
+
+
+def reduced_shade(rrow, has_spec: bool, has_metal: bool, frame, ng, wo, ls_wi, ls_li, ls_pdf,
+                  u_sel, u0, u1, albedo: bool = False, roughness: bool = False):
+    """One bounce's shade for the reduced principled closure, per lane:
+    evaluate at the NEE direction, sample_wi with evaluate, and optionally
+    the directional albedo and the roughness of the lobe that the sample's
+    pick chose. rrow [N, MAT_COLS] material rows; frame ((t), (b), (n))
+    and ng, wo, ls_wi, ls_li as component triples of [N] tensors. Returns
+    dict(direct, wi, f (triples), pdf, valid[, albedo][, roughness]): the
+    sh dict of pallas_shade, f and pdf zeroed by the leak check, valid =
+    sample_wi valid & leak & pdf > 0 (surface.py sample()); roughness as
+    FusedPrincipled.roughness(wo, u_sel) (coat and transmission
+    statically zero: the metal or specular pick the lobe's, else 1)."""
+    (tx, ty, tz), (bx, by, bz), (nx, ny, nz) = frame
+    c = _Closure(rrow, has_spec, has_metal, frame, ng, wo)
+    lwo = c.lwo
+    ref = rrow[:, _MT_REFL], rrow[:, _MT_REFL + 1], rrow[:, _MT_REFL + 2]
+    alpha = rrow[:, _MT_ALPHA]
+    met = rrow[:, _MT_METAL]
+    sc = rrow[:, _MT_SPEC_COL], rrow[:, _MT_SPEC_COL + 1], rrow[:, _MT_SPEC_COL + 2]
+
     # NEE: closure.evaluate(wo, ls_wi), MIS weight over the light pdf
     lwx, lwy, lwz = ls_wi
-    el, pdf_l = bsdf_eval(*to_local(lwx, lwy, lwz))
-    ok_nee = wo_ok & side_ok(lwx, lwy, lwz)
+    el, pdf_l = c.bsdf_eval(*c.to_local(lwx, lwy, lwz))
+    ok_nee = c.wo_ok & c.side_ok(lwx, lwy, lwz)
     pdf_l = torch.where(ok_nee, pdf_l, 0.0)
     w_nee = ls_pdf / torch.clamp(ls_pdf + pdf_l, min=1e-30)
     scale = w_nee / torch.clamp(ls_pdf, min=1e-20)
@@ -246,7 +274,7 @@ def reduced_shade(rrow, has_spec: bool, has_metal: bool, frame, ng, wo, ls_wi, l
                             0.0, 1.0)
     pick_spec = torch.zeros_like(pick_metal)
     if has_spec:
-        pick_spec = u_sel < (sc[0] + sc[1] + sc[2]) * THIRD_F * alb_o
+        pick_spec = u_sel < (sc[0] + sc[1] + sc[2]) * THIRD_F * c.alb_o
     use_refl = pick_metal | pick_spec
     whx, why, whz = ggx_sample_wh1(alpha, lwo[0], lwo[1], lwo[2], u0, u1)
     dwh = dot3(lwo[0], lwo[1], lwo[2], whx, why, whz)
@@ -267,8 +295,8 @@ def reduced_shade(rrow, has_spec: bool, has_metal: bool, frame, ng, wo, ls_wi, l
     nwx = lix * tx + liy * bx + liz * nx
     nwy = lix * ty + liy * by + liz * ny
     nwz = lix * tz + liy * bz + liz * nz
-    es, pdf_s = bsdf_eval(lix, liy, liz)
-    ok_s = wo_ok & side_ok(nwx, nwy, nwz)
+    es, pdf_s = c.bsdf_eval(lix, liy, liz)
+    ok_s = c.wo_ok & c.side_ok(nwx, nwy, nwz)
     pdf_s = torch.where(ok_s, pdf_s, 0.0)
     out = {
         "direct": direct,
@@ -280,13 +308,24 @@ def reduced_shade(rrow, has_spec: bool, has_metal: bool, frame, ng, wo, ls_wi, l
     if albedo:  # FusedPrincipled.albedo without coat and transmission
         base = [r * PI_F for r in ref]
         if has_spec:
-            al = [s * (s * alb_o) + b * (1.0 - s * alb_o) for s, b in zip(sc, base)]
+            al = [s * (s * c.alb_o) + b * (1.0 - s * c.alb_o) for s, b in zip(sc, base)]
         else:
             al = base
         if has_metal:
             al = [x + (1.0 - x) * met for x in al]
         out["albedo"] = tuple(al)
+    if roughness:
+        out["roughness"] = torch.where(use_refl, rrow[:, _MT_ROUGH], 1.0)
     return out
+
+
+def reduced_eval(rrow, has_spec: bool, has_metal: bool, frame, ng, wo, wis):
+    """SurfaceClosure.evaluate(wo, wi) of the reduced principled closure at
+    each direction of `wis`, per lane (the arguments as reduced_shade's,
+    each wi a component triple): a list of (f triple, pdf), f and pdf
+    zeroed by the leak check."""
+    c = _Closure(rrow, has_spec, has_metal, frame, ng, wo)
+    return [c.evaluate(wi) for wi in wis]
 
 
 # -------------------------------------------------------------- the bake
@@ -349,6 +388,7 @@ def bake_shading(scene):
         if isinstance(inner, DiffuseBsdf):
             tab[rows, _MT_REFL:_MT_REFL + 3] = host(inner.reflectance)[rows]
             tab[rows, _MT_ALPHA] = 1.0
+            tab[rows, _MT_ROUGH] = 1.0
         elif isinstance(inner, FusedPrincipled):
             if not {"transmission", "coat"} <= inner.static_zero or not inner.dist_r.sample_visible:
                 return None
@@ -357,6 +397,7 @@ def bake_shading(scene):
                 return None  # anisotropic
             tab[rows, _MT_REFL:_MT_REFL + 3] = (host(inner.color) * np.float32(INV_PI))[rows]
             tab[rows, _MT_ALPHA] = al[rows, 0]
+            tab[rows, _MT_ROUGH] = host(inner.dist_r.roughness)[rows]
             tab[rows, _MT_METAL] = host(inner.metallic)[rows]
             tab[rows, _MT_SPEC_ETA] = host(inner.spec_eta)[rows]
             spec_col = host(inner.specular_tint * inner.specular_weight[..., None])

@@ -178,11 +178,22 @@ Phases (any failure exits non-zero; nothing is caught):
    the card), the job's phases, and one mutation step's launches and
    device events (torch.profiler).
 
+31. K9's roughness and evaluation entries (GPT's reconnection shift,
+   integrators/gpt_reconnect.py) at the shapes of the benchmark's cell
+   cbox-gpt-final (cbox 1024^2, 2^20 lanes): the first base bounce's
+   shade (K9r) and the first shift connection's two evaluations (K9e at
+   x'_{k-1}, one direction; at V, two), captured from a GPT sample on the
+   card's default route, each against its plain version (every lane
+   bit-equal, zeros on the dead ones), its device time (profiler) beside
+   its bound (bytes) and the plain version's time; their resources; and
+   the launches of one sample (a shade a bounce of the base path and the
+   shifts, two evaluations a shifted bounce; no dispatch group).
+
 `python3 chip_smoke.py --only 26,27` runs the build and the listed phases
-alone (26 after phase 8's image; likewise 11, 14, 21, 23, 28, 29 and 30, 29
-with phase 21's RGB row where 21 is named too) and prints no result line
-(phase 30 prints its kernel's JSON entry): a quick check of them on the
-card.
+alone (26 after phase 8's image; likewise 11, 14, 21, 23, 28, 29, 30 and
+31, 29 with phase 21's RGB row where 21 is named too) and prints no result
+line (phases 30 and 31 print their kernels' JSON entries): a quick check
+of them on the card.
 
 Each phase prints the seconds since the start when it ends. After the
 build it prints what the compiler gave every kernel (registers a thread,
@@ -393,6 +404,13 @@ K7_NODE_FLOPS = 8 * (SLAB_FLOPS + 1)
 # cosine sample 16, the pick and valid 5, the world direction 15, bsdf_eval
 # 202, the side test and the selects 22); the albedo 18
 K9_LIVE_FLOPS = 47 + 249 + 369 + 18
+# K9r, a live lane: K9's closure without the albedo, and the roughness's
+# select
+K9R_LIVE_FLOPS = K9_LIVE_FLOPS - 18 + 1
+# K9e: the closure at wo (47, as K9's) and a direction (to_local 15,
+# bsdf_eval 202, the side test 17, the leak check's four selects)
+K9E_SETUP_FLOPS = 47
+K9E_DIR_FLOPS = 15 + 202 + 17 + 4
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -3639,6 +3657,128 @@ def spectral_full_width(device, rgb=None):
     return found
 
 
+def k9r_bound(lanes: int, live: int, table_numel: int):
+    """(bound ms, by) of one K9r launch: a live lane's 104 B in and 49 B out
+    (direct, wi, f, pdf, valid, roughness), a dead lane's 49 B of zeros, a
+    flag a lane, the table once; K9R_LIVE_FLOPS a live lane."""
+    return bound(float(K9R_LIVE_FLOPS) * live,
+                 153.0 * live + 49.0 * (lanes - live) + lanes + 4.0 * table_numel)
+
+
+def k9e_bound(lanes: int, live: int, dirs: int, table_numel: int):
+    """(bound ms, by) of one K9e launch at `dirs` directions: a live lane
+    reads its frame, ng and wo (60 B), the directions (12 B each) and a
+    material id (4 B) and writes 16 B a direction, a dead lane its zeros,
+    a flag a lane, the table once."""
+    return bound(float(K9E_SETUP_FLOPS + dirs * K9E_DIR_FLOPS) * live,
+                 (64.0 + 28.0 * dirs) * live + 16.0 * dirs * (lanes - live) + lanes
+                 + 4.0 * table_numel)
+
+
+def gpt_entries_phase(device) -> dict:
+    """Phase 31: K9's roughness entry (K9r) and evaluation entry (K9e) at
+    cbox-gpt-final's shapes. One GPT sample of cbox 1024^2 (gpt.json) on
+    the card's default route, its first K9r call (the base path's first
+    bounce) and first K9e calls of one and two directions (the first
+    shift's first connection, at x'_{k-1} and at V) captured; each call
+    again against its plain version (every output bit-equal, zeros on the
+    dead lanes), its device time (profiler) against its bound and the
+    plain version's time (CUDA events); the entries' resources; the
+    sample's launches and counts. Returns the JSON entries."""
+    import torch
+
+    from akari_render_tpu_torch import stats
+    from akari_render_tpu_torch.config import RenderTask
+    from akari_render_tpu_torch.core.film import Film
+    from akari_render_tpu_torch.core.filters import filter_from_config
+    from akari_render_tpu_torch.integrators import fused_shade as fs
+    from akari_render_tpu_torch.integrators import gpt, gpt_reconnect, mcmc
+    from akari_render_tpu_torch.integrators.common import PTSettings
+    from akari_render_tpu_torch.scene import load_scene
+
+    scene = load_scene(str(CBOX), device=device)
+    task = RenderTask.from_file(CBOX_GPT)
+    m = task.method
+    settings = PTSettings(max_depth=m.max_depth, rr_depth=m.rr_depth, use_nee=m.use_nee)
+    filt = filter_from_config(task.filter_config)
+    npix = scene.camera.width * scene.camera.height
+    films = tuple(Film.new(scene.camera.width, scene.camera.height, device) for _ in range(6))
+    pix = torch.arange(npix, device=device)
+
+    def sample(idx):
+        gpt.gpt_sample_films(scene, m, filt, settings, mcmc.sample_dimension(m.max_depth),
+                             task.seed, "reconnect", films, idx, pix)
+
+    def dirs(n):
+        return lambda *a, **kw: len(a[6]) == n
+
+    with env_switch(AKR_PALLAS_SHADE=None), \
+            captured(gpt_reconnect, "fused_shade", keep=(0,)) as shade, \
+            captured(gpt_reconnect, "fused_eval", want=dirs(1), keep=(0,)) as conn, \
+            captured(gpt_reconnect, "fused_eval", want=dirs(2), keep=(0,)) as at_v:
+        stats.reset()
+        before = fs.launches, fs.rough_launches, fs.eval_launches
+        sample(0)
+        torch.cuda.synchronize()
+        counts = dict(stats.counts)
+        launches = {"K9": fs.launches - before[0], "K9r": fs.rough_launches - before[1],
+                    "K9e": fs.eval_launches - before[2]}
+    check(launches["K9"] == 0 and counts["dispatch_groups"] == 0
+          and counts["gpt_fused_shades"] == launches["K9r"] + launches["K9e"] > 0,
+          f"a cbox 1024^2 GPT sample took another route: {launches}, {counts}")
+    check(len(shade.calls) == len(conn.calls) == len(at_v.calls) == 1,
+          "the GPT sample made no K9r or K9e call")
+    print(f"cbox 1024^2 GPT sample on the default route: launches {launches}, "
+          f"gpt_fused_shades {counts['gpt_fused_shades']}, bounces' shades and evaluations "
+          f"in {counts['gpt_shifts']} shifts", flush=True)
+    tab_numel = scene.shade_bake[0].numel()
+    entries = {}
+
+    def check_call(name, label, kernel, plain, live, n_dirs):
+        lanes = int(live.shape[0])
+        n_live = int(live.sum())
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        pairs_ = (list(got.items()) if isinstance(got, dict) else
+                  [(f"{k}{d}", v) for d, pr in enumerate(got) for k, v in zip("fp", pr)])
+        wants = (list(want.values()) if isinstance(want, dict) else
+                 [v for pr in want for v in pr])
+        equal = all(torch.equal(g, w) for (_, g), w in zip(pairs_, wants))
+        dead_zero = all(not bool(g[~live].any()) for _, g in pairs_)
+        check(equal, f"{name} differs from its plain version on {label}")
+        check(dead_zero, f"{name} wrote a dead lane on {label}")
+        ev = cuda_ms(kernel, 20)
+        dev = device_ms(kernel, 20, "fused_shade_rough_kernel" if name == "K9r"
+                        else "fused_eval_kernel")
+        plain_ms = cuda_ms(plain, 3)
+        b_ms, b_by = (k9r_bound(lanes, n_live, tab_numel) if name == "K9r" else
+                      k9e_bound(lanes, n_live, n_dirs, tab_numel))
+        print(f"{name} on {label} ({lanes} lanes, {n_live} live): every output bit-equal to "
+              f"the plain version, zeros on the dead lanes; kernel {dev:.4f} ms device time "
+              f"(profiler; CUDA events {ev:.4f} ms), {100 * b_ms / dev:.1f} % of its bound "
+              f"{b_ms:.4f} ms by {b_by}; plain {plain_ms:.4f} ms", flush=True)
+        entries[f"{name} {label}"] = {"lanes": lanes, "live": n_live, "ms": dev, "event_ms": ev,
+                                      "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms}
+
+    a, kw = shade.calls[0]
+    check_call("K9r", "the base path's first bounce",
+               lambda: fs.fused_shade(*a, **kw), lambda: fs.fused_shade_torch(*a, **kw),
+               kw["live"], 0)
+    for call, label in ((conn, "the first shift connection at x'_{k-1}"),
+                        (at_v, "the first shift connection at V")):
+        a, kw = call.calls[0]
+        check_call("K9e", label, lambda: fs.fused_eval(*a, **kw),
+                   lambda: fs.fused_eval_torch(*a, **kw), kw["live"], len(a[6]))
+    del shade, conn, at_v, a, kw
+    info = fs.entries_info(scene.shade_bake)
+    for k, v in info.items():
+        print(f"{k} resources (cbox's table): {v['registers']} registers a thread, "
+              f"{v['local_bytes']} B local memory, {v['threads']} threads a block, "
+              f"{v['blocks_per_sm']} blocks resident an SM", flush=True)
+    return {"entries": entries, "sample_launches": launches, "sample_counts": counts,
+            "resources": info}
+
+
 def build_all():
     """Phases 2, 6, 10 and 15: one nvcc per kernel source, started together,
     and beside them the host's pmj02 tables (core/pmj02.py, cached in
@@ -3736,6 +3876,9 @@ def main():
         if 30 in ONLY:
             print(json.dumps({"pcg32_draws": pcg_kernel_phase(device)}), flush=True)
             lap("phase 30")
+        if 31 in ONLY:
+            print(json.dumps({"gpt_entries": gpt_entries_phase(device)}), flush=True)
+            lap("phase 31")
         return
     scene = load_scene(str(SCENE), device=device)
     entry = k1_parity(scene, device)
@@ -3803,6 +3946,8 @@ def main():
     lap("phase 29 (spectral at full width)")
     pcg_entry = pcg_kernel_phase(device)
     lap("phase 30 (pcg32_draws, an MCMC job)")
+    gpt_entries = gpt_entries_phase(device)
+    lap("phase 31 (K9's roughness and evaluation entries, a GPT sample)")
 
     kernels = [entry, *pair_entries.values(), other["K5"], other["K7"], fused["K8"], fused["K9"]]
     for k in kernels:  # the pass shapes' launches
@@ -3821,14 +3966,14 @@ def main():
     for k in kernels:  # K6 is K4's kernel
         res = info[k["name"].split()[0].replace("K6", "K4")]
         k["registers"], k["blocks_per_sm"] = res["registers"], res["blocks_per_sm"]
-    print(json.dumps({"kernels": [*kernels, pcg_entry]}))
+    print(json.dumps({"kernels": [*kernels, pcg_entry], "gpt_entries": gpt_entries}))
     print(gpu_query())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 
 
 # `--only 26,27`: the build and those phases alone (26 after phase 8's
-# image; 11, 14, 21, 23 and 26-30 can be named), for a quick check on the
+# image; 11, 14, 21, 23 and 26-31 can be named), for a quick check on the
 # card; the full run takes no arguments
 ONLY = ({int(x) for x in sys.argv[sys.argv.index("--only") + 1].split(",")}
         if "--only" in sys.argv else set())

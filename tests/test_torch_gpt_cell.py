@@ -4,11 +4,14 @@ bench_torch.run.measure on the CPU at 32x32 (the kernels' plain versions):
 held against the plain reference with 4 x 4 tiles (64 pixels a tile), the
 films read as render_gpt writes them. The gradient check's witness, the
 films at half strength, fails it (grad_chi2 66.95 at this size and seed);
-a sound run passes every limit of the configuration."""
+a sound run passes every limit of the configuration, on the CPU's default
+route (the per-kind dispatch) and on the card's (the fused route of K9's
+roughness and evaluation entries, here their plain versions)."""
 import os
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -21,8 +24,15 @@ JOBS = 16
 TILES = 4
 
 
-def test_gpt_cell_is_correct(monkeypatch):
+@pytest.mark.parametrize("route", ["dispatch", "fused"])
+def test_gpt_cell_is_correct(monkeypatch, route):
+    from akari_render_tpu_torch import stats
+    from akari_render_tpu_torch.integrators import common
     from bench_torch import harness, run
+
+    if route == "fused":  # the card's default route (run.measure unsets every AKR_* switch)
+        monkeypatch.setattr(common, "fused_shade_enabled", lambda device: True)
+    stats.reset()
 
     real = harness.load_config
 
@@ -44,3 +54,8 @@ def test_gpt_cell_is_correct(monkeypatch):
     for k in ("grad_chi2", "primal_chi2", "recon_gap"):
         assert checks[k]["value"] <= checks[k]["limit"], (k, checks)
     assert out["correct"], checks
+    c = stats.counts
+    if route == "fused":
+        assert c["gpt_fused_shades"] > 0 and c["dispatch_groups"] == 0, c
+    else:
+        assert c["gpt_fused_shades"] == 0 and c["dispatch_groups"] > 0, c

@@ -608,6 +608,46 @@ def test_fused_shade_kernel_matches_plain_on_card(cuda):
         assert torch.equal(got[k], want[k]), k
 
 
+@pytest.mark.parametrize("scene", ["cbox", "blinds"])
+@pytest.mark.parametrize("entry", ["roughness", "eval, 1 direction", "eval, 2 directions"])
+def test_gpt_shade_entries_match_plain_on_card(cuda, scene, entry):
+    """K9's roughness entry (fused_shade with roughness) and its evaluation
+    entry (fused_eval, one and two directions), each one masked launch,
+    against their masked plain versions on the card at 2^18 lanes of cbox
+    (the benchmark's scene) and of blinds (a slat of roughness 0.5): every
+    output bit-equal, NaN in the dead lanes' inputs, zeros on the dead
+    lanes."""
+    path = ROOT / "scenes/cbox/scene.json" if scene == "cbox" else BLINDS
+    n = 1 << 18
+    args = list(_blinds_shade_inputs(load_scene(str(path), 16, 16, device=cuda), n, 21, cuda))
+    live = torch.as_tensor(np.random.default_rng(6).random(n) < 0.37, device=cuda)
+    for j in range(1, 10):  # NaN in the dead lanes' inputs
+        x = args[j]
+        args[j] = torch.where(live.reshape((n,) + (1,) * (x.ndim - 1)), x, float("nan"))
+    if entry == "roughness":
+        before = fs.rough_launches
+        got = fs.fused_shade(*args, live=live, roughness=True)
+        want = fs.fused_shade_torch(*args, live=live, roughness=True)
+        assert fs.rough_launches == before + 1 and "albedo" not in got
+        assert float(want["valid"][live].float().mean()) > 0.3
+        assert (scene == "blinds") == bool((want["roughness"][live] < 1.0).any())
+        got, want = list(got.items()), list(want.items())
+    else:
+        bake, t, b, nn, ng, wo, ls_wi = args[:7]
+        mirror = 2.0 * (wo * nn).sum(-1, keepdim=True) * nn - wo  # wo reflected about n
+        wis = (ls_wi, mirror) if entry.startswith("eval, 2") else (ls_wi,)
+        before = fs.eval_launches
+        got = fs.fused_eval(bake, t, b, nn, ng, wo, wis, args[10], live=live)
+        want = fs.fused_eval_torch(bake, t, b, nn, ng, wo, wis, args[10], live=live)
+        assert fs.eval_launches == before + 1 and len(got) == len(wis)
+        assert float((want[0][1][live] > 0).float().mean()) > 0.2
+        got = [(f"{k}{d}", v) for d, pair in enumerate(got) for k, v in zip("fp", pair)]
+        want = [(f"{k}{d}", v) for d, pair in enumerate(want) for k, v in zip("fp", pair)]
+    for (k, g), (_, w) in zip(got, want):
+        assert torch.equal(g, w), k
+        assert not bool(g[~live].any()), k
+
+
 def test_megakernel_matches_plain_on_card(cuda):
     """One K8 pass (path regeneration) against its plain version on the
     card at 30^2 (the last warp partial), 4 spp, d12: every pixel
@@ -790,11 +830,12 @@ def _gpt_on_card_and_cpu(cuda, res: int, modes):
     for mode in modes:
         out = []
         for dev in ("cpu", cuda):
-            before = k1.launches, fs.launches
+            before = k1.launches, fs.launches, fs.rough_launches + fs.eval_launches
             img, stats = render_gpt(load_scene(str(cbox), res, res, device=dev, ggx_table=table),
                                     GPTConfig(spp=2), shift_mode=mode)
             assert (k1.launches > before[0]) == (dev == cuda)
             stats["k9_launches"] = fs.launches - before[1]
+            stats["gpt_entry_launches"] = fs.rough_launches + fs.eval_launches - before[2]
             out.append(({"recon": img, **{k: stats[k] for k in ("primal", "gx", "gy")}}, stats))
         for name, want in out[0][0].items():
             got = out[1][0][name]
@@ -818,22 +859,24 @@ def test_render_gpt_on_card_matches_cpu(cuda, monkeypatch):
 
 def test_render_gpt_default_route_on_card_matches_cpu(cuda, monkeypatch):
     """cbox 64x64 on the card's default route, held by
-    _gpt_on_card_and_cpu against the CPU on the same route: the
-    reconnection shift on the dispatch (its route everywhere), the pss
-    shift on K9 (the card's default; on the CPU K9's plain version, which
-    AKR_PALLAS_SHADE=1 opts in to there and leaves the card's default as
-    it is)."""
+    _gpt_on_card_and_cpu against the CPU on the same route (on the CPU the
+    plain versions, which AKR_PALLAS_SHADE=1 opts in to there and leaves
+    the card's default as it is): the reconnection shift on K9's roughness
+    and evaluation entries, the pss shift on K9."""
     monkeypatch.setenv("AKR_PALLAS_SHADE", "1")
     seen = _gpt_on_card_and_cpu(cuda, 64, ("reconnect", "pss"))
     cpu, card = seen["reconnect"]
-    assert cpu["shade"] == card["shade"] == "dispatch" and card["k9_launches"] == 0
+    assert cpu["shade"] == card["shade"] == "fused (K9)" and card["k9_launches"] == 0
+    assert card["gpt_entry_launches"] > 0 and cpu["gpt_entry_launches"] == 0
     cpu, card = seen["pss"]
     assert cpu["shade"] == card["shade"] == "fused (K9)" and card["k9_launches"] > 0
+    assert card["gpt_entry_launches"] == 0
 
 
 def test_graphed_shift_shade_matches_eager_dispatch_on_card(cuda, monkeypatch):
     """cbox 64x64 (4,096 lanes: buckets of 1,024 to 4,096 rows), 2 spp,
-    d7, the reconnection shift on the card: the shift's per-kind shade
+    d7, the reconnection shift on the card's dispatch route
+    (AKR_PALLAS_SHADE=0): the shift's per-kind shade
     replayed as CUDA graphs (shade_graphs.shade, the card's default)
     against the eager dispatch_shade in its place, the graphed render
     second, after its sites captured in a first: the gradient films
@@ -847,6 +890,7 @@ def test_graphed_shift_shade_matches_eager_dispatch_on_card(cuda, monkeypatch):
     from akari_render_tpu_torch.config import GPTConfig
     from akari_render_tpu_torch.integrators import common, gpt, gpt_reconnect, shade_graphs
 
+    monkeypatch.setenv("AKR_PALLAS_SHADE", "0")  # cbox bakes: the card's default is fused
     scene = load_scene(str(ROOT / "scenes/cbox/scene.json"), 64, 64, device=cuda)
     cfg = GPTConfig(spp=2, max_depth=7)
     gpt.render_gpt(scene, cfg, None, shift_mode="reconnect")  # the captures
@@ -871,6 +915,49 @@ def test_graphed_shift_shade_matches_eager_dispatch_on_card(cuda, monkeypatch):
     for key in ("dispatch_groups", "gpt_shifts", "gpt_shift_lanes"):
         assert gc[key] == ec[key], key
     assert gc["host_reads"] == ec["host_reads"] - 3 * ec["dispatch_groups"]
+
+
+def test_gpt_fused_route_matches_graphed_dispatch_on_card(cuda, monkeypatch):
+    """cbox 64x64, 2 spp, d7, the reconnection shift on the card: the
+    default route (K9's roughness and evaluation entries, every call of
+    the three sites one launch: gpt_fused_shades, no dispatch group, no
+    kind_rows read) against the per-kind dispatch replayed as CUDA graphs
+    (AKR_PALLAS_SHADE=0), on the same scene and samples: the
+    reconstruction, primal and gradients with channel means within 1e-3
+    (of the image's mean magnitude for the gradients) and all but 1 % of
+    the pixels within 1e-3, the tolerance of _gpt_on_card_and_cpu."""
+    from akari_render_tpu_torch import stats
+    from akari_render_tpu_torch.config import GPTConfig
+    from akari_render_tpu_torch.integrators import gpt
+
+    scene = load_scene(str(ROOT / "scenes/cbox/scene.json"), 64, 64, device=cuda)
+    cfg = GPTConfig(spp=2, max_depth=7)
+    out = {}
+    for route in ("0", None):
+        if route is None:
+            monkeypatch.delenv("AKR_PALLAS_SHADE", raising=False)
+        else:
+            monkeypatch.setenv("AKR_PALLAS_SHADE", route)
+        gpt.render_gpt(scene, cfg, None, shift_mode="reconnect")  # captures, builds
+        stats.reset()
+        before = fs.rough_launches, fs.eval_launches
+        img, st = gpt.render_gpt(scene, cfg, None, shift_mode="reconnect")
+        torch.cuda.synchronize()
+        c = dict(stats.counts)
+        c["rough"], c["eval"] = fs.rough_launches - before[0], fs.eval_launches - before[1]
+        out[route] = ({"recon": img, **{k: st[k] for k in ("primal", "gx", "gy")}}, st, c)
+    (want, wst, wc), (got, gst, gc) = out["0"], out[None]
+    assert wst["shade"] == "dispatch" and wc["gpt_fused_shades"] == 0 and wc["dispatch_groups"] > 0
+    assert gst["shade"] == "fused (K9)" and gc["dispatch_groups"] == 0
+    assert gc["gpt_fused_shades"] == gc["rough"] + gc["eval"] and gc["rough"] > 0 < gc["eval"]
+    assert gc["host_reads"] < wc["host_reads"]
+    for name, w in want.items():
+        g = got[name]
+        assert np.all(np.isfinite(g)), name
+        scale = np.maximum(np.abs(w.mean((0, 1))), np.abs(w).mean((0, 1)))
+        assert np.all(np.abs(g.mean((0, 1)) - w.mean((0, 1))) <= 1e-3 * scale), name
+        off = np.abs(g - w).max(axis=-1) > 1e-3 * np.maximum(np.abs(w).max(-1), 1.0)
+        assert off.mean() <= 0.01, (name, off.mean())
 
 
 def test_render_mcmc_on_card_matches_cpu(cuda, monkeypatch):

@@ -63,14 +63,24 @@ def metal_blinds(tmp_path) -> Path:
 def test_bake_matches_jax(variant, table, tmp_path):
     """bake_shading against JAX's _bake_shading on every column (the
     closures' constants, the GGX albedo knots), with the same flags; the
-    metal variant holds the conductor lobe's n and k too."""
+    metal variant holds the conductor lobe's n and k too. The column that
+    JAX's table leaves free (_MT_ROUGH, zero there) holds the roughness of
+    the port's reflection lobe, which GPT's reconnection shift reads: the
+    closure's dist_r.roughness, sqrt(alpha), 1 on a diffuse row."""
     path = BLINDS if variant == "blinds" else metal_blinds(tmp_path)
     want, w_spec, w_metal = jmk._bake_shading(j_load_scene(str(path), 16, 16))
     ts = load_scene(str(path), 16, 16, device="cpu", ggx_table=table)
     got, g_spec, g_metal = ts.shade_bake
     assert (g_spec, g_metal) == (w_spec, w_metal) == (True, variant == "metal")
     assert got.shape == (4, reduced.MAT_COLS) and reduced.MAT_COLS == jmk.MAT_COLS
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    rough = reduced._MT_ROUGH
+    others = np.arange(reduced.MAT_COLS) != rough
+    np.testing.assert_allclose(got.numpy()[:, others], np.asarray(want)[:, others], rtol=0,
+                               atol=1e-6)
+    assert not np.asarray(want)[:, rough].any()
+    alpha = got.numpy()[:, reduced._MT_ALPHA]
+    np.testing.assert_array_equal(got.numpy()[:, rough], np.sqrt(alpha))
+    assert (got.numpy()[:, rough] < 1.0).any()
     assert reduced.bake_shading(ts) is not None
 
 

@@ -17,6 +17,7 @@ from akari_render_tpu.svm.precompute import get_table as j_get_table
 from akari_render_tpu_torch.config import PTConfig
 from akari_render_tpu_torch.integrators.pt import render_pt as t_render_pt
 from akari_render_tpu_torch.scene import load_scene as t_load_scene
+from akari_render_tpu_torch.svm import reduced
 from torch_shader_scene import write_shader_scene
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -97,6 +98,9 @@ def test_bake_follows_fused_principled(jax_table, monkeypatch, fused):
     scene = t_load_scene(str(CBOX), 8, 8, device="cpu", ggx_table=jax_table)
     j_baked = j_bake_shading(j_load_scene(str(CBOX), 8, 8))
     assert (scene.shade_bake is not None) == (j_baked is not None) == (fused == "1")
-    if fused == "1":
-        np.testing.assert_allclose(scene.shade_bake[0].numpy(), np.asarray(j_baked[0]),
-                                   rtol=1e-6, atol=1e-7)
+    if fused == "1":  # JAX's table leaves _MT_ROUGH free; the port's holds the roughness
+        got, want = scene.shade_bake[0].numpy(), np.asarray(j_baked[0])
+        others = np.arange(reduced.MAT_COLS) != reduced._MT_ROUGH
+        np.testing.assert_allclose(got[:, others], want[:, others], rtol=1e-6, atol=1e-7)
+        np.testing.assert_array_equal(got[:, reduced._MT_ROUGH],
+                                      np.sqrt(got[:, reduced._MT_ALPHA]))
